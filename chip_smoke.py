@@ -5,24 +5,53 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, one JSON line each:
   1. device  - the card (nvidia-smi name and power limit), TF32 switched off;
-  2. build   - nvcc builds every CUDA source of the port for sm_90a;
+  2. build   - nvcc builds every CUDA source of the port for sm_90a, one
+               process per source, all at once;
   3. kernel  - kernel K1 (hot embedding bag) against its plain PyTorch
                version on the card: the dlrm-rmc1 production launch shape
                (f32), a dlrm-rm2 FULL-shaped bf16 table past 2**31
                elements, a batch of 37 bags and all-padding bags; timed with
                CUDA events beside the plain version, torch's embedding_bag
                and the card's bandwidth bound;
-  4. serve   - the main path: dlrm-rmc1 at production width served behind
+  4. serve   - the DLRM path: dlrm-rmc1 at production width served behind
                its Hercules schedule (``repro_torch.launch.serve_recsys``),
                with K1's launch count checked against the fused launches and
-               one fused batch's logits checked against the plain path.
-Then the kernel summary line, the nvidia-smi line, and last
+               one fused batch's logits checked against the plain path;
+  5. decode_kernel - kernel K3 (split-KV flash decode) against its plain
+               version at the decode_32k attention shape (q [16, 1, 24, 128],
+               k/v [16, 32768, 8, 128] bf16), a kv_len inside a split with a
+               nonzero kv_offset, a slice wholly past kv_len (its partial must
+               be exactly empty) and an f32 case; timed beside the plain
+               version, SDPA and the bandwidth bound;
+  6. attention_kernel - kernel K2 (flash attention) against attention_ref
+               at q [1, 4096, 24, 128], k/v [1, 4096, 8, 128] bf16 causal, an
+               f32 case and a q_offset case; K2 and SDPA timed alone at the
+               prefill_32k head shape (Tq = Tk = 32768), where the plain
+               version cannot run (103 GB of scores);
+  7. lm      - the LM path, llama3.2-3b FULL in bf16 with the int8 KV cache
+               (random weights from a seed) through ``repro_torch.launch.steps``
+               and ``repro_torch.models.transformer``: (a) the prefill_32k
+               cell at batch 1 (cut from 32: the reference's all-position
+               logits would be 269 GB), (b) the decode_32k cell at batch 16
+               (cut from 128: the int8 cache alone would be 240 GB), one step
+               at pos = S - 1 over a random int8 cache, with 28 K3 launches
+               and K3 held to its plain version at each call, (c) the LM
+               tenant answering 4 prompts of 1024 tokens with 32 greedy
+               decode steps, K3 held to its plain version at each of its 896
+               calls, (d) the steps of (b) and (c) in f32, their logits held
+               to the same path with K3 replaced by its plain version.
+Every attention-kernel check is also shown to fail planted faults (zeros,
+half the keys, the wrong KV head, the causal mask flipped); the kernel phases
+feed peaked queries so that attention outputs are O(1) against the bf16
+tolerance.
+Then the kernel summary line (K1, K2, K3), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits 2 before any phase.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -39,7 +68,26 @@ TIMING_REPS = 25
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: covers host enqueue
 F32_TOL = 1e-5    # tests/test_kernels.py tolerances
 BF16_TOL = 3e-2
+ATTN_F32_TOL = 2e-4  # attention kernels in f32 (tests/test_kernels.py)
 LOGIT_TOL = 1e-4  # fp32 sums in another order inside the MLPs
+BF16_PEAK = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+LM_ARCH = "llama3.2-3b"
+PREFILL_BATCH = 1    # prefill_32k cut 32 -> 1 for one card
+DECODE_BATCH = 16    # decode_32k cut 128 -> 16 for one card
+GEN_PROMPTS, GEN_CACHE, GEN_STEPS = 4, 2048, 32  # prompts of LM_CONTEXT
+# llama3.2-3b's attention heads, query / KV, and head size; the kernel
+# phases' sequence lengths (the decode_32k and prefill_32k cells, and the
+# longest causal length the plain attention can hold: 1.6 GB of scores)
+HEADS, KV_HEADS, HEAD_DIM = 24, 8, 128
+LONG_SEQ, ATTN_SEQ = 32768, 4096
+# The kernel phases scale q by 8 (exact in bf16): scores of std 8 put most
+# of each softmax row on a few keys, so the attention outputs are O(1) and
+# the bf16 tolerance tells a wrong key set, mask or head from rounding.
+PEAK = 8.0
+# The LM path in f32 against the same path with K3 replaced by its plain
+# version: f32 sums in another order inside K3 (~1e-7), amplified by 28
+# layers and by int8 cache codes they flip (a code moves 1/127 of its row).
+F32_PATH_TOL = 1e-3
 
 # Data-sheet HBM bandwidth (bytes/s) and non-tensor f32 rate (FLOP/s) by the
 # name nvidia-smi gives; NVIDIA H100 data sheet, dense rates.
@@ -123,8 +171,11 @@ def shifted_ids(ids, offsets):
 
 
 def check(name, got, want, tol) -> float:
-    """Max abs error of ``got`` against ``want``; raises past
-    ``|got - want| <= tol + tol * |want|`` (assert_allclose's rule)."""
+    """Max abs error of ``got`` against ``want``.  Raises past
+    ``|got - want| <= tol + tol * |want|`` at any element (assert_allclose's
+    rule) or past ``max |got - want| <= tol * max |want|``: the second ties
+    the tolerance to the scale of what is compared, so an output of zeros,
+    or one that lost a share of its keys, fails however small the values."""
     import torch
 
     g, w = got.float(), want.float()
@@ -137,7 +188,39 @@ def check(name, got, want, tol) -> float:
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} elements past tolerance "
                              f"{tol}, max abs err {float(err.max())}")
+    scale = float(w.abs().max())
+    if float(err.max()) > tol * scale:
+        raise AssertionError(f"{name}: max abs err {float(err.max())} past "
+                             f"{tol} x max |want| {scale}")
     return float(err.max())
+
+
+def must_fail(name, wrong, want, tol) -> None:
+    """A negative control of ``check``: ``wrong``, a planted fault, must
+    fail it."""
+    try:
+        check(name, wrong, want, tol)
+    except AssertionError:
+        return
+    raise AssertionError(f"{name}: a planted fault passed the check")
+
+
+def k3_controls(name, want, q, k, v, tol, *, kv_len, **kw) -> None:
+    """Planted faults of K3's output on these inputs, each of which the
+    check must fail: zeros, half of the live keys dropped, and the next
+    KV head's keys and values."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref
+
+    base = kw.get("kv_offset", 0)
+    must_fail(f"{name}, zeros", torch.zeros_like(want), want, tol)
+    must_fail(f"{name}, half the keys",
+              ref.flash_decode_ref(q, k, v, kv_len=base + (kv_len - base) // 2,
+                                   **kw), want, tol)
+    must_fail(f"{name}, wrong KV head",
+              ref.flash_decode_ref(q, k.roll(1, dims=2), v.roll(1, dims=2),
+                                   kv_len=kv_len, **kw), want, tol)
 
 
 def measure_k1(table, ids, bw: float, f32_rate: float) -> dict:
@@ -307,6 +390,585 @@ def phase_serve(dev, cfg) -> dict:
     }
 
 
+def leaves(tree):
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def attn_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_decode_kernel(dev, bw: float, f32_rate: float) -> dict:
+    """K3 against its plain version on the card; times at the decode_32k
+    attention shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    g = torch.Generator(dev).manual_seed(11)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    B, S, H, KVH, hd = DECODE_BATCH, LONG_SEQ, HEADS, KV_HEADS, HEAD_DIM
+    q, k, v = rand(B, 1, H, hd) * PEAK, rand(B, S, KVH, hd), rand(B, S, KVH, hd)
+    cases = {}
+
+    # (a) the decode_32k shape, every row live
+    out = ops.flash_decode(q, k, v, kv_len=S)
+    want = ref.flash_decode_ref(q, k, v, kv_len=S)
+    err = check("k3 decode_32k", out, want, BF16_TOL)
+    k3_controls("k3 decode_32k", want, q, k, v, BF16_TOL, kv_len=S)
+    parts = ops.flash_decode_partials(q, k, v, kv_len=S)
+    want = ref.flash_decode_partials_ref(q, k, v, kv_len=S)
+    for name, a, b in zip("mlo", parts, want):
+        check(f"k3 partial {name}", a, b, BF16_TOL)
+    torch.cuda.synchronize()
+    cases["decode_32k"] = err
+
+    # (b) a shard slice at kv_offset S / 32 whose kv_len ends inside a split
+    off, kv_len = S // 32, S // 32 + S * 3 // 8 + 57
+    ks, vs = k[:, :S // 2].contiguous(), v[:, :S // 2].contiguous()
+    got = ops.flash_decode_partials(q, ks, vs, kv_len=kv_len, kv_offset=off)
+    want = ref.flash_decode_partials_ref(q, ks, vs, kv_len=kv_len,
+                                         kv_offset=off)
+    errs = [check(f"k3 offset {n}", a, b, BF16_TOL)
+            for n, a, b in zip("mlo", got, want)]
+    want = ref.flash_decode_ref(q, ks, vs, kv_len=kv_len, kv_offset=off)
+    errs.append(check("k3 offset", ops.flash_decode(
+        q, ks, vs, kv_len=kv_len, kv_offset=off), want, BF16_TOL))
+    k3_controls("k3 offset", want, q, ks, vs, BF16_TOL, kv_len=kv_len,
+                kv_offset=off)
+    cases["offset_ragged"] = max(errs)
+
+    # (c) a slice wholly past kv_len: exactly the empty partial
+    m, l, o = ops.flash_decode_partials(q, ks, vs, kv_len=S, kv_offset=S)
+    if not (bool((l == 0).all()) and bool((o == 0).all())
+            and bool((m == -1e30).all())):
+        raise AssertionError("k3: a slice past kv_len gave a non-empty partial")
+    cases["past_kv_len_exactly_empty"] = True
+    del ks, vs
+
+    # (d) f32
+    qf, kf, vf = (rand(4, 1, H, hd, dtype=torch.float32) * PEAK,
+                  rand(4, S // 8, KVH, hd, dtype=torch.float32),
+                  rand(4, S // 8, KVH, hd, dtype=torch.float32))
+    want = ref.flash_decode_ref(qf, kf, vf, kv_len=S // 11)
+    cases["f32"] = check("k3 f32", ops.flash_decode(qf, kf, vf, kv_len=S // 11),
+                         want, ATTN_F32_TOL)
+    k3_controls("k3 f32", want, qf, kf, vf, ATTN_F32_TOL, kv_len=S // 11)
+    torch.cuda.synchronize()
+    del qf, kf, vf
+
+    # times at (a); SDPA on [B, H, 1, hd] against [B, KVH, S, hd]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    n_bytes = attn_bytes(q, k, v, out)
+    n_ops = 4 * B * H * S * hd          # QK^T and PV, f32 FMAs on CUDA cores
+    t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / f32_rate * 1e3
+    res = {
+        "phase": "decode_kernel", "shape": f"q [{B}, 1, {H}, {hd}], k/v "
+        f"[{B}, {S}, {KVH}, {hd}] bf16, kv_len {S}",
+        "max_abs_err": cases["decode_32k"], "tolerance": BF16_TOL,
+        "cases": cases,
+        "ms": time_ms(lambda: ops.flash_decode(q, k, v, kv_len=S)),
+        "plain_ms": time_ms(lambda: ref.flash_decode_ref(q, k, v, kv_len=S)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": n_bytes,
+    }
+    del q, k, v, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_attention_kernel(dev, bw: float) -> dict:
+    """K2 against attention_ref on the card; K2 and SDPA alone at the
+    prefill_32k head shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    g = torch.Generator(dev).manual_seed(12)
+    H, KVH, hd = HEADS, KV_HEADS, HEAD_DIM
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def sdpa(q, k, v):
+        """SDPA's causal call on [B, H, T, hd], K/V expanded to H heads
+        beforehand (outside the timing), so its flash backend serves it."""
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(H // KVH, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+
+    def bound(q, k, v, causal_ops):
+        t_ops = causal_ops / BF16_PEAK * 1e3
+        t_bytes = attn_bytes(q, k, v, q) / bw * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    def k2_case(name, q, k, v, tol, *, causal=True, q_offset=0) -> float:
+        """K2 against attention_ref on the same values in f32 (in bf16 the
+        plain version rounds scores of this size, up to ~40, by up to 0.25
+        before its softmax), then the planted faults the check must fail:
+        zeros, the causal mask flipped, the next KV head."""
+        def plain(q, k, v, causal=causal):
+            return ref.attention_ref(q.float(), k.float(), v.float(),
+                                     causal=causal, q_offset=q_offset)
+
+        want = plain(q, k, v)
+        err = check(name, ops.flash_attention(q, k, v, causal=causal,
+                                              q_offset=q_offset), want, tol)
+        must_fail(f"{name}, zeros", torch.zeros_like(want), want, tol)
+        must_fail(f"{name}, causal flipped", plain(q, k, v, not causal),
+                  want, tol)
+        must_fail(f"{name}, wrong KV head",
+                  plain(q, k.roll(1, dims=2), v.roll(1, dims=2)), want, tol)
+        return err
+
+    cases = {}
+    T = ATTN_SEQ
+    q, k, v = rand(1, T, H, hd) * PEAK, rand(1, T, KVH, hd), rand(1, T, KVH, hd)
+    cases["causal_bf16"] = k2_case("k2 causal", q, k, v, BF16_TOL)
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(q, k, v, 4 * H * T * T * hd / 2)
+    res = {"phase": "attention_kernel",
+           "shape": f"q [1, {T}, {H}, {hd}], k/v [1, {T}, {KVH}, {hd}] bf16 "
+                    "causal",
+           "ms": time_ms(lambda: ops.flash_attention(q, k, v)),
+           "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v)),
+           "library_ms": time_ms(sdpa(q, k, v)),
+           "bound_ms": b_ms, "bound_by": b_by}
+
+    n = T // 4                       # queries after a 2n-token prefix
+    qo, ko, vo = (rand(1, 2 * n, H, hd) * PEAK, rand(1, 4 * n, KVH, hd),
+                  rand(1, 4 * n, KVH, hd))
+    cases["q_offset_bf16"] = k2_case("k2 q_offset", qo, ko, vo, BF16_TOL,
+                                     q_offset=2 * n)
+    qf, kf, vf = (t[:, :n].float().contiguous() for t in (q, k, v))
+    cases["causal_f32"] = k2_case("k2 f32", qf, kf, vf, ATTN_F32_TOL)
+    cases["noncausal_f32"] = k2_case("k2 f32 non-causal", qf, kf, vf,
+                                     ATTN_F32_TOL, causal=False)
+    torch.cuda.synchronize()
+    del q, k, v, qo, ko, vo, qf, kf, vf
+    torch.cuda.empty_cache()
+
+    # the prefill_32k head shape: kernel and library only
+    T = LONG_SEQ
+    q, k, v = rand(1, T, H, hd), rand(1, T, KVH, hd), rand(1, T, KVH, hd)
+    out = ops.flash_attention(q, k, v)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("k2 prefill_32k: non-finite output")
+    b_ms, b_by = bound(q, k, v, 4 * H * T * T * hd / 2)
+    res["prefill_32k"] = {
+        "shape": f"q [1, {T}, {H}, {hd}], k/v [1, {T}, {KVH}, {hd}] bf16 "
+                 "causal",
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v), reps=5),
+        "library_ms": time_ms(sdpa(q, k, v), reps=5),
+        "plain_ms": None,  # [1, 8, 3, 32768, 32768] f32 scores: 103 GB
+        "bound_ms": b_ms, "bound_by": b_by}
+    res["cases"] = cases
+    res["max_abs_err"] = cases["causal_bf16"]
+    res["tolerance"] = BF16_TOL
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def swap_k3(fn):
+    """The LM path with ``repro_torch.dist.decode.flash_decode`` (K3's
+    wrapper) replaced by ``fn`` for the duration."""
+    from repro_torch.dist import decode
+
+    saved = decode.flash_decode
+    decode.flash_decode = fn
+    try:
+        yield saved
+    finally:
+        decode.flash_decode = saved
+
+
+def plain_k3():
+    """K3 replaced by its plain version (on the card)."""
+    from repro_torch.kernels.flash_attention import ref
+
+    return swap_k3(ref.flash_decode_ref)
+
+
+def nudged_plain_k3():
+    """K3 replaced by its plain version, with every element of its first
+    call's output (the first layer's attention) moved by one bf16 ulp."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref
+
+    calls = []
+
+    def fn(q, k, v, **kw):
+        out = ref.flash_decode_ref(q, k, v, **kw)
+        if not calls:
+            out = (out.view(torch.int16) + 1).view(out.dtype)
+        calls.append(1)
+        return out
+
+    return swap_k3(fn)
+
+
+@contextlib.contextmanager
+def k3_checked(errs: list):
+    """K3 as on the path, held at every call to its plain version on the
+    same inputs at the bf16 tolerance, with the planted faults of
+    ``k3_controls`` failing the same check; the kernel's output continues
+    the path.  Each call's max abs error goes to ``errs``."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    def both(q, k, v, **kw):
+        out = ops.flash_decode(q, k, v, **kw)
+        want = ref.flash_decode_ref(q, k, v, **kw)
+        name = f"K3 call {len(errs)}"
+        errs.append(check(name, out, want, BF16_TOL))
+        k3_controls(name, want, q, k, v, BF16_TOL, **kw)
+        return out
+
+    with swap_k3(both):
+        yield
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to each tensor of a nested dict."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, val) for key, val in tree.items()}
+    return fn(tree)
+
+
+def drift(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def generate(params, cfg, cache, first, steps: int, *, fed=None, times=None):
+    """``steps`` decode steps at positions LM_CONTEXT, LM_CONTEXT + 1, ...
+    from the token ``first`` [B, 1], greedy or, given ``fed``, on those
+    tokens (teacher forcing).  Returns each step's logits and the tokens
+    fed; with ``times``, appends each step's host milliseconds from an idle
+    device."""
+    import torch
+
+    from repro_torch.configs.paper_models import LM_CONTEXT
+    from repro_torch.models import transformer as tf
+
+    out, tokens, tok = [], [], first
+    with torch.inference_mode():
+        for t in range(steps):
+            if fed is not None:
+                tok = fed[t]
+            tokens.append(tok)
+            if times is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            logits, cache = tf.decode_step(params, tok, cache, LM_CONTEXT + t,
+                                           cfg)
+            if times is not None:
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits)
+            tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+    return out, tokens
+
+
+def prefill_prompts(params, cfg, prompts, dev):
+    """The prompts prefilled into a cache of GEN_CACHE rows: the last
+    logits, the cache, and the prefill's host milliseconds."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    with torch.inference_mode():
+        cache = tf.init_kv_cache(cfg, prompts.shape[0], GEN_CACHE, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = tf.prefill(params, prompts, cache, cfg)
+        torch.cuda.synchronize()
+    return last, cache, (time.perf_counter() - t0) * 1e3
+
+
+def clone(tree):
+    import torch
+
+    with torch.inference_mode():
+        return tree_map(torch.clone, tree)
+
+
+def phase_lm(dev) -> dict:
+    """llama3.2-3b FULL: the prefill_32k and decode_32k cells on one card,
+    the LM tenant serving a few greedy generations, then both decode runs
+    in f32 held to the plain-K3 path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.paper_models import LM_CONTEXT
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator(dev).manual_seed(0)
+    pre = build_cell(LM_ARCH, "prefill_32k", dev, batch=PREFILL_BATCH)
+    dec = build_cell(LM_ARCH, "decode_32k", dev, batch=DECODE_BATCH)
+    cfg = dec.cfg
+    if not (cfg.decode_impl == "flash" and cfg.kv_quant == "int8"
+            and pre.cfg.attn_impl == "chunked"):
+        raise AssertionError(f"unexpected cell configs {pre.cfg} / {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    params = pre.init_state(g)
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, expected "
+                             f"{cfg.param_count()}")
+    res = {"phase": "lm", "model": LM_ARCH, "params": n_params,
+           "weights_gb": n_params * 2 / 1e9}
+
+    # (a) prefill_32k: batch 1, S = 32768
+    tokens = torch.randint(0, cfg.vocab, (pre.batch, pre.seq_len),
+                           generator=g, device=dev, dtype=torch.int32)
+    ops.launches["flash_decode"] = 0
+    times = []
+    for _ in range(2):               # the first run warms cuBLAS up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pre.run(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    logits = out["logits"]
+    if tuple(logits.shape) != (pre.batch, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite")
+    res["prefill_32k"] = {"batch": pre.batch, "seq_len": pre.seq_len,
+                          "ms": times[-1], "first_ms": times[0],
+                          "logits_finite": True,
+                          "k3_launches": ops.launches["flash_decode"]}
+    del out, logits, tokens
+    torch.cuda.empty_cache()
+
+    # (b) decode_32k: batch 16, one step at pos = S - 1 over a random cache.
+    # The step runs alone, K3's count set to 0 just before it; then with K3
+    # checked at each of its 28 calls (bitwise equal to the first run);
+    # then with K3 replaced by its plain version outright, and that plain
+    # path again with the first layer's attention moved by one bf16 ulp.
+    # The two logit differences are reported side by side; (d) holds the
+    # same step in f32 to a tolerance.
+    B, S = dec.batch, dec.seq_len
+    specs = dec.batch_specs["cache"]
+    cache = {name: torch.randint(-127, 128, spec.shape, generator=g,
+                                 device=dev, dtype=torch.int8)
+             for name, spec in specs.items() if spec.dtype == torch.int8}
+    for name in ("ks", "vs"):
+        cache[name] = torch.empty(specs[name].shape, device=dev).uniform_(
+            0.005, 0.02, generator=g)
+    token = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=dev,
+                          dtype=torch.int32)
+    batch = {"token": token, "cache": cache}
+    ops.launches["flash_decode"] = 0
+    got = dec.run(params, batch)["logits"]
+    torch.cuda.synchronize()
+    k3_step = ops.launches["flash_decode"]
+    if k3_step != cfg.n_layers:
+        raise AssertionError(f"K3 launched {k3_step} times in a decode step, "
+                             f"expected {cfg.n_layers}")
+    layer_errs = []
+    with k3_checked(layer_errs):
+        checked = dec.run(params, batch)["logits"]
+    if not bool(torch.equal(checked, got)):
+        raise AssertionError("decode_32k: the checked step differs from the "
+                             "step alone")
+    with plain_k3():
+        plain = dec.run(params, batch)["logits"]
+    with nudged_plain_k3():
+        nudged = dec.run(params, batch)["logits"]
+    step_ms = host_ms(lambda: dec.run(params, batch), reps=5)
+    with torch.inference_mode():   # one layer's dequantisation, alone
+        deq_ms = time_ms(lambda: (cache["k"][0].to(torch.bfloat16)
+                                  * cache["ks"][0].to(torch.bfloat16),
+                                  cache["v"][0].to(torch.bfloat16)
+                                  * cache["vs"][0].to(torch.bfloat16)), reps=5)
+    res["decode_32k"] = {
+        "batch": B, "seq_len": S, "pos": S - 1,
+        "cache_gb": sum(t.numel() * t.element_size()
+                        for t in cache.values()) / 1e9,
+        "step_ms": step_ms, "k3_launches": k3_step,
+        "k3_vs_plain_max_abs_err_per_call": max(layer_errs),
+        "tolerance": BF16_TOL, "planted_faults_failed": 3 * len(layer_errs),
+        "logits_max_abs_err_plain_path": drift(got, plain),
+        "logits_mean_abs_err_plain_path": float((got.float() - plain.float())
+                                                .abs().mean()),
+        "logits_max_abs_drift_plain_path_one_ulp": drift(nudged, plain),
+        "logits_std": float(got.float().std()),
+        "argmax_agreement_plain_path": float(
+            (got.argmax(-1) == plain.argmax(-1)).float().mean()),
+        "dequant_ms_per_layer": deq_ms,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del got, checked, plain, nudged    # the cache stays for (d)
+    torch.cuda.empty_cache()
+
+    # (c) the LM tenant: 4 prompts of LM_CONTEXT tokens, 32 greedy steps
+    # alone, K3's count set to 0 just before them; then the same 32 steps
+    # from the same prefilled cache, fed the same tokens, once with K3
+    # checked at each call (bitwise equal to the first run) and once with
+    # K3 replaced by its plain version.
+    prompts = torch.randint(0, cfg.vocab, (GEN_PROMPTS, LM_CONTEXT),
+                            generator=g, device=dev, dtype=torch.int32)
+    last, gen_cache, prefill_ms = prefill_prompts(params, cfg, prompts, dev)
+    prefilled = clone(gen_cache)
+    first = last.argmax(dim=-1, keepdim=True).to(torch.int32)
+    step_times = []
+    ops.launches["flash_decode"] = 0
+    timed, fed = generate(params, cfg, gen_cache, first, GEN_STEPS,
+                          times=step_times)
+    torch.cuda.synchronize()
+    gen_launches = ops.launches["flash_decode"]
+    if gen_launches != cfg.n_layers * GEN_STEPS:
+        raise AssertionError(f"K3 launched {gen_launches} times in "
+                             f"{GEN_STEPS} steps, expected "
+                             f"{cfg.n_layers * GEN_STEPS}")
+    layer_errs = []
+    with k3_checked(layer_errs):
+        checked, _ = generate(params, cfg, clone(prefilled), first, GEN_STEPS,
+                              fed=fed)
+    if len(layer_errs) != cfg.n_layers * GEN_STEPS:
+        raise AssertionError(f"{len(layer_errs)} checked K3 calls")
+    for t, (a, b) in enumerate(zip(checked, timed)):
+        if not bool(torch.equal(a, b)):
+            raise AssertionError(f"generation step {t}: the checked step "
+                                 "differs from the run alone")
+    with plain_k3():
+        plain, _ = generate(params, cfg, clone(prefilled), first, GEN_STEPS,
+                            fed=fed)
+    e2e = [drift(a, b) for a, b in zip(timed, plain)]
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(timed, plain))
+    step_med = statistics.median(step_times)
+    res["generate"] = {
+        "prompts": GEN_PROMPTS, "context": LM_CONTEXT, "cache_len": GEN_CACHE,
+        "steps": GEN_STEPS, "prefill_ms": prefill_ms,
+        "step_ms_median": step_med, "step_ms_min": min(step_times),
+        "step_ms_max": max(step_times),
+        "tokens_per_s": GEN_PROMPTS / step_med * 1e3,
+        "k3_launches": gen_launches,
+        "k3_vs_plain_max_abs_err_per_call": max(layer_errs),
+        "tolerance": BF16_TOL, "planted_faults_failed": 3 * len(layer_errs),
+        "logits_max_abs_err_plain_path": max(e2e),
+        "logits_max_abs_err_plain_path_first_step": e2e[0],
+        "argmax_agreement_plain_path": agree / (GEN_PROMPTS * GEN_STEPS)}
+    del gen_cache, prefilled, timed, checked, plain
+    torch.cuda.empty_cache()
+
+    # (d) the f32 witness: the weights of (a)-(c) in f32, the int8 cache
+    # dequantised to f32.  The decode_32k step of (b), same cache and
+    # token, and the generation of (c), same prompts, each held at every
+    # step to the same path with K3 replaced by its plain version.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.inference_mode():
+        params32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        got, _ = tf.decode_step(params32, token, cache, S - 1, cfg32)
+        with plain_k3():
+            plain, _ = tf.decode_step(params32, token, cache, S - 1, cfg32)
+    dec_err = check("decode_32k f32 logits against the plain-K3 path", got,
+                    plain, F32_PATH_TOL)
+    dec_std = float(got.std())
+    del batch, cache, got, plain, token
+    torch.cuda.empty_cache()
+    last, gen_cache, _ = prefill_prompts(params32, cfg32, prompts, dev)
+    prefilled = clone(gen_cache)
+    first = last.argmax(dim=-1, keepdim=True).to(torch.int32)
+    timed, fed = generate(params32, cfg32, gen_cache, first, GEN_STEPS)
+    with plain_k3():
+        plain, _ = generate(params32, cfg32, prefilled, first, GEN_STEPS,
+                            fed=fed)
+    gen_errs = [check(f"generation step {t} f32 logits against the plain-K3 "
+                      "path", a, b, F32_PATH_TOL)
+                for t, (a, b) in enumerate(zip(timed, plain))]
+    res["f32_witness"] = {
+        "tolerance": F32_PATH_TOL,
+        "decode_32k_logits_max_abs_err": dec_err,
+        "decode_32k_logits_std": dec_std,
+        "generate_logits_max_abs_err": max(gen_errs),
+        "generate_logits_max_abs_err_first_step": gen_errs[0],
+        "generate_argmax_agreement": sum(
+            int((a.argmax(-1) == b.argmax(-1)).sum())
+            for a, b in zip(timed, plain)) / (GEN_PROMPTS * GEN_STEPS)}
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params32, gen_cache, prefilled, timed, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
+                   lm: dict) -> list[dict]:
+    """The summary of every kernel: where it replaces a TPU kernel, its
+    launches on the paths driven here, its error and its times."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import variant
+
+    m = k1["rmc1"]
+    return [{
+        "name": "hot_embedding_bag",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:43",
+        "launches": serve_line["k1_launches"],
+        "max_abs_err": m["max_abs_err"],
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        "shape": f"table {m['table'][0]}x{m['table'][1]} f32, "
+                 f"{m['bags']} bags x P={m['P']}",
+        "tolerance": m["tolerance"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:76",
+        "launches": 0,
+        "launches_note": "no model path calls K2: the reference's prefill "
+                         "uses _attention_chunked; K2 is reached only "
+                         "through ops.flash_attention",
+        "variant": variant(torch.bfloat16, HEAD_DIM),
+        "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+        "shape": k2["shape"], "tolerance": k2["tolerance"],
+        "prefill_32k": k2["prefill_32k"],
+    }, {
+        "name": "flash_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_decode.py:76",
+        "launches": lm["generate"]["k3_launches"],
+        "launches_note": f"the {GEN_STEPS} generation steps alone, counted "
+                         "from 0; the decode_32k step alone launched "
+                         f"{lm['decode_32k']['k3_launches']}",
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+        "shape": k3["shape"], "tolerance": k3["tolerance"],
+    }]
+
+
 def main() -> int:
     try:
         import torch
@@ -354,24 +1016,22 @@ def main() -> int:
     # 3. kernel
     k1 = phase_kernel(dev, bw, f32_rate, rmc1(True), dlrm_rm2.FULL)
 
-    # 4. serve (the main path; the K1 count is reset inside, just before it)
+    # 4. serve (the DLRM path; the K1 count is reset inside, just before it)
     serve_line = phase_serve(dev, rmc1(True))
     emit(serve_line)
 
-    m = k1["rmc1"]
-    emit({"kernels": [{
-        "name": "hot_embedding_bag",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
-        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:43",
-        "launches": serve_line["k1_launches"],
-        "max_abs_err": m["max_abs_err"],
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-        "shape": f"table {m['table'][0]}x{m['table'][1]} f32, "
-                 f"{m['bags']} bags x P={m['P']}",
-        "tolerance": m["tolerance"],
-    }], "seconds": time.perf_counter() - t_start})
+    # 5-6. the attention kernels alone
+    k3 = phase_decode_kernel(dev, bw, f32_rate)
+    emit(k3)
+    k2 = phase_attention_kernel(dev, bw)
+    emit(k2)
+
+    # 7. the LM path (K3's count is reset inside, just before each cell)
+    lm = phase_lm(dev)
+    emit(lm)
+
+    emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm),
+          "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

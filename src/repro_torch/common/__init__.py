@@ -6,11 +6,18 @@ from repro_torch.common.init import (
     uniform_init,
     xavier_init,
 )
-from repro_torch.common.types import ArchKind, ShapeSpec, dtype_of, resolve_device
+from repro_torch.common.types import (
+    ArchKind,
+    ShapeSpec,
+    TensorSpec,
+    dtype_of,
+    resolve_device,
+)
 
 __all__ = [
     "ArchKind",
     "ShapeSpec",
+    "TensorSpec",
     "dtype_of",
     "resolve_device",
     "embedding_init",

@@ -38,6 +38,15 @@ class ShapeSpec:
         return self.dims.get(key, default)
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of a tensor that is not allocated (the port's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
 _DTYPES = {
     "bf16": torch.bfloat16,
     "f32": torch.float32,

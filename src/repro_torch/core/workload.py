@@ -26,6 +26,7 @@ import numpy as np
 
 if TYPE_CHECKING:  # annotation only: core stays importable without torch
     from repro_torch.models.recsys_base import RecsysConfig
+    from repro_torch.models.transformer import LMConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,3 +173,25 @@ def profile_recsys(cfg: RecsysConfig, sla_ms: float) -> ModelProfile:
     weight_gb = sum(o.weight_bytes for o in ops) / 1e9
     return ModelProfile(name=cfg.name, ops=tuple(ops), table_gb=table_gb,
                         weight_gb=weight_gb, sla_ms=sla_ms)
+
+
+def profile_lm_decode(cfg: LMConfig, context: int, sla_ms: float) -> ModelProfile:
+    """LM serving profile: one item = one decode token against `context` KV."""
+    db = 2.0  # bf16 serving
+    n_active = cfg.active_param_count()
+    weight_bytes = cfg.param_count() * db
+    kv_bytes = 2.0 * cfg.n_layers * context * cfg.n_kv_heads * cfg.head_dim * db
+    ops = (
+        OpCost(name="token_embed", stage="sparse", level=0,
+               gather_bytes=cfg.d_model * db, host_bytes=4.0),
+        OpCost(name="decode_blocks", stage="dense", level=1,
+               flops=2.0 * n_active + 2.0 * 2.0 * cfg.n_layers * context
+               * cfg.n_kv_heads * cfg.head_dim,
+               stream_bytes=kv_bytes + cfg.n_layers * cfg.d_model * db * 4,
+               weight_bytes=weight_bytes),
+        OpCost(name="lm_head", stage="dense", level=2,
+               flops=2.0 * cfg.d_model * cfg.vocab,
+               stream_bytes=cfg.vocab * db),
+    )
+    return ModelProfile(name=cfg.name, ops=ops, table_gb=0.0,
+                        weight_gb=weight_bytes / 1e9, sla_ms=sla_ms)

@@ -1,7 +1,11 @@
 """Kernels written by hand for Hopper (sm_90a), one per TPU kernel of the
-reference that the port has reached.
+reference.
 
 - embedding_bag (K1): fused SparseLengthsSum over a hot table, CUDA C++.
+- flash_attention (K2): blocked causal GQA flash attention, CUDA C++
+  (``mma.sync`` bf16 tensor cores; CUDA-core f32 variant).
+- flash_attention (K3): split-KV flash decode with its partial merge, CUDA
+  C++ (``csrc/flash_decode.cu``).
 
 Each kernel ships ``csrc/*.cu`` (the kernel, plain C interface),
 ``<name>.py`` (the ctypes launcher), ``ops.py`` (the wrapper: plain version
@@ -10,3 +14,15 @@ for CPU tensors, the kernel for CUDA tensors, a launch count) and
 with nvcc at first use.  The reference's DLRM ``dot_interaction`` has no
 kernel in either package; the port computes it with torch ops.
 """
+from repro_torch.kernels.embedding_bag.ops import hot_embedding_bag
+from repro_torch.kernels.embedding_bag.ref import hot_embedding_bag_ref
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_decode,
+    flash_decode_partials,
+)
+from repro_torch.kernels.flash_attention.ref import attention_ref, lse_combine
+
+__all__ = ["hot_embedding_bag", "hot_embedding_bag_ref", "flash_attention",
+           "flash_decode", "flash_decode_partials", "attention_ref",
+           "lse_combine"]

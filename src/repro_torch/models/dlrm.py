@@ -12,10 +12,10 @@ so ``params_from_reference`` carries reference weights across unchanged.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.common.convert import tree_from_numpy
 from repro_torch.models import embedding as emb_lib
 from repro_torch.models.layers import MLP, init_mlp
 from repro_torch.models.recsys_base import RecsysConfig
@@ -89,21 +89,8 @@ def init(cfg: RecsysConfig, *, generator: torch.Generator,
     return DLRM(cfg, params)
 
 
-def _tensor(a, device: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes: torch.from_numpy rejects it
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
-
-
 def params_from_reference(tree, *, device: torch.device):
     """The reference ``dlrm.init`` pytree (leaves as numpy arrays, or
     anything ``np.asarray`` takes) as the same pytree of tensors on
     ``device``, ready for ``DLRM(cfg, params)``."""
-    if isinstance(tree, dict):
-        return {k: params_from_reference(v, device=device)
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_from_reference(v, device=device) for v in tree]
-    return _tensor(tree, device)
+    return tree_from_numpy(tree, device)
