@@ -22,29 +22,46 @@ Phases, one JSON line each:
                k/v [16, 32768, 8, 128] bf16), a kv_len inside a split with a
                nonzero kv_offset, a slice wholly past kv_len (its partial must
                be exactly empty) and an f32 case; timed beside the plain
-               version, SDPA and the bandwidth bound;
+               version, SDPA and the bandwidth bound.  Then K3's int8 entry
+               on a random int8 cache of the same shape (scales in [0.005,
+               0.02]): every row live, a ragged kv_len, a shard slice whose
+               kv_len ends inside a split, f32 q; each against its plain
+               version and bitwise against the bf16/f32 entry on the cache
+               dequantised eagerly; timed beside its plain version, the
+               eager dequantisation plus the bf16 entry (the path before it)
+               and its bandwidth bound; the same at the LM tenant's shape
+               (q [4, 1, 24, 128], a 2048-row int8 cache), with the split
+               plan taken there; and the bf16 entry at head size 32 (its
+               CUDA-core variant);
   6. attention_kernel - kernel K2 (flash attention) against attention_ref
                at q [1, 4096, 24, 128], k/v [1, 4096, 8, 128] bf16 causal, an
-               f32 case and a q_offset case; K2 and SDPA timed alone at the
-               prefill_32k head shape (Tq = Tk = 32768), where the plain
-               version cannot run (103 GB of scores);
+               f32 case and a q_offset case; at the prefill_32k head shape
+               (Tq = Tk = 32768), where the plain version cannot run whole
+               (103 GB of scores), on its first 128 and last 256 query rows;
+               K2 and SDPA timed at both shapes;
   7. lm      - the LM path, llama3.2-3b FULL in bf16 with the int8 KV cache
                (random weights from a seed) through ``repro_torch.launch.steps``
                and ``repro_torch.models.transformer``: (a) the prefill_32k
                cell at batch 1 (cut from 32: the reference's all-position
                logits would be 269 GB), (b) the decode_32k cell at batch 16
                (cut from 128: the int8 cache alone would be 240 GB), one step
-               at pos = S - 1 over a random int8 cache, with 28 K3 launches
-               and K3 held to its plain version at each call, (c) the LM
-               tenant answering 4 prompts of 1024 tokens with 32 greedy
-               decode steps, K3 held to its plain version at each of its 896
-               calls, (d) the steps of (b) and (c) in f32, their logits held
-               to the same path with K3 replaced by its plain version.
+               at pos = S - 1 over a random int8 cache, with 28 launches of
+               K3's int8 entry (no eager dequantisation: the step's memory
+               above its inputs stays below one dequantised layer) and K3
+               held to its plain version at each call, (c) the LM tenant
+               answering 4 prompts of 1024 tokens with 32 greedy decode
+               steps, K3 held to its plain version at each of its 896 calls,
+               one more step under torch.profiler (device busy, idle share),
+               (d) the steps of (b) and (c) in f32, K3 held to its plain
+               version at each call, their logits held to the same path
+               with K3 replaced by its plain version.
 Every attention-kernel check is also shown to fail planted faults (zeros,
-half the keys, the wrong KV head, the causal mask flipped); the kernel phases
-feed peaked queries so that attention outputs are O(1) against the bf16
+half the keys, the wrong KV head, the causal mask flipped, and for the int8
+entry each row read with the next row's scales); the kernel phases feed
+peaked queries so that attention outputs are O(1) against the bf16
 tolerance.
-Then the kernel summary line (K1, K2, K3), the nvidia-smi line, and last
+Then the kernel summary line (K1, K2, K3 and K3's int8 entry), the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits 2 before any phase.
@@ -80,6 +97,9 @@ GEN_PROMPTS, GEN_CACHE, GEN_STEPS = 4, 2048, 32  # prompts of LM_CONTEXT
 # longest causal length the plain attention can hold: 1.6 GB of scores)
 HEADS, KV_HEADS, HEAD_DIM = 24, 8, 128
 LONG_SEQ, ATTN_SEQ = 32768, 4096
+# K2 at LONG_SEQ is held on its first and last query rows (the last slice's
+# f32 scores against every key: [1, 8, 3, 256, 32768], 0.8 GB)
+PREFILL_HEAD, PREFILL_TAIL = 128, 256
 # The kernel phases scale q by 8 (exact in bf16): scores of std 8 put most
 # of each softmax row on a few keys, so the attention outputs are O(1) and
 # the bf16 tolerance tells a wrong key set, mask or head from rounding.
@@ -221,6 +241,50 @@ def k3_controls(name, want, q, k, v, tol, *, kv_len, **kw) -> None:
     must_fail(f"{name}, wrong KV head",
               ref.flash_decode_ref(q, k.roll(1, dims=2), v.roll(1, dims=2),
                                    kv_len=kv_len, **kw), want, tol)
+
+
+def k3_int8_controls(name, want, q, kq, ks, vq, vs, tol, *, kv_len,
+                     **kw) -> None:
+    """Planted faults of K3's int8 entry on these inputs, each of which the
+    check must fail: zeros, half of the live keys dropped, the next KV
+    head's keys, values and scales, and each row read with the next row's
+    scales."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref
+
+    base = kw.get("kv_offset", 0)
+    must_fail(f"{name}, zeros", torch.zeros_like(want), want, tol)
+    must_fail(f"{name}, half the keys", ref.flash_decode_int8_ref(
+        q, kq, ks, vq, vs, kv_len=base + (kv_len - base) // 2, **kw), want,
+        tol)
+    must_fail(f"{name}, wrong KV head", ref.flash_decode_int8_ref(
+        q, *(t.roll(1, dims=2) for t in (kq, ks, vq, vs)), kv_len=kv_len,
+        **kw), want, tol)
+    must_fail(f"{name}, next row's scales", ref.flash_decode_int8_ref(
+        q, kq, ks.roll(-1, dims=1), vq, vs.roll(-1, dims=1), kv_len=kv_len,
+        **kw), want, tol)
+
+
+def int8_case(name, q, kq, ks, vq, vs, tol, *, kv_len, **kw) -> float:
+    """K3's int8 entry against its plain version (then its planted faults),
+    and bitwise against the entry in q's dtype on the cache dequantised
+    eagerly: the two share one kernel template and one split plan."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    got = ops.flash_decode_int8(q, kq, ks, vq, vs, kv_len=kv_len, **kw)
+    want = ref.flash_decode_int8_ref(q, kq, ks, vq, vs, kv_len=kv_len, **kw)
+    err = check(name, got, want, tol)
+    k3_int8_controls(name, want, q, kq, ks, vq, vs, tol, kv_len=kv_len, **kw)
+    same = ops.flash_decode(q, ref.dequantize_kv(kq, ks, q.dtype),
+                            ref.dequantize_kv(vq, vs, q.dtype),
+                            kv_len=kv_len, **kw)
+    if not bool(torch.equal(got, same)):
+        raise AssertionError(f"{name}: the int8 entry differs from the "
+                             f"{q.dtype} entry on the dequantised cache")
+    return err
 
 
 def measure_k1(table, ids, bw: float, f32_rate: float) -> dict:
@@ -403,7 +467,7 @@ def attn_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def phase_decode_kernel(dev, bw: float, f32_rate: float) -> dict:
+def phase_decode_kernel(dev, bw: float) -> dict:
     """K3 against its plain version on the card; times at the decode_32k
     attention shape."""
     import torch
@@ -469,8 +533,8 @@ def phase_decode_kernel(dev, bw: float, f32_rate: float) -> dict:
     # times at (a); SDPA on [B, H, 1, hd] against [B, KVH, S, hd]
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     n_bytes = attn_bytes(q, k, v, out)
-    n_ops = 4 * B * H * S * hd          # QK^T and PV, f32 FMAs on CUDA cores
-    t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / f32_rate * 1e3
+    n_ops = 4 * B * H * S * hd          # QK^T and PV (bf16 tensor cores)
+    t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / BF16_PEAK * 1e3
     res = {
         "phase": "decode_kernel", "shape": f"q [{B}, 1, {H}, {hd}], k/v "
         f"[{B}, {S}, {KVH}, {hd}] bf16, kv_len {S}",
@@ -484,7 +548,106 @@ def phase_decode_kernel(dev, bw: float, f32_rate: float) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": n_bytes,
     }
-    del q, k, v, qt, kt, vt, out
+    del k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # (e) the int8 entry (the LM path's): a random int8 cache with scales
+    # in [0.005, 0.02], as phase_lm (b) makes; every row live, a ragged
+    # kv_len, a shard slice whose kv_len ends inside a split, and f32 q
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.empty(shape, device=dev).uniform_(0.005, 0.02,
+                                                       generator=g)
+
+    kq, vq = int8(B, S, KVH, hd), int8(B, S, KVH, hd)
+    ks, vs = scales(B, S, KVH, 1), scales(B, S, KVH, 1)
+    i8 = {"decode_32k": int8_case("k3 int8 decode_32k", q, kq, ks, vq, vs,
+                                  BF16_TOL, kv_len=S)}
+    i8["ragged"] = int8_case("k3 int8 ragged", q, kq, ks, vq, vs, BF16_TOL,
+                             kv_len=S * 5 // 8 + 13)
+    off, kv_len = S // 32, S // 32 + S * 3 // 8 + 57
+    half = [t[:, :S // 2].contiguous() for t in (kq, ks, vq, vs)]
+    i8["offset_ragged"] = int8_case("k3 int8 offset", q, *half, BF16_TOL,
+                                    kv_len=kv_len, kv_offset=off)
+    del half
+    nf = min(4, B)
+    qf = rand(nf, 1, H, hd, dtype=torch.float32) * PEAK
+    small = [t[:nf, :S // 8].contiguous() for t in (kq, ks, vq, vs)]
+    i8["f32"] = int8_case("k3 int8 f32", qf, *small, ATTN_F32_TOL,
+                          kv_len=S // 11)
+    del small, qf
+    torch.cuda.synchronize()
+    n_bytes = attn_bytes(q, kq, ks, vq, vs, out)
+    t_bytes = n_bytes / bw * 1e3
+    res["int8"] = {
+        "shape": f"q [{B}, 1, {H}, {hd}] bf16, k/v [{B}, {S}, {KVH}, {hd}] "
+                 f"int8, scales [{B}, {S}, {KVH}, 1] f32, kv_len {S}",
+        "max_abs_err": i8["decode_32k"], "tolerance": BF16_TOL,
+        "cases": i8, "bitwise_equal_to_bf16_entry_on_dequantised_cache": True,
+        "ms": time_ms(lambda: ops.flash_decode_int8(q, kq, ks, vq, vs,
+                                                    kv_len=S)),
+        "plain_ms": time_ms(lambda: ref.flash_decode_int8_ref(
+            q, kq, ks, vq, vs, kv_len=S), reps=5),
+        # what the path ran before: the eager dequantisation, then K3
+        "eager_dequant_then_k3_ms": time_ms(lambda: ops.flash_decode(
+            q, ref.dequantize_kv(kq, ks, q.dtype),
+            ref.dequantize_kv(vq, vs, q.dtype), kv_len=S), reps=5),
+        "library_ms": None,
+        "library_note": "no single PyTorch call attends over an int8 cache "
+                        "with per-row scales",
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": n_bytes,
+    }
+    del q, kq, vq, ks, vs, out
+    torch.cuda.empty_cache()
+
+    # (f) the LM tenant's shape (phase_lm (c)): GEN_PROMPTS queries against
+    # a GEN_CACHE-row int8 cache at its last generation step's kv_len; the
+    # int8 entry against the eager dequantisation of the whole cache (what
+    # the path ran before) followed by the bf16 entry, and the split plan
+    # both entries take there
+    from repro_torch.configs.paper_models import LM_CONTEXT
+    from repro_torch.kernels.flash_attention.flash_decode import split_plan
+
+    Bt, kv_len = GEN_PROMPTS, LM_CONTEXT + GEN_STEPS
+    q = rand(Bt, 1, H, hd) * PEAK
+    kq, vq = int8(Bt, GEN_CACHE, KVH, hd), int8(Bt, GEN_CACHE, KVH, hd)
+    ks, vs = scales(Bt, GEN_CACHE, KVH, 1), scales(Bt, GEN_CACHE, KVH, 1)
+    err = int8_case("k3 int8 tenant", q, kq, ks, vq, vs, BF16_TOL,
+                    kv_len=kv_len)
+    live = [t[:, :kv_len] for t in (kq, ks, vq, vs)]
+    t_bytes = attn_bytes(q, *live, q) / bw * 1e3
+    t_ops = 4 * Bt * H * kv_len * hd / BF16_PEAK * 1e3
+    split_len, n_splits = split_plan(kv_len, Bt * KVH)
+    res["int8_tenant"] = {
+        "shape": f"q [{Bt}, 1, {H}, {hd}] bf16, k/v [{Bt}, {GEN_CACHE}, {KVH}, "
+                 f"{hd}] int8, kv_len {kv_len}",
+        "max_abs_err": err, "tolerance": BF16_TOL,
+        "split_len": split_len, "n_splits": n_splits,
+        "blocks": Bt * KVH * n_splits,
+        "ms": time_ms(lambda: ops.flash_decode_int8(q, kq, ks, vq, vs,
+                                                    kv_len=kv_len)),
+        "eager_dequant_then_k3_ms": time_ms(lambda: ops.flash_decode(
+            q, ref.dequantize_kv(kq, ks, q.dtype),
+            ref.dequantize_kv(vq, vs, q.dtype), kv_len=kv_len)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    del q, kq, vq, ks, vs, live
+
+    # (g) bf16 at a head size off the tensor-core variant (its CUDA-core one)
+    hs = 32
+    q, k, v = (rand(4, 1, H, hs) * PEAK, rand(4, S // 8, KVH, hs),
+               rand(4, S // 8, KVH, hs))
+    want = ref.flash_decode_ref(q, k, v, kv_len=S // 11)
+    res["bf16_head_dim_32"] = check("k3 bf16 hd 32", ops.flash_decode(
+        q, k, v, kv_len=S // 11), want, BF16_TOL)
+    k3_controls("k3 bf16 hd 32", want, q, k, v, BF16_TOL, kv_len=S // 11)
+    torch.cuda.synchronize()
+    del q, k, v
     torch.cuda.empty_cache()
     return res
 
@@ -517,24 +680,29 @@ def phase_attention_kernel(dev, bw: float) -> dict:
         t_bytes = attn_bytes(q, k, v, q) / bw * 1e3
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
-    def k2_case(name, q, k, v, tol, *, causal=True, q_offset=0) -> float:
-        """K2 against attention_ref on the same values in f32 (in bf16 the
-        plain version rounds scores of this size, up to ~40, by up to 0.25
-        before its softmax), then the planted faults the check must fail:
-        zeros, the causal mask flipped, the next KV head."""
+    def k2_slice(name, got, q, k, v, tol, *, causal=True, q_offset=0):
+        """K2's output ``got`` against attention_ref on the same values in
+        f32 (in bf16 the plain version rounds scores of this size, up to
+        ~40, by up to 0.25 before its softmax), then the planted faults the
+        check must fail: zeros, the causal mask flipped, the next KV head."""
         def plain(q, k, v, causal=causal):
             return ref.attention_ref(q.float(), k.float(), v.float(),
                                      causal=causal, q_offset=q_offset)
 
         want = plain(q, k, v)
-        err = check(name, ops.flash_attention(q, k, v, causal=causal,
-                                              q_offset=q_offset), want, tol)
+        err = check(name, got, want, tol)
         must_fail(f"{name}, zeros", torch.zeros_like(want), want, tol)
         must_fail(f"{name}, causal flipped", plain(q, k, v, not causal),
                   want, tol)
         must_fail(f"{name}, wrong KV head",
                   plain(q, k.roll(1, dims=2), v.roll(1, dims=2)), want, tol)
         return err
+
+    def k2_case(name, q, k, v, tol, *, causal=True, q_offset=0) -> float:
+        """K2 on q, k, v held as ``k2_slice`` holds it."""
+        got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        return k2_slice(name, got, q, k, v, tol, causal=causal,
+                        q_offset=q_offset)
 
     cases = {}
     T = ATTN_SEQ
@@ -563,12 +731,23 @@ def phase_attention_kernel(dev, bw: float) -> dict:
     del q, k, v, qo, ko, vo, qf, kf, vf
     torch.cuda.empty_cache()
 
-    # the prefill_32k head shape: kernel and library only
+    # the prefill_32k head shape: the whole output is too large for the
+    # plain version (103 GB of scores), so it is held on two query slices:
+    # the first PREFILL_HEAD rows against the first keys, and the last
+    # PREFILL_TAIL rows (q_offset T - PREFILL_TAIL) against every key
     T = LONG_SEQ
-    q, k, v = rand(1, T, H, hd), rand(1, T, KVH, hd), rand(1, T, KVH, hd)
+    q, k, v = rand(1, T, H, hd) * PEAK, rand(1, T, KVH, hd), rand(1, T, KVH, hd)
     out = ops.flash_attention(q, k, v)
     if not bool(torch.isfinite(out).all()):
         raise AssertionError("k2 prefill_32k: non-finite output")
+    a, z = PREFILL_HEAD, T - PREFILL_TAIL
+    cases["prefill_32k_head"] = k2_slice(
+        "k2 prefill_32k head", out[:, :a], q[:, :a], k[:, :a], v[:, :a],
+        BF16_TOL)
+    cases["prefill_32k_tail"] = k2_slice(
+        "k2 prefill_32k tail", out[:, z:], q[:, z:], k, v, BF16_TOL,
+        q_offset=z)
+    torch.cuda.synchronize()
     b_ms, b_by = bound(q, k, v, 4 * H * T * T * hd / 2)
     res["prefill_32k"] = {
         "shape": f"q [1, {T}, {H}, {hd}], k/v [1, {T}, {KVH}, {hd}] bf16 "
@@ -586,28 +765,29 @@ def phase_attention_kernel(dev, bw: float) -> dict:
 
 
 @contextlib.contextmanager
-def swap_k3(fn):
-    """The LM path with ``repro_torch.dist.decode.flash_decode`` (K3's
-    wrapper) replaced by ``fn`` for the duration."""
+def swap_k3(fn, fn_int8):
+    """The LM path with K3's wrappers in ``repro_torch.dist.decode``
+    (``flash_decode``, and ``flash_decode_int8``, which the int8 cache
+    path calls) replaced by ``fn`` and ``fn_int8`` for the duration."""
     from repro_torch.dist import decode
 
-    saved = decode.flash_decode
-    decode.flash_decode = fn
+    saved = decode.flash_decode, decode.flash_decode_int8
+    decode.flash_decode, decode.flash_decode_int8 = fn, fn_int8
     try:
         yield saved
     finally:
-        decode.flash_decode = saved
+        decode.flash_decode, decode.flash_decode_int8 = saved
 
 
 def plain_k3():
-    """K3 replaced by its plain version (on the card)."""
+    """K3 replaced by its plain versions (on the card)."""
     from repro_torch.kernels.flash_attention import ref
 
-    return swap_k3(ref.flash_decode_ref)
+    return swap_k3(ref.flash_decode_ref, ref.flash_decode_int8_ref)
 
 
 def nudged_plain_k3():
-    """K3 replaced by its plain version, with every element of its first
+    """K3 replaced by its plain versions, with every element of the first
     call's output (the first layer's attention) moved by one bf16 ulp."""
     import torch
 
@@ -615,33 +795,50 @@ def nudged_plain_k3():
 
     calls = []
 
-    def fn(q, k, v, **kw):
-        out = ref.flash_decode_ref(q, k, v, **kw)
-        if not calls:
-            out = (out.view(torch.int16) + 1).view(out.dtype)
-        calls.append(1)
-        return out
+    def nudge(plain):
+        def fn(*args, **kw):
+            out = plain(*args, **kw)
+            if not calls:
+                out = (out.view(torch.int16) + 1).view(out.dtype)
+            calls.append(1)
+            return out
+        return fn
 
-    return swap_k3(fn)
+    return swap_k3(nudge(ref.flash_decode_ref),
+                   nudge(ref.flash_decode_int8_ref))
 
 
 @contextlib.contextmanager
 def k3_checked(errs: list):
     """K3 as on the path, held at every call to its plain version on the
-    same inputs at the bf16 tolerance, with the planted faults of
-    ``k3_controls`` failing the same check; the kernel's output continues
-    the path.  Each call's max abs error goes to ``errs``."""
+    same inputs at the bf16 tolerance (the f32 tolerance for f32 q), with
+    the planted faults of ``k3_controls`` / ``k3_int8_controls`` failing
+    the same check; the kernel's output continues the path.  Each call's
+    max abs error goes to ``errs``."""
+    import torch
+
     from repro_torch.kernels.flash_attention import ops, ref
+
+    def tol(q):
+        return BF16_TOL if q.dtype == torch.bfloat16 else ATTN_F32_TOL
 
     def both(q, k, v, **kw):
         out = ops.flash_decode(q, k, v, **kw)
         want = ref.flash_decode_ref(q, k, v, **kw)
         name = f"K3 call {len(errs)}"
-        errs.append(check(name, out, want, BF16_TOL))
-        k3_controls(name, want, q, k, v, BF16_TOL, **kw)
+        errs.append(check(name, out, want, tol(q)))
+        k3_controls(name, want, q, k, v, tol(q), **kw)
         return out
 
-    with swap_k3(both):
+    def both_int8(q, kq, ks, vq, vs, **kw):
+        out = ops.flash_decode_int8(q, kq, ks, vq, vs, **kw)
+        want = ref.flash_decode_int8_ref(q, kq, ks, vq, vs, **kw)
+        name = f"K3 int8 call {len(errs)}"
+        errs.append(check(name, out, want, tol(q)))
+        k3_int8_controls(name, want, q, kq, ks, vq, vs, tol(q), **kw)
+        return out
+
+    with swap_k3(both, both_int8):
         yield
 
 
@@ -709,6 +906,43 @@ def clone(tree):
         return tree_map(torch.clone, tree)
 
 
+def profile_step(fn, top: int = 8) -> dict:
+    """One run of ``fn`` under torch.profiler: host wall time from an idle
+    device to its end, the device's busy time (the sum of the device-side
+    events, kernels and copies; one stream, so they do not overlap), the
+    idle share of that wall time, and the ``top`` device events by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy if rows else None,
+            "device_idle_share": 1 - busy / wall_ms if rows else None,
+            "top": [{"kernel": k[:80], "ms": ms, "count": n}
+                    for k, ms, n in rows[:top]]}
+
+
+def reset_k3(ops) -> None:
+    """Set the launch counts of K3's two entries to 0."""
+    ops.launches["flash_decode"] = ops.launches["flash_decode_int8"] = 0
+
+
+def k3_count(ops) -> int:
+    return ops.launches["flash_decode"] + ops.launches["flash_decode_int8"]
+
+
 def phase_lm(dev) -> dict:
     """llama3.2-3b FULL: the prefill_32k and decode_32k cells on one card,
     the LM tenant serving a few greedy generations, then both decode runs
@@ -741,7 +975,7 @@ def phase_lm(dev) -> dict:
     # (a) prefill_32k: batch 1, S = 32768
     tokens = torch.randint(0, cfg.vocab, (pre.batch, pre.seq_len),
                            generator=g, device=dev, dtype=torch.int32)
-    ops.launches["flash_decode"] = 0
+    reset_k3(ops)
     times = []
     for _ in range(2):               # the first run warms cuBLAS up
         torch.cuda.synchronize()
@@ -756,13 +990,16 @@ def phase_lm(dev) -> dict:
     res["prefill_32k"] = {"batch": pre.batch, "seq_len": pre.seq_len,
                           "ms": times[-1], "first_ms": times[0],
                           "logits_finite": True,
-                          "k3_launches": ops.launches["flash_decode"]}
+                          "k3_launches": k3_count(ops)}
     del out, logits, tokens
     torch.cuda.empty_cache()
 
     # (b) decode_32k: batch 16, one step at pos = S - 1 over a random cache.
-    # The step runs alone, K3's count set to 0 just before it; then with K3
-    # checked at each of its 28 calls (bitwise equal to the first run);
+    # The step runs alone, K3's counts set to 0 just before it (the int8
+    # cache goes through K3's int8 entry, 28 launches, and never through
+    # the eager dequantisation: the step's transient memory stays below one
+    # layer's dequantised K/V); then with K3 checked at each of its 28 calls
+    # (bitwise equal to the first run);
     # then with K3 replaced by its plain version outright, and that plain
     # path again with the first layer's attention moved by one bf16 ulp.
     # The two logit differences are reported side by side; (d) holds the
@@ -778,13 +1015,25 @@ def phase_lm(dev) -> dict:
     token = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=dev,
                           dtype=torch.int32)
     batch = {"token": token, "cache": cache}
-    ops.launches["flash_decode"] = 0
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    peak_before_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_k3(ops)
     got = dec.run(params, batch)["logits"]
     torch.cuda.synchronize()
-    k3_step = ops.launches["flash_decode"]
-    if k3_step != cfg.n_layers:
-        raise AssertionError(f"K3 launched {k3_step} times in a decode step, "
-                             f"expected {cfg.n_layers}")
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    k3_step = ops.launches["flash_decode_int8"]
+    if k3_step != cfg.n_layers or ops.launches["flash_decode"]:
+        raise AssertionError(f"K3's int8 entry launched {k3_step} times in a "
+                             f"decode step (bf16 entry "
+                             f"{ops.launches['flash_decode']}), expected "
+                             f"{cfg.n_layers} (and 0)")
+    deq_gb = 2 * cache["k"][0].numel() * 2 / 1e9   # one layer's K/V in bf16
+    if step_peak_gb - base_gb >= deq_gb:
+        raise AssertionError(f"decode_32k step took {step_peak_gb - base_gb} "
+                             f"GB above its inputs: a dequantised layer "
+                             f"({deq_gb} GB) fits in it")
     layer_errs = []
     with k3_checked(layer_errs):
         checked = dec.run(params, batch)["logits"]
@@ -805,9 +1054,9 @@ def phase_lm(dev) -> dict:
         "batch": B, "seq_len": S, "pos": S - 1,
         "cache_gb": sum(t.numel() * t.element_size()
                         for t in cache.values()) / 1e9,
-        "step_ms": step_ms, "k3_launches": k3_step,
+        "step_ms": step_ms, "k3_int8_launches": k3_step,
         "k3_vs_plain_max_abs_err_per_call": max(layer_errs),
-        "tolerance": BF16_TOL, "planted_faults_failed": 3 * len(layer_errs),
+        "tolerance": BF16_TOL, "planted_faults_failed": 4 * len(layer_errs),
         "logits_max_abs_err_plain_path": drift(got, plain),
         "logits_mean_abs_err_plain_path": float((got.float() - plain.float())
                                                 .abs().mean()),
@@ -815,13 +1064,16 @@ def phase_lm(dev) -> dict:
         "logits_std": float(got.float().std()),
         "argmax_agreement_plain_path": float(
             (got.argmax(-1) == plain.argmax(-1)).float().mean()),
+        # the pass the path no longer runs, timed for the record
         "dequant_ms_per_layer": deq_ms,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        "step_peak_gb": step_peak_gb,
+        "step_transient_gb": step_peak_gb - base_gb,
+        "dequantised_layer_gb": deq_gb}
     del got, checked, plain, nudged    # the cache stays for (d)
     torch.cuda.empty_cache()
 
     # (c) the LM tenant: 4 prompts of LM_CONTEXT tokens, 32 greedy steps
-    # alone, K3's count set to 0 just before them; then the same 32 steps
+    # alone, K3's counts set to 0 just before them; then the same 32 steps
     # from the same prefilled cache, fed the same tokens, once with K3
     # checked at each call (bitwise equal to the first run) and once with
     # K3 replaced by its plain version.
@@ -831,15 +1083,17 @@ def phase_lm(dev) -> dict:
     prefilled = clone(gen_cache)
     first = last.argmax(dim=-1, keepdim=True).to(torch.int32)
     step_times = []
-    ops.launches["flash_decode"] = 0
+    reset_k3(ops)
     timed, fed = generate(params, cfg, gen_cache, first, GEN_STEPS,
                           times=step_times)
     torch.cuda.synchronize()
-    gen_launches = ops.launches["flash_decode"]
-    if gen_launches != cfg.n_layers * GEN_STEPS:
-        raise AssertionError(f"K3 launched {gen_launches} times in "
-                             f"{GEN_STEPS} steps, expected "
-                             f"{cfg.n_layers * GEN_STEPS}")
+    gen_launches = ops.launches["flash_decode_int8"]
+    gen_bf16 = ops.launches["flash_decode"]
+    if gen_launches != cfg.n_layers * GEN_STEPS or gen_bf16:
+        raise AssertionError(f"K3's int8 entry launched {gen_launches} times "
+                             f"in {GEN_STEPS} steps (bf16 entry "
+                             f"{ops.launches['flash_decode']}), expected "
+                             f"{cfg.n_layers * GEN_STEPS} (and 0)")
     layer_errs = []
     with k3_checked(layer_errs):
         checked, _ = generate(params, cfg, clone(prefilled), first, GEN_STEPS,
@@ -863,26 +1117,45 @@ def phase_lm(dev) -> dict:
         "step_ms_median": step_med, "step_ms_min": min(step_times),
         "step_ms_max": max(step_times),
         "tokens_per_s": GEN_PROMPTS / step_med * 1e3,
-        "k3_launches": gen_launches,
+        "k3_int8_launches": gen_launches, "k3_bf16_launches": gen_bf16,
         "k3_vs_plain_max_abs_err_per_call": max(layer_errs),
-        "tolerance": BF16_TOL, "planted_faults_failed": 3 * len(layer_errs),
+        "tolerance": BF16_TOL, "planted_faults_failed": 4 * len(layer_errs),
         "logits_max_abs_err_plain_path": max(e2e),
         "logits_max_abs_err_plain_path_first_step": e2e[0],
         "argmax_agreement_plain_path": agree / (GEN_PROMPTS * GEN_STEPS)}
+    # one more generation step under torch.profiler, after the host-timed
+    # ones: the device's busy time in a tenant step and its idle share
+    with torch.inference_mode():
+        prof = profile_step(lambda: tf.decode_step(
+            params, fed[-1], gen_cache, LM_CONTEXT + GEN_STEPS, cfg))
+    if prof["device_busy_ms"] is not None:
+        prof["device_idle_share_of_step_ms"] = \
+            1 - prof["device_busy_ms"] / step_med
+    res["generate"]["step_profile"] = prof
     del gen_cache, prefilled, timed, checked, plain
     torch.cuda.empty_cache()
+    # the decode_32k step of (b) once more under torch.profiler, after the
+    # host-timed runs of (b) and (c) so that its tracing cannot slow them
+    prof = profile_step(lambda: dec.run(params, batch))
+    if prof["device_busy_ms"] is not None:   # against the unprofiled step
+        prof["device_idle_share_of_step_ms"] = \
+            1 - prof["device_busy_ms"] / res["decode_32k"]["step_ms"]
+    res["decode_32k"]["step_profile"] = prof
 
     # (d) the f32 witness: the weights of (a)-(c) in f32, the int8 cache
-    # dequantised to f32.  The decode_32k step of (b), same cache and
-    # token, and the generation of (c), same prompts, each held at every
-    # step to the same path with K3 replaced by its plain version.
+    # dequantised to f32 by K3's int8 entry.  The decode_32k step of (b),
+    # same cache and token, and the generation of (c), same prompts, each
+    # held at every step to the same path with K3 replaced by its plain
+    # version, and K3 held at each call at the f32 attention tolerance.
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     with torch.inference_mode():
         params32 = tree_map(lambda t: t.float(), params)
     del params
     torch.cuda.empty_cache()
+    f32_calls = []
     with torch.inference_mode():
-        got, _ = tf.decode_step(params32, token, cache, S - 1, cfg32)
+        with k3_checked(f32_calls):
+            got, _ = tf.decode_step(params32, token, cache, S - 1, cfg32)
         with plain_k3():
             plain, _ = tf.decode_step(params32, token, cache, S - 1, cfg32)
     dec_err = check("decode_32k f32 logits against the plain-K3 path", got,
@@ -893,7 +1166,10 @@ def phase_lm(dev) -> dict:
     last, gen_cache, _ = prefill_prompts(params32, cfg32, prompts, dev)
     prefilled = clone(gen_cache)
     first = last.argmax(dim=-1, keepdim=True).to(torch.int32)
-    timed, fed = generate(params32, cfg32, gen_cache, first, GEN_STEPS)
+    with k3_checked(f32_calls):
+        timed, fed = generate(params32, cfg32, gen_cache, first, GEN_STEPS)
+    if len(f32_calls) != cfg.n_layers * (1 + GEN_STEPS):
+        raise AssertionError(f"{len(f32_calls)} checked K3 calls in f32")
     with plain_k3():
         plain, _ = generate(params32, cfg32, prefilled, first, GEN_STEPS,
                             fed=fed)
@@ -902,6 +1178,9 @@ def phase_lm(dev) -> dict:
                 for t, (a, b) in enumerate(zip(timed, plain))]
     res["f32_witness"] = {
         "tolerance": F32_PATH_TOL,
+        "k3_vs_plain_max_abs_err_per_call": max(f32_calls),
+        "k3_tolerance": ATTN_F32_TOL,
+        "planted_faults_failed": 4 * len(f32_calls),
         "decode_32k_logits_max_abs_err": dec_err,
         "decode_32k_logits_std": dec_std,
         "generate_logits_max_abs_err": max(gen_errs),
@@ -909,7 +1188,8 @@ def phase_lm(dev) -> dict:
         "generate_argmax_agreement": sum(
             int((a.argmax(-1) == b.argmax(-1)).sum())
             for a, b in zip(timed, plain)) / (GEN_PROMPTS * GEN_STEPS)}
-    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["peak_gb"] = max(peak_before_gb,
+                         torch.cuda.max_memory_allocated() / 1e9)
     del params32, gen_cache, prefilled, timed, plain
     torch.cuda.empty_cache()
     return res
@@ -924,6 +1204,8 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     from repro_torch.kernels.flash_attention.flash_attention import variant
 
     m = k1["rmc1"]
+    i8 = k3["int8"]
+    decode_src = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
     return [{
         "name": "hot_embedding_bag",
         "route": "cuda",
@@ -947,6 +1229,7 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                          "uses _attention_chunked; K2 is reached only "
                          "through ops.flash_attention",
         "variant": variant(torch.bfloat16, HEAD_DIM),
+        "redesigned_in": 14,
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
@@ -955,17 +1238,37 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     }, {
         "name": "flash_decode",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_decode.cu",
+        "source": decode_src,
         "replaces": "src/repro/kernels/flash_attention/flash_decode.py:76",
-        "launches": lm["generate"]["k3_launches"],
-        "launches_note": f"the {GEN_STEPS} generation steps alone, counted "
-                         "from 0; the decode_32k step alone launched "
-                         f"{lm['decode_32k']['k3_launches']}",
+        "launches": lm["generate"]["k3_bf16_launches"],
+        "launches_note": "the llama3.2-3b path keeps an int8 cache, so it "
+                         "calls K3's int8 entry (next entry); this bf16 "
+                         "entry is reached through ops.flash_decode",
+        "redesigned_in": 14,
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
         "shape": k3["shape"], "tolerance": k3["tolerance"],
+    }, {
+        "name": "flash_decode_int8",
+        "route": "cuda",
+        "source": decode_src,
+        "replaces": "src/repro/kernels/flash_attention/flash_decode.py:76 "
+                    "(with the dequantisation around it, "
+                    "src/repro/models/transformer.py:175)",
+        "launches": lm["generate"]["k3_int8_launches"],
+        "launches_note": f"the {GEN_STEPS} generation steps alone, counted "
+                         "from 0; the decode_32k step alone launched "
+                         f"{lm['decode_32k']['k3_int8_launches']}",
+        "redesigned_in": 14,
+        "before_ms": i8["eager_dequant_then_k3_ms"],
+        "before_of": "the path before this entry, timed in this run: the "
+                     "eager dequantisation of one layer, then the bf16 entry",
+        "max_abs_err": i8["max_abs_err"], "ms": i8["ms"],
+        "plain_ms": i8["plain_ms"], "bound_ms": i8["bound_ms"],
+        "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
+        "library_note": i8["library_note"],
+        "shape": i8["shape"], "tolerance": i8["tolerance"],
     }]
 
 
@@ -1021,7 +1324,7 @@ def main() -> int:
     emit(serve_line)
 
     # 5-6. the attention kernels alone
-    k3 = phase_decode_kernel(dev, bw, f32_rate)
+    k3 = phase_decode_kernel(dev, bw)
     emit(k3)
     k2 = phase_attention_kernel(dev, bw)
     emit(k2)

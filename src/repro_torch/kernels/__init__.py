@@ -3,9 +3,13 @@ reference.
 
 - embedding_bag (K1): fused SparseLengthsSum over a hot table, CUDA C++.
 - flash_attention (K2): blocked causal GQA flash attention, CUDA C++
-  (``mma.sync`` bf16 tensor cores; CUDA-core f32 variant).
+  (bf16: a TMA producer warp and two ``wgmma`` consumer warpgroups over a
+  ring of K/V tiles; CUDA-core f32 variant).
 - flash_attention (K3): split-KV flash decode with its partial merge, CUDA
-  C++ (``csrc/flash_decode.cu``).
+  C++ (``csrc/flash_decode.cu``: a ``cp.async`` ring of K/V tiles and
+  ``mma.sync`` tensor cores; CUDA-core variants for f32 and other head
+  sizes).  ``flash_decode_int8`` is K3 read straight from the int8 KV cache
+  and its scales, the path the int8 flash decode takes.
 
 Each kernel ships ``csrc/*.cu`` (the kernel, plain C interface),
 ``<name>.py`` (the ctypes launcher), ``ops.py`` (the wrapper: plain version
@@ -19,10 +23,11 @@ from repro_torch.kernels.embedding_bag.ref import hot_embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_decode,
+    flash_decode_int8,
     flash_decode_partials,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref, lse_combine
 
 __all__ = ["hot_embedding_bag", "hot_embedding_bag_ref", "flash_attention",
-           "flash_decode", "flash_decode_partials", "attention_ref",
-           "lse_combine"]
+           "flash_decode", "flash_decode_int8", "flash_decode_partials",
+           "attention_ref", "lse_combine"]

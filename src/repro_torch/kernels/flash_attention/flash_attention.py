@@ -4,8 +4,8 @@ The counterpart of the reference's ``flash_attention_pallas``: it takes
 checked tensors from ``ops.flash_attention`` and launches on PyTorch's
 current stream.  The kernel picks its own tiles and masks its own ragged
 edge, so Tq and Tk need not divide by anything.  bf16 at head size 64 or
-128 runs the tensor-core variant (``mma.sync``); every other case the
-CUDA-core variant (f32 FMAs).
+128 runs the warp-specialised tensor-core variant (TMA, ``wgmma``); every
+other case the CUDA-core variant (f32 FMAs).
 """
 from __future__ import annotations
 
@@ -36,8 +36,8 @@ def _kernel():
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernel variant runs: "mma" (tensor cores) or "simt"."""
-    return "mma" if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS \
+    """Which kernel variant runs: "wgmma" (tensor cores) or "simt"."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS \
         else "simt"
 
 
@@ -52,7 +52,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, Tq, Tk, H, KVH, hd, int(causal), q_offset,
-             _DTYPE_CODE[q.dtype], int(variant(q.dtype, hd) == "mma"),
+             _DTYPE_CODE[q.dtype], int(variant(q.dtype, hd) == "wgmma"),
              q.device.index, stream)
     if err != 0:
         raise RuntimeError(

@@ -2,11 +2,17 @@
 
 The counterpart of the reference's ``flash_decode_partials`` and
 ``flash_decode_pallas``: it takes checked tensors from ``ops`` and launches
-on PyTorch's current stream.  The split of the KV rows is the kernel's own
-choice (the reference's ``bk`` does not enter): only the live rows
-``[0, kv_len - kv_offset)`` are split, into enough pieces that the card has
-about ``TARGET_BLOCKS`` blocks, each at least ``MIN_SPLIT`` rows long so
-that a split's partial stays small beside the rows it reads.
+on PyTorch's current stream, from a cache in q's dtype or from the int8
+cache and its f32 scales (the int8 entry).  The split of the KV rows is
+the kernel's own choice (the reference's ``bk`` does not enter): only the
+live rows ``[0, kv_len - kv_offset)`` are split, into enough pieces that
+the card has about ``TARGET_BLOCKS`` blocks (some two waves of the two
+blocks each of the 132 SMs holds at head size 128), each at least
+``MIN_SPLIT`` rows (four 64-row tiles) long.  A long cache gets long
+splits that amortise the fill of a block's ring of tiles; a short one, as
+the LM tenant's, gets more blocks than a longer floor would give it, for
+more bytes in flight.  ``tools/torch_tenant_step.py --sweep`` times the
+plans at the tenant's and the decode_32k shapes.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-TARGET_BLOCKS = 2048
+TARGET_BLOCKS = 512
 MIN_SPLIT = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -27,7 +33,7 @@ def _kernel():
     if _fn is None:
         lib = _build.load("flash_decode")
         fn = lib.repro_flash_decode
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64] * 11 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -49,9 +55,11 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _launch(q, k, v, *, kv_len: int, kv_offset: int, out, partials):
+def _launch(q, k, v, *, kv_len: int, kv_offset: int, out, partials,
+            scales=None):
     """Split kernel then merge kernel: into ``out`` (the attention, q's
-    dtype) or, with ``out`` None, into ``partials`` = (m, l, o) in f32."""
+    dtype) or, with ``out`` None, into ``partials`` = (m, l, o) in f32.
+    ``scales`` = (ks, vs) makes k/v the int8 cache."""
     fn, err_str = _kernel()
     B, _, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
@@ -63,11 +71,13 @@ def _launch(q, k, v, *, kv_len: int, kv_offset: int, out, partials):
     pl = torch.empty_like(pm)
     po = torch.empty((B * KVH * n_splits * G * hd,), **f32)
     m, l, o = partials if partials is not None else (None, None, None)
+    ks, vs = scales if scales is not None else (None, None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pm.data_ptr(),
-             pl.data_ptr(), po.data_ptr(), _ptr(m), _ptr(l), _ptr(o), _ptr(out),
-             B, S, KVH, G, hd, n_live, split_len, n_splits,
-             _DTYPE_CODE[q.dtype], q.device.index, stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
+             pm.data_ptr(), pl.data_ptr(), po.data_ptr(), _ptr(m), _ptr(l),
+             _ptr(o), _ptr(out), B, S, KVH, G, hd, n_live, split_len,
+             n_splits, _DTYPE_CODE[q.dtype], int(scales is not None),
+             q.device.index, stream)
     if err != 0:
         raise RuntimeError(
             f"flash_decode kernel launch failed: {err_str(err).decode()} "
@@ -96,4 +106,17 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     _launch(q, k, v, kv_len=kv_len, kv_offset=kv_offset, out=out,
             partials=None)
+    return out
+
+
+def flash_decode_int8_cuda(q: torch.Tensor, kq: torch.Tensor,
+                           ks: torch.Tensor, vq: torch.Tensor,
+                           vs: torch.Tensor, *, kv_len: int,
+                           kv_offset: int) -> torch.Tensor:
+    """Checked q [B, 1, H, hd], int8 kq/vq [B, S, KVH, hd] and f32 scales
+    ks/vs [B, S, KVH, 1] on one CUDA device -> attention [B, 1, H, hd] in
+    q's dtype."""
+    out = torch.empty_like(q)
+    _launch(q, kq, vq, kv_len=kv_len, kv_offset=kv_offset, out=out,
+            partials=None, scales=(ks, vs))
     return out

@@ -3,6 +3,9 @@
 Counterpart of ``repro.kernels.flash_attention.ref`` (``attention_ref``),
 plus the whole-tensor form of the split-KV decode partials and the
 ``lse_combine`` merge of ``repro.kernels.flash_attention.flash_decode``.
+``flash_decode_int8_ref`` is the int8 entry's plain version: the eager
+dequantisation the reference runs around its K3 call
+(``repro.models.transformer._block_apply``), then ``flash_decode_ref``.
 They are the CPU path of ``ops`` and the oracles the CUDA kernels are held
 against on the card.
 """
@@ -89,3 +92,20 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         kv_offset=kv_offset, bk=bk)
     out = (o / l.clamp_min(1e-30)).to(q.dtype)
     return out.reshape(B, 1, H, hd)
+
+
+def dequantize_kv(xq: torch.Tensor, xs: torch.Tensor, dtype: torch.dtype
+                  ) -> torch.Tensor:
+    """The int8 cache in ``dtype``: int8 x scale, both cast to ``dtype``
+    first, as the reference's model dequantises its cache."""
+    return xq.to(dtype) * xs.to(dtype)
+
+
+def flash_decode_int8_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                          vq: torch.Tensor, vs: torch.Tensor, *, kv_len: int,
+                          kv_offset: int = 0, bk: int = 512) -> torch.Tensor:
+    """q [B, 1, H, hd] against the int8 cache kq/vq [B, S, KVH, hd] with
+    f32 scales ks/vs [B, S, KVH, 1] -> [B, 1, H, hd] in q's dtype."""
+    return flash_decode_ref(q, dequantize_kv(kq, ks, q.dtype),
+                            dequantize_kv(vq, vs, q.dtype), kv_len=kv_len,
+                            kv_offset=kv_offset, bk=bk)

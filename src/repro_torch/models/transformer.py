@@ -21,7 +21,9 @@ Two deliberate differences, both for memory on the card:
   prefill_32k that saves the [B, 32768, 128256] logits of ``forward``.
 
 Decode attention with ``decode_impl="flash"`` goes through
-``repro_torch.dist.decode.decode_attention``, i.e. kernel K3 on the card.
+``repro_torch.dist.decode.decode_attention``, i.e. kernel K3 on the card;
+with the int8 cache through ``decode_attention_int8``, K3's int8 entry,
+which reads the cache itself instead of a dequantised copy of it.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import torch
 from repro_torch.common.convert import tree_from_numpy
 from repro_torch.common.init import normal_init
 from repro_torch.common.types import TensorSpec
-from repro_torch.dist.decode import decode_attention
+from repro_torch.dist.decode import decode_attention, decode_attention_int8
 from repro_torch.models.layers import (
     AttentionConfig,
     apply_rmsnorm,
@@ -178,22 +180,30 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
         S = cache_l["k"].shape[1]
         if not 0 <= pos <= S - T:
             raise ValueError(f"cache write [{pos}, {pos + T}) outside [0, {S})")
+        # decode attends kv positions j <= pos, i.e. kv_len = pos + 1
+        flash = cfg.decode_impl == "flash" and T == 1 and isinstance(pos, int)
         if cfg.kv_quant == "int8":
             kq, ks = _quantize_kv(k)
             vq, vs = _quantize_kv(v)
             for name, t in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
                 cache_l[name][:, pos:pos + T] = t
-            kc = cache_l["k"].to(x.dtype) * cache_l["ks"].to(x.dtype)
-            vc = cache_l["v"].to(x.dtype) * cache_l["vs"].to(x.dtype)
+            if flash:
+                # K3's int8 entry reads the cache itself: the same function
+                # as the dequantisation below followed by decode_attention,
+                # without the dequantised copy of the whole cache
+                attn = decode_attention_int8(
+                    q, cache_l["k"], cache_l["ks"], cache_l["v"],
+                    cache_l["vs"], kv_len=pos + 1)
+            else:
+                kc = cache_l["k"].to(x.dtype) * cache_l["ks"].to(x.dtype)
+                vc = cache_l["v"].to(x.dtype) * cache_l["vs"].to(x.dtype)
+                attn = attn_fn(q, kc, vc, q_offset=pos, chunk=cfg.attn_chunk)
         else:
             cache_l["k"][:, pos:pos + T] = k
             cache_l["v"][:, pos:pos + T] = v
             kc, vc = cache_l["k"], cache_l["v"]
-        if cfg.decode_impl == "flash" and T == 1 and isinstance(pos, int):
-            # decode attends kv positions j <= pos, i.e. kv_len = pos + 1
-            attn = decode_attention(q, kc, vc, kv_len=pos + 1)
-        else:
-            attn = attn_fn(q, kc, vc, q_offset=pos, chunk=cfg.attn_chunk)
+            attn = decode_attention(q, kc, vc, kv_len=pos + 1) if flash \
+                else attn_fn(q, kc, vc, q_offset=pos, chunk=cfg.attn_chunk)
     else:
         attn = attn_fn(q, k, v, q_offset=0, chunk=cfg.attn_chunk)
     x = x + attention_output(params_l["attn"], attn)

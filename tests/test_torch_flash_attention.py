@@ -25,10 +25,16 @@ from repro_torch.kernels.flash_attention import (
     attention_ref,
     flash_attention,
     flash_decode,
+    flash_decode_int8,
     flash_decode_partials,
     flash_decode_partials_ref,
     lse_combine,
     ops,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    dequantize_kv,
+    flash_decode_int8_ref,
+    flash_decode_ref,
 )
 from repro_torch.kernels.flash_attention.flash_decode import (
     MIN_SPLIT,
@@ -231,6 +237,93 @@ def test_lse_combine_permutation_invariant_and_associative(seed):
 
 
 # ---------------------------------------------------------------------------
+# K3's int8 entry
+# ---------------------------------------------------------------------------
+
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _int8_cache(seed, B, S, KVH, hd):
+    """An int8 cache and f32 scales in [0.005, 0.02] (the chip check's)."""
+    rng = np.random.default_rng(seed)
+    kq, vq = (torch.from_numpy(rng.integers(-127, 128, (B, S, KVH, hd),
+                                            dtype=np.int8)) for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (B, S, KVH, 1))
+                               .astype(np.float32)) for _ in range(2))
+    return kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("S,kv_len,kv_offset", [(256, 256, 0), (300, 157, 0),
+                                                (512, 700, 300),
+                                                (128, 100, 200)])
+def test_flash_decode_int8_plain_is_eager_dequant(S, kv_len, kv_offset, dtype):
+    """The int8 entry on CPU tensors against the reference's K3
+    (interpret mode) on the same int8 cache dequantised in q's dtype by
+    jax; and bitwise flash_decode_ref on the cache dequantised eagerly in
+    torch, which shows that the CPU takes the plain version and launches
+    nothing."""
+    B, H, KVH, hd = 2, 6, 2, 32
+    q = _normal(S, (B, 1, H, hd))[0]
+    jq, q = _pair(q, dtype)
+    kq, ks, vq, vs = _int8_cache(S + kv_len, B, S, KVH, hd)
+    before = dict(ops.launches)
+    got = flash_decode_int8(q, kq, ks, vq, vs, kv_len=kv_len,
+                            kv_offset=kv_offset)
+    assert ops.launches == before
+    jk, jv = (jnp.asarray(t.numpy()).astype(JNP[dtype]) *
+              jnp.asarray(s.numpy()).astype(JNP[dtype])
+              for t, s in ((kq, ks), (vq, vs)))
+    _close(got, jax_flash_decode(jq, jk, jv, kv_len=kv_len,
+                                 kv_offset=kv_offset), TOL[dtype])
+    kd = kq.to(q.dtype) * ks.to(q.dtype)
+    vd = vq.to(q.dtype) * vs.to(q.dtype)
+    want = flash_decode_ref(q, kd, vd, kv_len=kv_len, kv_offset=kv_offset)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.equal(got, want)
+    assert torch.equal(flash_decode(q, kd, vd, kv_len=kv_len,
+                                    kv_offset=kv_offset), want)
+    assert torch.equal(dequantize_kv(kq, ks, q.dtype), kd)
+
+
+def test_flash_decode_int8_matches_reference_on_dequantised_cache():
+    """Against the reference's K3 (interpret mode) on the same int8 cache
+    dequantised in bf16 by jax, at the bf16 tolerance."""
+    B, S, H, KVH, hd = 2, 384, 6, 2, 32
+    q = _normal(5, (B, 1, H, hd))[0]
+    kq, ks, vq, vs = _int8_cache(6, B, S, KVH, hd)
+    jq, tq = _pair(q, "bf16")
+    jk = jnp.asarray(kq.numpy()).astype(jnp.bfloat16) * \
+        jnp.asarray(ks.numpy()).astype(jnp.bfloat16)
+    jv = jnp.asarray(vq.numpy()).astype(jnp.bfloat16) * \
+        jnp.asarray(vs.numpy()).astype(jnp.bfloat16)
+    want = jax_flash_decode(jq, jk, jv, kv_len=300, bk=128)
+    got = flash_decode_int8(tq, kq, ks, vq, vs, kv_len=300, bk=128)
+    _close(got, want, TOL["bf16"])
+
+
+def test_flash_decode_int8_rejects_bad_inputs():
+    q = torch.zeros(1, 1, 4, 16)
+    kq, ks, vq, vs = _int8_cache(0, 1, 8, 2, 16)
+    with pytest.raises(ValueError):          # a scale of the wrong shape
+        flash_decode_int8(q, kq, ks[:, :4], vq, vs, kv_len=8)
+    with pytest.raises(ValueError):
+        flash_decode_int8(q, kq, ks, vq, vs.squeeze(-1), kv_len=8)
+    with pytest.raises(TypeError):           # a scale of the wrong dtype
+        flash_decode_int8(q, kq, ks.double(), vq, vs, kv_len=8)
+    with pytest.raises(TypeError):           # K/V that are not int8
+        flash_decode_int8(q, kq.float(), ks, vq, vs, kv_len=8)
+    with pytest.raises(TypeError):
+        flash_decode_int8(q, kq, ks, vq.to(torch.int16), vs, kv_len=8)
+    with pytest.raises(ValueError):          # scales on another device
+        flash_decode_int8(q, kq, ks.to("meta"), vq, vs, kv_len=8)
+    with pytest.raises(ValueError):          # K/V on another device
+        flash_decode_int8(q, kq.to("meta"), ks, vq.to("meta"), vs, kv_len=8)
+    with pytest.raises(ValueError):          # two query tokens
+        flash_decode_int8(torch.zeros(1, 2, 4, 16), kq, ks, vq, vs, kv_len=8)
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -281,4 +374,5 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
     torch.cuda.synchronize()
+
 

@@ -187,6 +187,37 @@ def test_decode_flash_equals_naive_on_the_port():
     torch.testing.assert_close(outs[0], outs[1], rtol=F32_TOL, atol=F32_TOL)
 
 
+def test_decode_int8_flash_equals_eager_dequant(monkeypatch):
+    """The int8 flash decode path (K3's int8 entry, its plain version on
+    CPU) gives bitwise the step of the eager path it replaced: the whole
+    cache dequantised in the model's dtype, then decode_attention."""
+    jcfg, tcfg, _ = CASES["tiny-full-bf16"]
+    _, tp = _params(jcfg, seed=8)
+    tok = torch.from_numpy(np.random.default_rng(9).integers(
+        0, tcfg.vocab, (2, 21), dtype=np.int32))
+
+    def eager(q, kq, ks, vq, vs, *, kv_len):
+        return t_tf.decode_attention(q, kq.to(q.dtype) * ks.to(q.dtype),
+                                     vq.to(q.dtype) * vs.to(q.dtype),
+                                     kv_len=kv_len)
+
+    outs, caches = [], []
+    for swap in (False, True):
+        if swap:
+            monkeypatch.setattr(t_tf, "decode_attention_int8", eager)
+        cache = t_tf.init_kv_cache(tcfg, 2, 32, device=CPU)
+        with torch.inference_mode():
+            t_tf.prefill(tp, tok[:, :16], cache, tcfg)
+            steps = [t_tf.decode_step(tp, tok[:, p:p + 1], cache, p, tcfg)[0]
+                     for p in range(16, 21)]
+        outs.append(torch.stack(steps))
+        caches.append(cache)
+    assert outs[0].dtype == torch.bfloat16
+    assert torch.equal(outs[0], outs[1])
+    for name in caches[0]:
+        assert torch.equal(caches[0][name], caches[1][name])
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_quantize_kv_bitwise(dtype):
     jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
