@@ -9,14 +9,23 @@ Phases, one JSON line each:
                process per source, all at once;
   3. kernel  - kernel K1 (hot embedding bag) against its plain PyTorch
                version on the card: the dlrm-rmc1 production launch shape
-               (f32), a dlrm-rm2 FULL-shaped bf16 table past 2**31
-               elements, a batch of 37 bags and all-padding bags; timed with
-               CUDA events beside the plain version, torch's embedding_bag
-               and the card's bandwidth bound;
+               (f32), a batch of 37 bags and all-padding bags, the
+               per-feature entry at the rmc1 launch (ids [1024, 10, 80],
+               bitwise the 2-D entry on the shifted ids, an unrouted
+               feature exactly zero), a dlrm-rm2 FULL-shaped bf16 table
+               past 2**31 elements (its last rows included) and the
+               dlrm-rmc3 production launch (19.2 GB f32 table, P = 30);
+               timed with CUDA events with a warm L2 (``ms``), with 100 MB
+               written (``ms_cold_l2``) or read (``ms_cold_clean``) before
+               each launch, and over 8 distinct click-log launches in turn
+               (``ms_stream``), beside the plain version, torch's
+               embedding_bag and the card's bandwidth bound;
   4. serve   - the DLRM path: dlrm-rmc1 at production width served behind
                its Hercules schedule (``repro_torch.launch.serve_recsys``),
-               with K1's launch count checked against the fused launches and
-               one fused batch's logits checked against the plain path;
+               with K1's launch count checked against the fused launches (one
+               per fused launch, through the per-feature entry), one fused
+               batch's logits checked against the plain path, and one fused
+               launch's stages timed on the host clock;
   5. decode_kernel - kernel K3 (split-KV flash decode) against its plain
                version at the decode_32k attention shape (q [16, 1, 24, 128],
                k/v [16, 32768, 8, 128] bf16), a kv_len inside a split with a
@@ -82,6 +91,7 @@ SRC = ROOT / "src"
 SERVE_QUERIES = 40
 SERVE_QPS = 60.0
 TIMING_REPS = 25
+STREAM_LAUNCHES = 8  # distinct click-log launches K1 meets in turn
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: covers host enqueue
 F32_TOL = 1e-5    # tests/test_kernels.py tolerances
 BF16_TOL = 3e-2
@@ -287,9 +297,15 @@ def int8_case(name, q, kq, ks, vq, vs, tol, *, kv_len, **kw) -> float:
     return err
 
 
-def measure_k1(table, ids, bw: float, f32_rate: float) -> dict:
+def measure_k1(table, ids, bw: float, f32_rate: float, stream=()) -> dict:
     """Kernel, plain and library times of K1 on ``table``/``ids`` and the
-    card's bound for the same work."""
+    card's bound for the same work.  ``ms`` repeats one launch (its rows
+    stay in the 50 MB L2); ``ms_cold_l2`` writes 100 MB before each launch
+    (none of the rows stay in L2, and the launch writes back the 50 MB of
+    dirty lines it evicts); ``ms_cold_clean`` reads 100 MB instead (none
+    of the rows, nothing to write back); ``ms_stream`` is a launch's share
+    of K1 over the id sets of ``stream`` in turn, each finding the L2 as
+    the one before left it."""
     import torch
     import torch.nn.functional as F
 
@@ -306,12 +322,14 @@ def measure_k1(table, ids, bw: float, f32_rate: float) -> dict:
     n_bytes = distinct * D * esize + ids.numel() * 4 + ids.shape[0] * D * esize
     n_ops = n_valid * D                                # fp32 adds
     t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / f32_rate * 1e3
-    # twice the 50 MB L2, rewritten before each call to evict the table rows
+    # twice the 50 MB L2, written or read before each call to evict the rows
     scrub = torch.empty(100 * 2**20 // 4, device=ids.device)
-    return {
+    res = {
         "ms": time_ms(lambda: ops.hot_embedding_bag(table, ids)),
         "ms_cold_l2": time_ms(lambda: ops.hot_embedding_bag(table, ids),
                               before=scrub.zero_),
+        "ms_cold_clean": time_ms(lambda: ops.hot_embedding_bag(table, ids),
+                                 before=scrub.sum),
         "plain_ms": time_ms(lambda: ref.hot_embedding_bag_ref(table, ids)),
         "library_ms": time_ms(lambda: F.embedding_bag(
             flat, table, offsets, mode="sum")),
@@ -321,35 +339,96 @@ def measure_k1(table, ids, bw: float, f32_rate: float) -> dict:
         "valid_ids": n_valid,
         "bytes": n_bytes,
     }
+    if stream:
+        res["ms_stream"] = time_ms(
+            lambda: [ops.hot_embedding_bag(table, s) for s in stream]
+        ) / len(stream)
+        res["stream_launches"] = len(stream)
+    res["cold_share_of_bound"] = res["bound_ms"] / res["ms_cold_l2"]
+    return res
 
 
-def phase_kernel(dev, bw: float, f32_rate: float, cfg, big_cfg) -> dict:
-    """K1 against its plain version at ``cfg``'s launch shape (f32) and on
-    a bf16 table shaped like ``big_cfg``'s (the run: dlrm-rmc1 prod and
-    dlrm-rm2 FULL)."""
+def click_launches(cfg, seeds):
+    """One fused launch's click-log ids [1024, F, P] (numpy) per seed."""
+    from repro_torch.data.clicklog import ClickLogGenerator
+
+    return [ClickLogGenerator(cfg, seed=s).sparse_ids(1024) for s in seeds]
+
+
+def k1_stream(cfg, dev):
+    """STREAM_LAUNCHES distinct launches' combined-table bags on ``dev``."""
+    import torch
+
+    rows = cfg.embedding.row_offsets
+    return [torch.from_numpy(shifted_ids(i, rows)).to(dev) for i in
+            click_launches(cfg, range(100, 100 + STREAM_LAUNCHES))]
+
+
+def k1_table(dev, emb, dtype, g):
+    import torch
+
+    return torch.empty((emb.total_rows, emb.dim), dtype=dtype,
+                       device=dev).uniform_(-1.0, 1.0, generator=g)
+
+
+def k1_features_case(table, ids3, offsets, flat_out) -> dict:
+    """K1's per-feature entry at one launch's ids [B, F, P]: against its
+    plain version, bitwise against the 2-D entry's ``flat_out`` on the
+    shifted ids, and with feature 4 unrouted (exactly zero there, the other
+    features unchanged)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    got = ops.embedding_bag_features(table, ids3, offsets)
+    err = check("features entry", got,
+                ref.embedding_bag_features_ref(table, ids3, offsets), F32_TOL)
+    if not bool(torch.equal(got.reshape(flat_out.shape), flat_out)):
+        raise AssertionError("the features entry differs from the 2-D entry "
+                             "on the shifted ids")
+    unrouted = offsets.clone()
+    unrouted[4] = -1
+    part = ops.embedding_bag_features(table, ids3, unrouted)
+    keep = [f for f in range(ids3.shape[1]) if f != 4]
+    if part[:, 4].abs().max().item() != 0.0 or not bool(
+            torch.equal(part[:, keep], got[:, keep])):
+        raise AssertionError("an unrouted feature did not pool to exactly "
+                             "zero, or moved the others")
+    torch.cuda.synchronize()
+    return {"max_abs_err": err, "tolerance": F32_TOL,
+            "bitwise_equal_2d": True, "unrouted_feature_zero": True,
+            "ms": time_ms(lambda: ops.embedding_bag_features(
+                table, ids3, offsets))}
+
+
+def phase_kernel(dev, bw: float, f32_rate: float, cfg, big_cfg,
+                 deep_cfg) -> dict:
+    """K1 against its plain version at ``cfg``'s launch shape (f32, through
+    both entries), on a bf16 table shaped like ``big_cfg``'s and at
+    ``deep_cfg``'s launch shape (f32) (the run: dlrm-rmc1 prod, dlrm-rm2
+    FULL and dlrm-rmc3 prod)."""
     import numpy as np
     import torch
 
-    from repro_torch.data.clicklog import ClickLogGenerator
     from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.models.embedding import routed_offsets
 
     g = torch.Generator(dev).manual_seed(7)
     results = {}
 
     # (a) the main path's launch shape: d = 1024 items x F bags x P
     emb = cfg.embedding
-    ids_np = shifted_ids(ClickLogGenerator(cfg, seed=3).sparse_ids(1024),
-                         emb.row_offsets)
-    table = torch.empty((emb.total_rows, emb.dim), device=dev).uniform_(
-        -1.0, 1.0, generator=g)
-    ids = torch.from_numpy(ids_np).to(dev)
-    err = check("rmc1", ops.hot_embedding_bag(table, ids),
-                ref.hot_embedding_bag_ref(table, ids), F32_TOL)
+    ids3_np = click_launches(cfg, [3])[0]
+    table = k1_table(dev, emb, torch.float32, g)
+    ids = torch.from_numpy(shifted_ids(ids3_np, emb.row_offsets)).to(dev)
+    flat_out = ops.hot_embedding_bag(table, ids)
+    err = check("rmc1", flat_out, ref.hot_embedding_bag_ref(table, ids),
+                F32_TOL)
     torch.cuda.synchronize()
     rmc1_case = {"case": "rmc1_prod", "table": list(table.shape),
                  "dtype": "float32", "bags": ids.shape[0], "P": ids.shape[1],
                  "max_abs_err": err, "tolerance": F32_TOL,
-                 **measure_k1(table, ids, bw, f32_rate)}
+                 **measure_k1(table, ids, bw, f32_rate, k1_stream(cfg, dev))}
     emit({"phase": "kernel", **rmc1_case})
     results["rmc1"] = rmc1_case
 
@@ -363,17 +442,23 @@ def phase_kernel(dev, bw: float, f32_rate: float, cfg, big_cfg) -> dict:
         raise AssertionError("all-padding bags did not pool to exactly zero")
     emit({"phase": "kernel", "case": "b37_with_empty_bags", "bags": 37,
           "max_abs_err": err37, "empty_bags_zero": True})
-    del table, ids, ids37, out37
+
+    # (c) the per-feature entry at the same launch: ids [1024, 10, 80] as
+    # the serving path passes them, the offsets added inside the kernel
+    ids3 = torch.from_numpy(ids3_np).to(dev)
+    feat = k1_features_case(table, ids3, routed_offsets(emb, dev), flat_out)
+    emit({"phase": "kernel", "case": "rmc1_prod_features",
+          "ids": list(ids3.shape), **feat})
+    results["features"] = feat
+    del table, ids, ids37, out37, ids3, flat_out
     torch.cuda.empty_cache()
 
-    # (c) dlrm-rm2 FULL-shaped bf16 table: 130,000,384 x 64 (8.3e9 elements)
+    # (d) dlrm-rm2 FULL-shaped bf16 table: 130,000,384 x 64 (8.3e9 elements)
     full = big_cfg.embedding
-    ids_np = shifted_ids(ClickLogGenerator(big_cfg, seed=4).sparse_ids(1024),
-                         full.row_offsets)
+    ids_np = shifted_ids(click_launches(big_cfg, [4])[0], full.row_offsets)
     H = full.total_rows
     ids_np[:4, :16] = (H - 1 - np.arange(64)).reshape(4, 16)  # the last rows
-    table = torch.empty((H, full.dim), dtype=torch.bfloat16, device=dev)
-    table.uniform_(-1.0, 1.0, generator=g)
+    table = k1_table(dev, full, torch.bfloat16, g)
     ids = torch.from_numpy(ids_np).to(dev)
     err = check("rm2_full_bf16", ops.hot_embedding_bag(table, ids),
                 ref.hot_embedding_bag_ref(table, ids), BF16_TOL)
@@ -382,9 +467,28 @@ def phase_kernel(dev, bw: float, f32_rate: float, cfg, big_cfg) -> dict:
                 "dtype": "bfloat16", "elements": H * full.dim,
                 "max_row_id": int(ids_np.max()), "bags": ids.shape[0],
                 "P": ids.shape[1], "max_abs_err": err, "tolerance": BF16_TOL,
-                **measure_k1(table, ids, bw, f32_rate)}
+                **measure_k1(table, ids, bw, f32_rate,
+                             k1_stream(big_cfg, dev))}
     emit({"phase": "kernel", **rm2_case})
     results["rm2"] = rm2_case
+    del table, ids
+    torch.cuda.empty_cache()
+
+    # (e) dlrm-rmc3 prod: 10 x 15,000,000 x 32 f32 (19.2 GB), P = 30
+    deep = deep_cfg.embedding
+    ids = torch.from_numpy(shifted_ids(click_launches(deep_cfg, [5])[0],
+                                       deep.row_offsets)).to(dev)
+    table = k1_table(dev, deep, torch.float32, g)
+    err = check("rmc3_prod", ops.hot_embedding_bag(table, ids),
+                ref.hot_embedding_bag_ref(table, ids), F32_TOL)
+    torch.cuda.synchronize()
+    rmc3_case = {"case": "rmc3_prod", "table": list(table.shape),
+                 "dtype": "float32", "bags": ids.shape[0], "P": ids.shape[1],
+                 "max_abs_err": err, "tolerance": F32_TOL,
+                 **measure_k1(table, ids, bw, f32_rate,
+                              k1_stream(deep_cfg, dev))}
+    emit({"phase": "kernel", **rmc3_case})
+    results["rmc3"] = rmc3_case
     del table, ids
     torch.cuda.empty_cache()
     return results
@@ -1206,18 +1310,35 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     m = k1["rmc1"]
     i8 = k3["int8"]
     decode_src = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
+    k1_keys = ("ms", "ms_cold_l2", "ms_cold_clean", "ms_stream", "plain_ms",
+               "library_ms", "bound_ms", "bound_by", "cold_share_of_bound",
+               "max_abs_err")
     return [{
         "name": "hot_embedding_bag",
         "route": "cuda",
         "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:43",
         "launches": serve_line["k1_launches"],
+        "launches_note": "the serving path calls the per-feature entry "
+                         "(ops.embedding_bag_features), one launch a fused "
+                         "batch; the 2-D entry is the same kernel",
         "max_abs_err": m["max_abs_err"],
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        "ms": m["ms"], "ms_cold_l2": m["ms_cold_l2"],
+        "ms_cold_clean": m["ms_cold_clean"], "ms_stream": m["ms_stream"],
+        "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+        "cold_share_of_bound": m["cold_share_of_bound"],
+        "library_ms": m["library_ms"],
+        "features_entry_ms": k1["features"]["ms"],
         "shape": f"table {m['table'][0]}x{m['table'][1]} f32, "
                  f"{m['bags']} bags x P={m['P']}",
         "tolerance": m["tolerance"],
+        "other_shapes": {
+            name: {"shape": f"table {c['table'][0]}x{c['table'][1]} "
+                            f"{c['dtype']}, {c['bags']} bags x P={c['P']}",
+                   **{k: c[k] for k in k1_keys}}
+            for name, c in (("rm2_full_bf16", k1["rm2"]),
+                            ("rmc3_prod", k1["rmc3"]))},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1313,11 +1434,12 @@ def main() -> int:
                       for k, v in built.items()}})
 
     from repro_torch.configs import dlrm_rm2
-    from repro_torch.configs.paper_models import rmc1
+    from repro_torch.configs.paper_models import rmc1, rmc3
 
     dev = torch.device("cuda")
     # 3. kernel
-    k1 = phase_kernel(dev, bw, f32_rate, rmc1(True), dlrm_rm2.FULL)
+    k1 = phase_kernel(dev, bw, f32_rate, rmc1(True), dlrm_rm2.FULL,
+                      rmc3(True))
 
     # 4. serve (the DLRM path; the K1 count is reset inside, just before it)
     serve_line = phase_serve(dev, rmc1(True))

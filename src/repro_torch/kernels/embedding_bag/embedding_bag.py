@@ -1,9 +1,9 @@
 """ctypes launcher of the CUDA embedding-bag kernel (``csrc/embedding_bag.cu``).
 
 The counterpart of the reference's ``hot_embedding_bag_pallas``: it takes
-the checked tensors from ``ops.hot_embedding_bag`` and launches the kernel
-on PyTorch's current stream.  No batch padding: the kernel masks its own
-ragged edge, so any number of bags comes out exact.
+the checked tensors from ``ops`` and launches the kernel on PyTorch's
+current stream.  No batch padding: the kernel masks its own ragged edge,
+so any number of bags comes out exact.
 """
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ def _kernel():
         lib = _build.load("embedding_bag")
         fn = lib.repro_embedding_bag
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+                       ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -32,17 +33,24 @@ def _kernel():
     return _fn
 
 
-def hot_embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor
-                           ) -> torch.Tensor:
-    """table [H, D] f32/bf16, ids [B, P] int32, both contiguous on one CUDA
-    device, B > 0 and D > 0 -> pooled [B, D] in the table's dtype."""
+def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
+                       row_offsets: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """table [H, D] f32/bf16; ids [..., P] int32 whose leading dims are the
+    bags (the last leading dim is the feature when ``row_offsets`` [F] int64
+    is given); all contiguous on one CUDA device, with bags, P and D > 0
+    -> pooled [..., D] in the table's dtype."""
     fn, err_str = _kernel()
-    B, P = ids.shape
-    D = table.shape[1]
-    out = torch.empty((B, D), dtype=table.dtype, device=table.device)
+    P = ids.shape[-1]
+    out = torch.empty((*ids.shape[:-1], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), B, P, D,
-             _DTYPE_CODE[table.dtype], table.device.index, stream)
+    err = fn(table.data_ptr(), ids.data_ptr(),
+             None if row_offsets is None else row_offsets.data_ptr(),
+             out.data_ptr(), ids.numel() // P, P,
+             1 if row_offsets is None else row_offsets.shape[0],
+             table.shape[1], _DTYPE_CODE[table.dtype], table.device.index,
+             stream)
     if err != 0:
         raise RuntimeError(
             f"embedding_bag kernel launch failed: {err_str(err).decode()} "

@@ -6,8 +6,9 @@ feature table is concatenated row-wise into ONE combined
 ``row_offsets[f]``, so the whole SparseNet is a single gather.
 
 Pooling goes through the hot embedding-bag kernel K1
-(``repro_torch.kernels.embedding_bag``): ids are shifted, ``-1`` padding is
-kept, and the ``[B, F, P]`` bags are flattened to ``[B*F, P]`` for one
+(``repro_torch.kernels.embedding_bag``): its per-feature entry takes the
+``[B, F, P]`` ids as they are (``-1`` padded) with an int64 offset per
+feature, built once per (config, device), and pools all ``B*F`` bags in one
 launch.  Quotient-remainder features (a Hadamard product of two gathered
 rows per id) are pooled with plain torch ops.
 
@@ -27,7 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.embedding_bag import hot_embedding_bag
+from repro_torch.kernels.embedding_bag import embedding_bag_features, hot_embedding_bag
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,27 +114,40 @@ def _offsets(offsets: np.ndarray, device: torch.device) -> torch.Tensor:
                            device=device)[None, :, None]
 
 
+_ROUTED_OFFSETS: dict[tuple[EmbeddingConfig, torch.device], torch.Tensor] = {}
+
+
+def routed_offsets(cfg: EmbeddingConfig, device: torch.device) -> torch.Tensor:
+    """K1's per-feature row offsets, int64 [F] on ``device``: feature f's
+    start row in the combined table, or -1 for a QR feature (K1 pools it to
+    zero; it is pooled afterwards).  Built once per (config, device), so a
+    launch copies nothing from the host."""
+    key = (cfg, device)
+    off = _ROUTED_OFFSETS.get(key)
+    if off is None:
+        host = cfg.row_offsets[:-1].copy()
+        host[list(cfg.qr_features)] = -1
+        off = torch.as_tensor(host, dtype=torch.int64, device=device)
+        _ROUTED_OFFSETS[key] = off
+    return off
+
+
 def embedding_bag_local(params, ids: torch.Tensor, cfg: EmbeddingConfig
                         ) -> torch.Tensor:
     """Single-shard EmbeddingBag. ids: [B, F, Pmax] int32, -1-padded.
 
     Returns pooled embeddings [B, F, dim] in the table's dtype.  Non-QR
-    features pool through K1 in one launch; QR features are masked out of
-    that launch and pooled with plain torch ops."""
+    features pool through K1 in one launch that reads the per-feature ids
+    and adds each feature's row offset itself; QR features are left out of
+    that launch (offset -1) and pooled with plain torch ops."""
     table = params["table"]
-    B, F, P = ids.shape
+    F = ids.shape[1]
     if F != cfg.num_features:
         raise ValueError(f"expected {cfg.num_features} features, got {F}")
-    valid = ids >= 0
-    routed = valid
-    if cfg.qr_features:
-        is_qr = torch.zeros(F, dtype=torch.bool, device=ids.device)
-        is_qr[list(cfg.qr_features)] = True
-        routed = valid & ~is_qr[None, :, None]
-    shifted = torch.where(routed, ids + _offsets(cfg.row_offsets[:-1],
-                                                 ids.device), -1)
-    pooled = hot_embedding_bag(table, shifted.reshape(B * F, P).contiguous())
-    pooled = pooled.reshape(B, F, cfg.dim)
+    pooled = embedding_bag_features(table, ids.contiguous(),
+                                    routed_offsets(cfg, ids.device))
+    if cfg.qr_features or cfg.combine == "mean":
+        valid = ids >= 0
     for f in cfg.qr_features:
         rows = _gather_qr_feature(table, ids[:, f, :], f, cfg)  # [B, P, dim]
         pooled[:, f] = (rows * valid[:, f, :, None].to(rows.dtype)).sum(dim=1)

@@ -28,3 +28,5 @@ def _engine_stats_reset():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)")

@@ -1,5 +1,13 @@
-"""The redesigned attention kernels on the card, against their plain
-versions: K3's int8 entry (within the bf16/f32 tolerance of its plain
+"""The hand-written kernels on the card, against their plain versions.
+
+K1 (the embedding bag) at every row geometry its CUDA source instantiates:
+D in {16, ..., 256} and P in {1, ..., 200}, in f32 and bf16, with -1 inside
+bags and bags that are all padding (exactly zero), an unaligned table view
+(the scalar path), two launches bitwise equal, the per-feature entry bitwise
+equal to the 2-D entry on the shifted ids, and the hot/cold pooling and
+``embedding_bag_local`` on the card against their CPU results.
+
+The redesigned attention kernels: K3's int8 entry (within the bf16/f32 tolerance of its plain
 version, and bitwise equal to the entry in q's dtype on the cache
 dequantised eagerly), K3's bf16 entry at the head sizes its CUDA-core
 variant takes, and K2's tensor-core variant at ragged Tq/Tk, with
@@ -8,7 +16,7 @@ q_offset, at head sizes 64 and 128.
 Imports neither jax nor the reference, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.  Without
 a card every test skips.  Tolerances are those of tests/test_kernels.py:
-f32 2e-4, bf16 3e-2."""
+K1 f32 1e-5, attention f32 2e-4, bf16 3e-2."""
 import numpy as np
 import pytest
 import torch
@@ -21,10 +29,23 @@ from repro_torch.kernels.flash_attention import (
     flash_decode_int8_ref,
     flash_decode_ref,
 )
+from repro_torch.kernels.embedding_bag import (
+    embedding_bag_features,
+    embedding_bag_features_ref,
+    hot_embedding_bag,
+    hot_embedding_bag_ref,
+    ops as k1_ops,
+)
+from repro_torch.kernels.embedding_bag.ref import shift_feature_ids
 from repro_torch.kernels.flash_attention.ref import dequantize_kv
+from repro_torch.models import embedding as emb
+
+pytestmark = pytest.mark.cuda
 
 TOL = {"f32": 2e-4, "bf16": 3e-2}
+K1_TOL = {"f32": 1e-5, "bf16": 3e-2}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+EMPTY_BAGS = [3, 17]
 
 
 @pytest.fixture
@@ -104,3 +125,158 @@ def test_flash_attention_ragged_and_offset(cuda_device, hd, causal, q_offset,
     torch.testing.assert_close(got.float(), want, rtol=TOL["bf16"],
                                atol=TOL["bf16"])
     torch.cuda.synchronize()
+
+
+def _k1_ids(rng, shape, H, pad=0.3):
+    """ids in [0, H) with a share ``pad`` of -1 anywhere in a bag."""
+    ids = rng.integers(0, H, shape).astype(np.int32)
+    ids[rng.random(shape) < pad] = -1
+    return ids
+
+
+def _k1_table(rng, H, D, dtype, device):
+    t = rng.standard_normal((H, D)).astype(np.float32)
+    return torch.from_numpy(t).to(device, TDT[dtype])
+
+
+def _k1_check(table, ids, dtype):
+    """K1 against its plain version, twice (bitwise equal), one launch each;
+    the bags of EMPTY_BAGS are all padding and must pool to exactly 0."""
+    before = k1_ops.launches
+    got = hot_embedding_bag(table, ids)
+    again = hot_embedding_bag(table, ids)
+    torch.cuda.synchronize()
+    assert k1_ops.launches == before + 2
+    want = hot_embedding_bag_ref(table, ids)
+    assert got.dtype == table.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=K1_TOL[dtype],
+                               atol=K1_TOL[dtype])
+    assert torch.equal(got, again)
+    assert not got[EMPTY_BAGS].any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("P", [1, 30, 33, 80, 200])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128, 256])
+def test_k1_matches_plain(cuda_device, D, P, dtype):
+    rng = np.random.default_rng(D * 1000 + P)
+    H, B = 5000, 37
+    ids = _k1_ids(rng, (B, P), H)
+    ids[EMPTY_BAGS] = -1
+    _k1_check(_k1_table(rng, H, D, dtype, cuda_device),
+              torch.from_numpy(ids).to(cuda_device), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [4, 8, 12, 24, 40, 96, 520, 1024])
+def test_k1_other_row_geometries(cuda_device, D, dtype):
+    """Rows of 1-2 vectors (one or two lanes a bag), widths that leave
+    lanes idle, and rows past 128 vectors (column blocks)."""
+    rng = np.random.default_rng(D)
+    H, B, P = 3000, 300, 40
+    ids = _k1_ids(rng, (B, P), H)
+    ids[EMPTY_BAGS] = -1
+    _k1_check(_k1_table(rng, H, D, dtype, cuda_device),
+              torch.from_numpy(ids).to(cuda_device), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 32, 48, 64])
+def test_k1_unaligned_table_scalar_path(cuda_device, D, dtype):
+    """A table view at storage offset 1 is not 16-byte aligned: the
+    kernel's scalar path."""
+    rng = np.random.default_rng(D + 7)
+    H, B, P = 2000, 37, 80
+    dense = _k1_table(rng, H, D, dtype, cuda_device)
+    buf = torch.empty(H * D + 1, dtype=dense.dtype, device=cuda_device)
+    buf[1:] = dense.flatten()
+    table = buf[1:].view(H, D)
+    assert table.storage_offset() == 1 and table.is_contiguous()
+    ids = _k1_ids(rng, (B, P), H)
+    ids[EMPTY_BAGS] = -1
+    _k1_check(table, torch.from_numpy(ids).to(cuda_device), dtype)
+
+
+def test_k1_many_bags_take_several_rounds(cuda_device):
+    """More bags than the resident lane groups: groups take a second bag."""
+    rng = np.random.default_rng(11)
+    H, B, P, D = 100_000, 60_000, 20, 32
+    ids = _k1_ids(rng, (B, P), H)
+    ids[EMPTY_BAGS] = -1
+    _k1_check(_k1_table(rng, H, D, "f32", cuda_device),
+              torch.from_numpy(ids).to(cuda_device), "f32")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("P", [30, 80])
+def test_k1_features_entry_equals_2d_entry(cuda_device, P, dtype):
+    """ids [B, F, P] with per-feature offsets: bitwise the 2-D entry on the
+    shifted ids; feature 3's negative offset pools it to exactly zero."""
+    rng = np.random.default_rng(P)
+    B, D = 37, 32
+    sizes = [700, 300, 900, 400, 500]
+    off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    off[3] = -1
+    ids = np.stack([_k1_ids(rng, (B, P), v) for v in sizes], axis=1)
+    table = _k1_table(rng, sum(sizes), D, dtype, cuda_device)
+    ids_t = torch.from_numpy(ids).to(cuda_device)
+    off_t = torch.from_numpy(off).to(cuda_device)
+    before = k1_ops.launches
+    got = embedding_bag_features(table, ids_t, off_t)
+    torch.cuda.synchronize()
+    assert k1_ops.launches == before + 1
+    assert got.shape == (B, len(sizes), D)
+    flat = shift_feature_ids(ids_t, off_t).to(torch.int32).reshape(-1, P)
+    assert torch.equal(got, hot_embedding_bag(table, flat).reshape(got.shape))
+    assert not got[:, 3].any()
+    want = embedding_bag_features_ref(table, ids_t, off_t)
+    torch.testing.assert_close(got.float(), want.float(), rtol=K1_TOL[dtype],
+                               atol=K1_TOL[dtype])
+
+
+def _emb_case(seed=1, B=24, **kw):
+    base = dict(vocab_sizes=(1000, 500, 2000), dim=16, pooling=(8, 4, 12))
+    base.update(kw)
+    cfg = emb.EmbeddingConfig(**base)
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(
+        rng.uniform(-1, 1, (cfg.total_rows, cfg.dim)).astype(np.float32))
+    ids = np.full((B, cfg.num_features, cfg.max_pooling), -1, np.int32)
+    for f in range(cfg.num_features):
+        counts = rng.integers(0, cfg.pooling[f] + 1, B)
+        for b in range(B):
+            ids[b, f, :counts[b]] = rng.integers(0, cfg.vocab_sizes[f],
+                                                 counts[b])
+    return cfg, table, torch.from_numpy(ids)
+
+
+@pytest.mark.parametrize("qr", [False, True])
+def test_embedding_bag_local_on_card(cuda_device, qr):
+    """One K1 launch a call, its offsets built once per (config, device);
+    the result is the CPU path's."""
+    kw = dict(vocab_sizes=(1000, 5000, 300), qr_features=(1,),
+              qr_buckets=64, combine="mean") if qr else {}
+    cfg, table, ids = _emb_case(**kw)
+    want = emb.embedding_bag_local({"table": table}, ids, cfg)
+    params = {"table": table.to(cuda_device)}
+    before = k1_ops.launches
+    got = emb.embedding_bag_local(params, ids.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert k1_ops.launches == before + 1
+    off = emb.routed_offsets(cfg, got.device)
+    assert off.device == got.device and off is emb.routed_offsets(cfg, got.device)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_k1_hot_cold_on_card(cuda_device):
+    cfg, table, ids = _emb_case()
+    layout = emb.make_hot_cold_layout(cfg, 1200)
+    cpu = emb.embedding_bag_hot_cold(
+        emb.split_hot_cold({"table": table}, layout), ids, layout)
+    split = emb.split_hot_cold({"table": table.to(cuda_device)}, layout)
+    before = k1_ops.launches
+    card = emb.embedding_bag_hot_cold(split, ids.to(cuda_device), layout)
+    torch.cuda.synchronize()
+    assert k1_ops.launches == before + 2
+    for got, want in zip(card, cpu):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

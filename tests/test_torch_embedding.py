@@ -129,3 +129,39 @@ def test_init_embedding_scales_and_generator(dtype):
         part = t[int(off[f]):int(off[f + 1])].float()
         assert part.abs().max() <= 1.0 / np.sqrt(v) * (1 + 1e-2)
         assert part.abs().max() > 0.5 / np.sqrt(v)
+
+
+@pytest.mark.parametrize("qr", [False, True])
+def test_routed_offsets_built_once(qr):
+    """K1's per-feature offsets: one int64 tensor per (config, device), the
+    feature start rows with -1 for a QR feature."""
+    kw = {"vocab_sizes": (1000, 5000, 300), "qr_features": (1,),
+          "qr_buckets": 64} if qr else {}
+    _, tc = _cfgs(**kw)
+    off = temb.routed_offsets(tc, CPU)
+    assert off is temb.routed_offsets(tc, CPU)
+    assert off.dtype == torch.int64 and off.device == CPU
+    want = tc.row_offsets[:-1].copy()
+    want[list(tc.qr_features)] = -1
+    np.testing.assert_array_equal(off.numpy(), want)
+
+
+def test_embedding_bag_local_pools_in_one_features_call(monkeypatch):
+    """embedding_bag_local hands the per-feature ids and the cached offsets
+    to K1's per-feature entry once, unshifted."""
+    _, tc = _cfgs()
+    jc, _ = _cfgs()
+    _, tt = _table(jc)
+    ids = torch.from_numpy(_ids(tc))
+    calls = []
+    real = temb.embedding_bag_features
+
+    def spy(table, i, off):
+        calls.append((i, off))
+        return real(table, i, off)
+
+    monkeypatch.setattr(temb, "embedding_bag_features", spy)
+    temb.embedding_bag_local({"table": tt}, ids, tc)
+    assert len(calls) == 1
+    assert torch.equal(calls[0][0], ids)
+    assert calls[0][1] is temb.routed_offsets(tc, CPU)

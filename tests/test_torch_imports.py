@@ -55,7 +55,8 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_and_no_reference(path):
     bad = [n for n in _imports(path) if _forbidden(n)]

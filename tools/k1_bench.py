@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Kernel K1 (the embedding bag) of the PyTorch/CUDA port on one NVIDIA GPU.
+
+For the tree whose ``src`` is given (default: this checkout's), builds K1
+alone with nvcc and prints one JSON line:
+
+  - ``ptxas``: registers, spill bytes and shared memory of each K1 instance
+    (``-Xptxas -v``), and the blocks of it an SM holds at once, worked out
+    from those (compute capability 9.0: 64K registers, 228 KB of shared
+    memory, 64 warps, 32 blocks an SM);
+  - ``sass``: for each instance, its ``LDG.E.128`` count and the longest run
+    of them that ends at an ``FADD`` with no ``FADD`` between
+    (``cuobjdump -sass``): the row loads a lane has in flight before its
+    first add;
+  - ``shapes``: K1 at the dlrm-rmc1 prod launch (f32), on a dlrm-rm2
+    FULL-shaped bf16 table and at the dlrm-rmc3 prod launch (f32), each
+    checked against its plain version and timed as ``chip_smoke.py`` times
+    it (``measure_k1``: warm, cold L2, a stream of 8 distinct launches, the
+    plain version, ``F.embedding_bag``, the bound);
+  - ``sparse_stage_ms``: ``embedding_bag_local`` at the rmc1 launch, host
+    clock from an idle device to the device's end of it (the SparseNet stage
+    of a fused launch).
+
+With ``--sweep`` (this checkout only) it writes one patched copy of
+``csrc/embedding_bag.cu`` per launch setting of ``SWEEP`` under the
+git-ignored ``build/k1_sweep/`` (warps a block, lane groups a bag, rows in
+flight a group, 16-byte row loads that skip L1), builds them all at once,
+and for each holds K1 to its plain version and times it with
+``measure_k1`` at the three shapes, its per-feature entry at the rmc1
+launch; every setting's line is also written to ``--out``.
+
+    python3 tools/k1_bench.py [--src DIR] [--sweep] [--out PATH]
+    python3 tools/k1_bench.py --ab PARENT_SRC   # parent, change, change, parent
+
+``--ab`` runs the tool on PARENT_SRC and on this checkout's ``src`` in turn,
+each in its own process, on one card, and writes every line to ``--out``
+(default ``build/k1_bench.json``, git-ignored).  The timing helpers are
+``chip_smoke.py``'s.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+INSTANCE = re.compile(r"k1_bag_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)ELi(\d+)ELb([01])E")
+OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+# warps a block (the name of the constant in older trees too)
+WARPS = re.compile(r"constexpr int kWarps(?:PerBlock)? = (\d+);")
+# The 16-byte row load of csrc/embedding_bag.cu, and the same load skipping
+# L1, for the sweep's "l1" setting.
+LDG128 = "const int4 q = __ldg(reinterpret_cast<const int4*>(p));"
+LDG128_NO_L1 = """int4 q;
+    asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(q.x), "=r"(q.y), "=r"(q.z), "=r"(q.w)
+        : "l"(p));"""
+SWEEP = [
+    {}, {"kTeam": 1, "kRows": 8}, {"kTeam": 1}, {"kTeam": 2},
+    {"kTeam": 2, "kRows": 8}, {"kRows": 2}, {"kRows": 8},
+    {"l1": "no_allocate"}, {"kWarps": 2}, {"kWarps": 8},
+]
+
+
+def instance_name(mangled: str) -> str:
+    m = INSTANCE.search(mangled)
+    if m is None:
+        return mangled
+    t, v, l, c, team, u, fit = m.groups()
+    return (f"{'f32' if t == 'f' else 'bf16'} V={v} L={l} C={c} S={team} "
+            f"U={u} fit={fit}")
+
+
+def blocks_per_sm(registers: int, smem: int, warps: int) -> int:
+    """Blocks of ``warps`` warps an SM of compute capability 9.0 holds at
+    once, at ``registers`` a thread and ``smem`` static bytes a block."""
+    regs_warp = -(-registers * 32 // 256) * 256   # allocated 256 at a time
+    by_regs = 65536 // regs_warp // warps
+    by_smem = 233472 // (-(-smem // 128) * 128 + 1024)  # 1 KB kept a block
+    return min(by_regs, by_smem, 64 // warps, 32)
+
+
+def ptxas_summary(log: str, warps: int) -> dict:
+    """{instance: {"registers", "spill_stores", "spill_loads", "smem",
+    "blocks_per_sm"}}."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = instance_name(m.group(1))
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            s = out[fn]
+            s["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            s["smem"] = int(m.group(1)) if m else 0
+            s["blocks_per_sm"] = blocks_per_sm(s["registers"], s["smem"],
+                                               warps)
+    return out
+
+
+def sass_summary(lib: Path, cuobjdump: str) -> dict:
+    """{instance: {"ldg128", "longest_ldg128_run_before_fadd"}}."""
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, fn, run = {}, None, 0
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = instance_name(m.group(1))
+            out[fn] = {"ldg128": 0, "longest_ldg128_run_before_fadd": 0}
+            run = 0
+            continue
+        m = OPCODE.search(line)
+        if fn is None or m is None:
+            continue
+        op = m.group(1)
+        if op.startswith("LDG.E.128"):
+            out[fn]["ldg128"] += 1
+            run += 1
+        elif op.startswith("FADD"):
+            s = out[fn]
+            s["longest_ldg128_run_before_fadd"] = max(
+                s["longest_ldg128_run_before_fadd"], run)
+            run = 0
+    return out
+
+
+def compile_k1(src_cu: Path, out: Path) -> subprocess.Popen:
+    """nvcc of ``src_cu`` with the port's flags into ``out``; returns the
+    running process (output: ptxas's report)."""
+    from repro_torch.kernels import _build
+
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+           str(src_cu)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish(proc: subprocess.Popen) -> str:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    return log
+
+
+def use_library(lib: Path) -> None:
+    """Make the port's K1 launcher launch the kernel of ``lib``: it loads
+    its library through ``_build.load``, which returns a loaded one first."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import embedding_bag as launcher
+
+    _build._libs["embedding_bag"] = ctypes.CDLL(str(lib))
+    launcher._fn = None
+
+
+def residency(ptxas: dict, table, ids, warps: int, sms: int) -> dict | None:
+    """The K1 instance a launch on ``table``/``ids`` takes where its rows are
+    16-byte vectors and one lane group wide (its team of S groups a bag read
+    from the instance's name), and the blocks it needs at one bag a team
+    beside those the card holds at once (the grid is the smaller)."""
+    esize = table.element_size()
+    lanes = table.shape[1] * esize // 16
+    if table.shape[1] * esize % 16 or lanes not in (1, 2, 4, 8, 16, 32):
+        return None
+    dt = "f32" if esize == 4 else "bf16"
+    name = next((k for k in ptxas
+                 if k.startswith(f"{dt} V={16 // esize} L={lanes} C=1 ")
+                 and k.endswith("fit=1")), None)
+    if name is None:
+        return None
+    team = int(re.search(r" S=(\d+)", name).group(1))
+    per_block = warps * (32 // (lanes * team))   # bags a block holds at once
+    need = -(-ids.shape[0] // per_block)
+    resident = ptxas[name]["blocks_per_sm"] * sms
+    return {"instance": name, "blocks_per_sm": ptxas[name]["blocks_per_sm"],
+            "resident_blocks": resident, "blocks_one_bag_a_team": need,
+            "grid": min(need, resident)}
+
+
+def shape_cases(dev):
+    """(name, table, ids [bags, P], ids [B, F, P], cfg, tolerance) of the
+    three launch shapes, the tables made on ``dev`` from one seed."""
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.configs.paper_models import rmc1, rmc3
+
+    g = torch.Generator(dev).manual_seed(7)
+    for name, cfg, dtype, seed, tol in (
+            ("rmc1_prod", rmc1(True), torch.float32, 3, smoke.F32_TOL),
+            ("rm2_full_bf16", dlrm_rm2.FULL, torch.bfloat16, 4,
+             smoke.BF16_TOL),
+            ("rmc3_prod", rmc3(True), torch.float32, 5, smoke.F32_TOL)):
+        emb = cfg.embedding
+        ids3_np = smoke.click_launches(cfg, [seed])[0]
+        ids = torch.from_numpy(smoke.shifted_ids(ids3_np, emb.row_offsets)
+                               ).to(dev)
+        yield (name, smoke.k1_table(dev, emb, dtype, g), ids,
+               torch.from_numpy(ids3_np).to(dev), cfg, tol)
+
+
+def run_one(src: Path) -> dict:
+    sys.path.insert(0, str(src.resolve()))
+    sys.path.insert(1, str(ROOT))
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.models.embedding import embedding_bag_local
+
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_bench: no CUDA device")
+    # K1 alone, compiled here for ptxas's report and the SASS, and launched
+    k1_src = _build.sources()["embedding_bag"]
+    lib = _build.BUILD_DIR / "k1_bench.so"
+    log = finish(compile_k1(k1_src, lib))
+    use_library(lib)
+    warps = int(WARPS.search(k1_src.read_text()).group(1))
+    nvcc = Path(_build.nvcc_path())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"src": str(src), "card": smoke.nvidia_smi(), "sms": sms,
+           "ptxas": ptxas_summary(log, warps),
+           "sass": sass_summary(lib, str(nvcc.parent / "cuobjdump"))}
+    bw, f32_rate, _ = smoke.card_rates(torch.cuda.get_device_name(0))
+    dev = torch.device("cuda")
+    shapes = {}
+    for name, table, ids, ids3, cfg, tol in shape_cases(dev):
+        err = smoke.check(name, ops.hot_embedding_bag(table, ids),
+                          ref.hot_embedding_bag_ref(table, ids), tol)
+        shapes[name] = {"table": list(table.shape), "bags": ids.shape[0],
+                        "P": ids.shape[1], "max_abs_err": err,
+                        **smoke.measure_k1(table, ids, bw, f32_rate,
+                                           smoke.k1_stream(cfg, dev)),
+                        "residency": residency(out["ptxas"], table, ids,
+                                               warps, sms)}
+        if name == "rmc1_prod":
+            with torch.inference_mode():
+                out["sparse_stage_ms"] = smoke.host_ms(
+                    lambda: embedding_bag_local({"table": table}, ids3,
+                                                cfg.embedding))
+        del table, ids, ids3
+        torch.cuda.empty_cache()
+    out["shapes"] = shapes
+    return out
+
+
+def variant_source(text: str, setting: dict) -> str:
+    """``csrc/embedding_bag.cu``'s text with ``setting`` applied: each
+    ``kWarps``/``kTeam``/``kRows`` given its value, ``l1: no_allocate``
+    turning the 16-byte row load into one that skips L1."""
+    for key, value in setting.items():
+        if key == "l1":
+            old, new = LDG128, LDG128_NO_L1
+        else:
+            old = re.search(rf"constexpr int {key} = \d+;", text).group(0)
+            new = f"constexpr int {key} = {value};"
+        if text.count(old) != 1:
+            raise ValueError(f"sweep setting {key}: {old!r} is not in the "
+                             "source exactly once")
+        text = text.replace(old, new)
+    return text
+
+
+def run_sweep() -> list[dict]:
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(1, str(ROOT))
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.models.embedding import routed_offsets
+
+    text = _build.sources()["embedding_bag"].read_text()
+    base = ROOT / "build" / "k1_sweep"
+    base.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for d in SWEEP:
+        stem = "k1_" + ("_".join(f"{k}{v}" for k, v in d.items()) or "default")
+        cu = base / f"{stem}.cu"
+        cu.write_text(variant_source(text, d))
+        lib = base / f"{stem}.so"
+        jobs.append((d, lib, compile_k1(cu, lib),
+                     int(WARPS.search(cu.read_text()).group(1))))
+    logs = [finish(proc) for _, _, proc, _ in jobs]
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bw, f32_rate, _ = smoke.card_rates(torch.cuda.get_device_name(0))
+    cases = list(shape_cases(dev))
+    streams = {c[0]: smoke.k1_stream(c[4], dev) for c in cases}
+    res = []
+    for (d, lib, _, warps), log in zip(jobs, logs):
+        use_library(lib)
+        ptxas = ptxas_summary(log, warps)
+        row = {"setting": d or "default", "ptxas": {
+            k: v for k, v in ptxas.items()
+            if k.startswith(("f32 V=4 L=8 ", "bf16 V=8 L=8 "))}}
+        _, table, _, ids3, cfg, _ = cases[0]
+        offsets = routed_offsets(cfg.embedding, dev)
+        got3 = ops.embedding_bag_features(table, ids3, offsets)
+        flat = torch.from_numpy(smoke.shifted_ids(
+            ids3.cpu().numpy(), cfg.embedding.row_offsets)).to(dev)
+        row["rmc1_features_equal_2d"] = bool(torch.equal(
+            got3.reshape(-1, table.shape[1]),
+            ops.hot_embedding_bag(table, flat)))
+        row["rmc1_features_ms"] = smoke.time_ms(
+            lambda: ops.embedding_bag_features(table, ids3, offsets))
+        for name, table, ids, _, _, tol in cases:
+            try:
+                err = smoke.check(name, ops.hot_embedding_bag(table, ids),
+                                  ref.hot_embedding_bag_ref(table, ids), tol)
+            except AssertionError as e:  # a wrong setting is reported
+                row[name] = {"error": str(e)}
+                continue
+            row[name] = {"max_abs_err": err,
+                         "residency": residency(ptxas, table, ids, warps, sms),
+                         **smoke.measure_k1(table, ids, bw, f32_rate,
+                                            streams[name])}
+        res.append(row)
+        print(json.dumps(row), flush=True)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", type=Path, default=ROOT / "src")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "k1_bench.json",
+                    help="where --ab and --sweep write all their lines")
+    ap.add_argument("--ab", type=Path, default=None,
+                    help="a parent tree's src: run parent, change, change, "
+                         "parent")
+    args = ap.parse_args()
+    if args.sweep:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(run_sweep(), indent=1))
+        return 0
+    if args.ab is None:
+        print(json.dumps(run_one(args.src)), flush=True)
+        return 0
+    lines = []
+    for src in (args.ab, ROOT / "src", ROOT / "src", args.ab):
+        proc = subprocess.run([sys.executable, __file__, "--src", str(src)],
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            return proc.returncode
+        lines.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(lines, indent=1))
+    keys = ("ms", "ms_cold_l2", "ms_cold_clean", "ms_stream", "library_ms",
+            "bound_ms")
+    for line in lines:
+        print(json.dumps({"src": line["src"], "card": line["card"],
+                          "sparse_stage_ms": line["sparse_stage_ms"],
+                          **{n: {k: c[k] for k in keys}
+                             for n, c in line["shapes"].items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
