@@ -63,13 +63,28 @@ Phases, one JSON line each:
                one more step under torch.profiler (device busy, idle share),
                (d) the steps of (b) and (c) in f32, K3 held to its plain
                version at each call, their logits held to the same path
-               with K3 replaced by its plain version.
+               with K3 replaced by its plain version;
+  8. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
+               day through ``repro_torch.serving.scenarios``: (a) K4 at
+               benchmarks/bench_cluster.py's fleet shape (512 streams, k in
+               {2, 4, 8, 16}, 199,444 jobs), every stream bitwise
+               ``engine._sweep`` and K4's plain version, with planted
+               one-ulp faults; timed alone, through ``fleet_fifo_finish``
+               and against the sequential sweep; (b) the smoke event-core
+               day (``baseline_day``, cap 20,000), as it is (no wide group:
+               no K4 launch) and with ``_MIN_FLEET_WIDTH`` = 1 (every
+               call through K4), each bitwise the same day on the CPU and
+               every fleet call bitwise ``_sweep``; (c) the full-width
+               event-core day (all six workloads x all eleven server
+               types, cut from 96 to 24 intervals, cap 200,000) from an
+               empty profile cache, every fleet call bitwise ``_sweep``,
+               with the bridged days' Hercules-vs-greedy peak power.
 Every attention-kernel check is also shown to fail planted faults (zeros,
 half the keys, the wrong KV head, the causal mask flipped, and for the int8
 entry each row read with the next row's scales); the kernel phases feed
 peaked queries so that attention outputs are O(1) against the bf16
 tolerance.
-Then the kernel summary line (K1, K2, K3 and K3's int8 entry), the
+Then the kernel summary line (K1, K2, K3, K3's int8 entry and K4), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result.  Without a CUDA device, or without the
@@ -1299,8 +1314,351 @@ def phase_lm(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the cluster day (K4)
+# ---------------------------------------------------------------------------
+
+FLEET_JOBS = 100_000   # benchmarks/bench_cluster.py's n_jobs
+SMOKE_CAP = 20_000     # the bench_cluster --smoke event-core day
+FULL_CAP = 200_000     # examples/cluster_day.py --event-core at full scale
+FULL_STEPS = 24        # full-width day cut from 96 provisioning intervals
+# benchmarks/baselines/BENCH_cluster_smoke.json, event_core.day (a CPU run
+# of the reference), printed beside the card's day for the record
+BENCH_SMOKE_DAY = {"peak_power_w": 2325.0, "n_queries": 480_000,
+                   "p99_ms": {"dlrm-rmc1": 77.83, "dlrm-rmc3": 50.70}}
+
+
+def fleet_bench_streams(n_jobs: int = FLEET_JOBS, seed: int = 0):
+    """The fleet shape of benchmarks/bench_cluster.py (copied, it imports
+    the reference): 512 streams, k in {2, 4, 8, 16}, drawn after the
+    saturated stream's n_jobs arrival draws."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rng.exponential(1.0, n_jobs)  # the saturated stream's arrivals
+    ks = [2, 4, 8, 16]
+    n_streams = 512
+    per = 2 * n_jobs // n_streams
+    streams = []
+    for i in range(n_streams):
+        kk = ks[i % len(ks)]
+        n = int(per * rng.uniform(0.8, 1.2))
+        r = rng.exponential(1.0, n).cumsum() * (1.0 / (1.1 * kk))
+        d = rng.choice(rng.uniform(0.5, 1.5, 6), n)
+        streams.append((r, d, kk, rng.uniform(0.0, 2.0, kk)))
+    return streams
+
+
+def sweep_all(streams):
+    """The oracle: ``engine._sweep`` on every stream."""
+    from repro_torch.serving.engine import _sweep
+
+    return [_sweep(s[0], s[1], int(s[2]), s[3] if len(s) > 3 else None,
+                   return_state=True) for s in streams]
+
+
+def check_fleet(name, got, want) -> int:
+    """Every stream's ends and sorted end state bitwise; returns jobs."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} results for {len(want)} "
+                             "streams")
+    jobs = 0
+    for j, ((e, st), (we, ws)) in enumerate(zip(got, want)):
+        if e.dtype != we.dtype or not np.array_equal(e, we):
+            raise AssertionError(f"{name}: stream {j} ends differ from "
+                                 "_sweep")
+        if not np.array_equal(st, ws):
+            raise AssertionError(f"{name}: stream {j} end state differs "
+                                 "from _sweep")
+        jobs += len(e)
+    return jobs
+
+
+def fleet_must_fail(name, got, want) -> None:
+    """Planted faults: one end, then one end-state value, moved by one ulp,
+    must each fail ``check_fleet``."""
+    import numpy as np
+
+    j = max(range(len(got)), key=lambda i: len(got[i][0]))
+    for what in ("ends", "state"):
+        bad = [(e.copy(), st.copy()) for e, st in got]
+        arr = bad[j][0] if what == "ends" else bad[j][1]
+        i = len(arr) // 2
+        arr[i] = np.nextafter(arr[i], np.inf)
+        try:
+            check_fleet(f"{name} (planted {what} ulp)", bad, want)
+        except AssertionError:
+            continue
+        raise AssertionError(f"{name}: a one-ulp fault in {what} passed")
+
+
+def same_tree(name, a, b, path="$") -> None:
+    """Recursive bitwise equality of two ``to_dict()`` trees (NaN equals
+    NaN, arrays by dtype, shape and value)."""
+    import math
+
+    import numpy as np
+
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or list(a) != list(b):
+            raise AssertionError(f"{name}: keys differ at {path}")
+        for k in a:
+            same_tree(name, a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            raise AssertionError(f"{name}: lengths differ at {path}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(name, x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        if not (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape
+                and np.array_equal(a, b, equal_nan=a.dtype.kind in "fc")):
+            raise AssertionError(f"{name}: arrays differ at {path}")
+    elif isinstance(a, float) and math.isnan(a):
+        if not (isinstance(b, float) and math.isnan(b)):
+            raise AssertionError(f"{name}: {path} {a} != {b}")
+    elif type(a) is not type(b) or a != b:
+        raise AssertionError(f"{name}: {path} {a!r} != {b!r}")
+
+
+@contextlib.contextmanager
+def checked_fleet(log: dict):
+    """``event_core.fleet_fifo_finish`` held bitwise against ``_sweep`` on
+    every stream of every call for the duration; ``ops.fleet_fifo`` timed
+    with CUDA events (K4's device time) and the wide groups' packing,
+    copies and unpacking on the host clock.  The checks' own time is kept
+    apart in ``log["check_s"]``."""
+    import torch
+
+    from repro_torch.kernels.fleet_fifo import ops
+    from repro_torch.serving import event_core
+
+    finish, run_fleet, launch = (event_core.fleet_fifo_finish,
+                                 event_core._run_fleet, ops.fleet_fifo)
+    events = []
+
+    def timed_launch(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args)
+        end.record()
+        events.append((start, end, int((args[2][1:] - args[2][:-1]).max())))
+        return out
+
+    def timed_run_fleet(*args):
+        t0 = time.perf_counter()
+        run_fleet(*args)
+        log["wide_host_s"] += time.perf_counter() - t0
+
+    def checked(streams, device="cuda"):
+        streams = list(streams)
+        t0 = time.perf_counter()
+        got = finish(streams, device=device)
+        log["finish_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log["checked_jobs"] += check_fleet(
+            f"fleet call {log['calls']}", got, sweep_all(streams))
+        log["check_s"] += time.perf_counter() - t0
+        log["calls"] += bool(streams)  # as event_core counts fleet_calls
+        return got
+
+    log.update(calls=0, checked_jobs=0, check_s=0.0, finish_s=0.0,
+               wide_host_s=0.0)
+    event_core.fleet_fifo_finish = checked
+    event_core._run_fleet = timed_run_fleet
+    ops.fleet_fifo = timed_launch
+    try:
+        yield log
+    finally:
+        event_core.fleet_fifo_finish = finish
+        event_core._run_fleet = run_fleet
+        ops.fleet_fifo = launch
+        torch.cuda.synchronize()
+        ms = [(a.elapsed_time(b), steps) for a, b, steps in events]
+        log["k4_device_ms"] = sum(m for m, _ in ms)
+        log["k4_steps"] = max((steps for _, steps in ms), default=0)
+        # the launch with the longest chain: its time over its steps is the
+        # recurrence's time a step
+        m, steps = max(ms, key=lambda x: x[1], default=(0.0, 0))
+        log["k4_longest_launch_ms"] = m
+        log["k4_ns_per_step"] = m * 1e6 / steps if steps else None
+
+
+def day_line(day) -> dict:
+    return {"feasible": bool(day.feasible),
+            "all_meet_sla": bool(day.all_meet_sla),
+            "peak_power_w": float(day.peak_power_w),
+            "workloads": {w: {"n_queries": int(d["n_queries"]),
+                              "p99_ms": float(d["p99_ms"]),
+                              "n_hedged": int(d["n_hedged"])}
+                          for w, d in day.per_workload.items()}}
+
+
+def phase_cluster(dev, bw: float) -> dict:
+    """(a) K4 alone at bench_cluster's fleet shape, (b) the smoke
+    event-core day (as it is, then with every k > 1 group wide), each
+    bitwise the CPU day, (c) the full-width event-core day."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fleet_fifo import fleet_fifo_ref
+    from repro_torch.kernels.fleet_fifo import ops
+    from repro_torch.serving import event_core
+    from repro_torch.serving.scenarios import (compile_scenario, full_scale,
+                                               get_scenario)
+
+    res: dict = {"phase": "cluster"}
+    # (a) K4 alone
+    streams = fleet_bench_streams()
+    want = sweep_all(streams)
+    got = event_core.fleet_fifo_finish(streams, device=dev)
+    jobs = check_fleet("fleet bench", got, want)
+    fleet_must_fail("fleet bench", got, want)
+    # the wide groups' ragged layout, as fleet_fifo_finish packs it
+    packed = []
+    launch = ops.fleet_fifo
+    ops.fleet_fifo = lambda *a: packed.append(a) or launch(*a)
+    try:
+        event_core.fleet_fifo_finish(streams, device=dev)
+    finally:
+        ops.fleet_fifo = launch
+    args = packed[0]
+    ends, state = ops.fleet_fifo(*args)
+    p_ends, p_state = fleet_fifo_ref(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(ends, p_ends):
+        raise AssertionError("K4 ends differ from its plain version")
+    if not torch.equal(state.sort(dim=1).values, p_state.sort(dim=1).values):
+        raise AssertionError("K4 end state differs from its plain version")
+    ks = args[3]
+    lens = np.diff(args[2].cpu().numpy())
+    # the kernel alone: the thread layout made once, as a launch sees it
+    lanes = torch.from_numpy(ops.warp_lanes(ks)).to(dev)
+    kernel_args = (args[0], args[1], args[2], lanes, args[4])
+    state_bytes = 2 * 8 * sum(ks)
+    n_bytes = 24 * jobs + state_bytes
+    reps = 5
+    fin_s = sw_s = float("inf")
+    for _ in range(reps):  # interleaved best-of-5, as bench_cluster's pair
+        t0 = time.perf_counter()
+        event_core.fleet_fifo_finish(streams, device=dev)
+        fin_s = min(fin_s, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sweep_all(streams)
+        sw_s = min(sw_s, time.perf_counter() - t0)
+    res["a_fleet_bench"] = {
+        "shape": f"{len(streams)} streams, k in {{2, 4, 8, 16}}, {jobs} jobs",
+        "tolerance": "bitwise (ends and sorted end state, every stream, "
+                     "against _sweep and the plain version)",
+        "planted_faults_failed": 2,
+        "ms": time_ms(lambda: ops.launch(*kernel_args)),
+        "wrapper_ms": time_ms(lambda: ops.fleet_fifo(*args)),
+        "plain_ms": time_ms(lambda: fleet_fifo_ref(*args), reps=5),
+        "fleet_fifo_finish_ms": fin_s * 1e3,
+        "sweep_ms": sw_s * 1e3,
+        "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes",
+        "bytes": n_bytes, "chain_steps": int(lens.max()),
+        "library_ms": None, "max_abs_err": 0.0}
+
+    # (b) the smoke event-core day
+    spec = dataclasses.replace(
+        get_scenario("baseline_day"),
+        runtime={"event_core": True, "event_core_queries": SMOKE_CAP})
+    t0 = time.perf_counter()
+    comp = compile_scenario(spec)
+    res["b_compile_s"] = time.perf_counter() - t0
+    saved_width = event_core._MIN_FLEET_WIDTH
+    try:
+        for label, width in (("as_is", saved_width), ("width_1", 1)):
+            event_core._MIN_FLEET_WIDTH = width
+            log: dict = {}
+            ops.launches = 0
+            event_core.stats_reset()
+            t0 = time.perf_counter()
+            with checked_fleet(log):
+                day = comp.run(device=dev)
+            wall = time.perf_counter() - t0
+            launches = ops.launches
+            stats = dict(event_core.stats)
+            if label == "as_is" and launches != 0:
+                raise AssertionError(f"smoke day: {launches} K4 launches "
+                                     "where no group is wide")
+            if label == "width_1" and launches == 0:
+                raise AssertionError("smoke day at width 1: K4 never ran")
+            t0 = time.perf_counter()
+            cpu_day = comp.run(device="cpu")
+            cpu_s = time.perf_counter() - t0
+            same_tree(f"smoke day {label}", day.to_dict(), cpu_day.to_dict())
+            res[f"b_smoke_day_{label}"] = {
+                "min_fleet_width": width, "k4_launches": launches,
+                "day_s": wall - log["check_s"], "cpu_day_s": cpu_s,
+                "equals_cpu_day": True, "fleet": {
+                    k: stats[k] for k in ("fleet_calls", "fleet_groups",
+                                          "fleet_jobs", "fleet_kernel",
+                                          "fleet_seq")},
+                "checked_calls": log["calls"],
+                "checked_jobs": log["checked_jobs"],
+                **day_line(day)}
+    finally:
+        event_core._MIN_FLEET_WIDTH = saved_width
+    res["b_bench_smoke_reference_cpu"] = BENCH_SMOKE_DAY
+
+    # (c) full width: all six workloads x all eleven server types
+    full = full_scale(get_scenario("baseline_day"), n_steps=FULL_STEPS)
+    t0 = time.perf_counter()
+    bridged = compile_scenario(full)
+    compile_s = time.perf_counter() - t0
+    power = {p: bridged.run(policy=p, device=dev).peak_power_w
+             for p in ("hercules", "greedy")}
+    comp = compile_scenario(dataclasses.replace(
+        full, runtime={"event_core": True, "event_core_queries": FULL_CAP}))
+    log = {}
+    ops.launches = 0
+    event_core.stats_reset()
+    t0 = time.perf_counter()
+    with checked_fleet(log):
+        day = comp.run(device=dev)
+    wall = time.perf_counter() - t0
+    launches = ops.launches
+    stats = dict(event_core.stats)
+    if launches == 0:
+        raise AssertionError("full-width day: K4 never ran")
+    if not day.feasible:
+        raise AssertionError("full-width day is infeasible")
+    if not all(np.isfinite(d["p99_ms"]) for d in day.per_workload.values()):
+        raise AssertionError("full-width day: a non-finite p99")
+    res["c_full_width_day"] = {
+        "cut": f"{FULL_STEPS} provisioning intervals instead of 96; all "
+               f"{len(bridged.table.workloads)} workloads x "
+               f"{len(bridged.table.servers)} server types",
+        "event_core_queries": FULL_CAP,
+        "compile_s": compile_s,
+        "day_s": wall - log["check_s"], "check_s": log["check_s"],
+        "k4_launches": launches, "k4_device_ms": log["k4_device_ms"],
+        "k4_longest_chain": log["k4_steps"],
+        "k4_longest_launch_ms": log["k4_longest_launch_ms"],
+        "k4_ns_per_step": log["k4_ns_per_step"],
+        "wide_groups_host_s": log["wide_host_s"],
+        "fleet_fifo_finish_s": log["finish_s"],
+        "fleet": {k: stats[k] for k in ("fleet_calls", "fleet_groups",
+                                        "fleet_jobs", "fleet_kernel",
+                                        "fleet_seq")},
+        "checked_calls": log["calls"], "checked_jobs": log["checked_jobs"],
+        "bridged_peak_power_w": power,
+        "hercules_vs_greedy_peak_power_saving":
+            1.0 - power["hercules"] / power["greedy"],
+        **day_line(day)}
+    res["k4_launches"] = launches
+    return res
+
+
 def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
-                   lm: dict) -> list[dict]:
+                   lm: dict, cluster: dict) -> list[dict]:
     """The summary of every kernel: where it replaces a TPU kernel, its
     launches on the paths driven here, its error and its times."""
     import torch
@@ -1309,6 +1667,7 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
 
     m = k1["rmc1"]
     i8 = k3["int8"]
+    fb = cluster["a_fleet_bench"]
     decode_src = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
     k1_keys = ("ms", "ms_cold_l2", "ms_cold_clean", "ms_stream", "plain_ms",
                "library_ms", "bound_ms", "bound_by", "cold_share_of_bound",
@@ -1390,6 +1749,24 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
         "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "library_note": i8["library_note"],
         "shape": i8["shape"], "tolerance": i8["tolerance"],
+    }, {
+        "name": "fleet_fifo",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/fleet_fifo/csrc/fleet_fifo.cu",
+        "replaces": "src/repro/serving/event_core.py:198 (not Pallas: the "
+                    "jitted lax.scan fleet solver, driven by "
+                    "fleet_fifo_finish :240)",
+        "launches": cluster["k4_launches"],
+        "launches_note": "the full-width event-core day of the cluster "
+                         "phase, counted from 0",
+        "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
+        "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
+        "bound_by": fb["bound_by"], "library_ms": fb["library_ms"],
+        "library_note": "no PyTorch call computes the k-server FIFO "
+                        "recurrence",
+        "fleet_fifo_finish_ms": fb["fleet_fifo_finish_ms"],
+        "sweep_ms": fb["sweep_ms"], "chain_steps": fb["chain_steps"],
+        "shape": fb["shape"], "tolerance": fb["tolerance"],
     }]
 
 
@@ -1455,7 +1832,11 @@ def main() -> int:
     lm = phase_lm(dev)
     emit(lm)
 
-    emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm),
+    # 8. the cluster day (K4's count is reset inside, just before each day)
+    cluster = phase_cluster(dev, bw)
+    emit(cluster)
+
+    emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, cluster),
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

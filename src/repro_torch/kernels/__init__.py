@@ -10,6 +10,9 @@ reference.
   ``mma.sync`` tensor cores; CUDA-core variants for f32 and other head
   sizes).  ``flash_decode_int8`` is K3 read straight from the int8 KV cache
   and its scales, the path the int8 flash decode takes.
+- fleet_fifo (K4, not a Pallas kernel in the reference but its jitted
+  ``lax.scan``): the event core's fleet FIFO solver, CUDA C++, one thread
+  a stream; what an ``event_core`` cluster day runs on the card.
 
 Each kernel ships ``csrc/*.cu`` (the kernel, plain C interface),
 ``<name>.py`` (the ctypes launcher), ``ops.py`` (the wrapper: plain version
@@ -27,7 +30,8 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_decode_partials,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref, lse_combine
+from repro_torch.kernels.fleet_fifo import fleet_fifo, fleet_fifo_ref
 
 __all__ = ["hot_embedding_bag", "hot_embedding_bag_ref", "flash_attention",
            "flash_decode", "flash_decode_int8", "flash_decode_partials",
-           "attention_ref", "lse_combine"]
+           "attention_ref", "lse_combine", "fleet_fifo", "fleet_fifo_ref"]

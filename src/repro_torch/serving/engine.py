@@ -31,7 +31,8 @@ exact vectorization exists:
   ``event_core`` blocked kernel instead: bitwise-equal
   speculate-and-verify blocks that win outright in light/constant-
   duration regimes and cost a few percent when every block falls back
-  to this sweep.
+  to this sweep; batches of *independent* streams should use
+  ``event_core.fleet_fifo_finish``.
 
 Floating point: the Lindley transform reassociates max/plus, so k == 1
 fast-path finish times can differ from the reference loop by accumulated

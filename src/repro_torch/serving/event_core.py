@@ -33,6 +33,16 @@ a full 86400 s day produces.  This module attacks that cost
       regimes.  It was dropped; failed-speculation overhead is now
       ~15 ns/job against the sweep's ~250 ns/job.)
 
+2.  :func:`fleet_fifo_finish` — the batched path.  A full-day interval
+    does not produce one million-job stream; it produces hundreds of
+    *independent* per-slot streams.  The recurrence is sequential per
+    stream but embarrassingly parallel across streams.  Streams are
+    grouped by k (pool slot groups are k-homogeneous); every group wide
+    enough to pay goes to the fleet FIFO solver (K4,
+    :mod:`repro_torch.kernels.fleet_fifo`): one CUDA launch for all of a
+    call's wide groups on a card, its plain PyTorch version (a loop over
+    time steps) on the CPU.  Narrow groups run through the scalar sweep.
+
 Floating point (why bitwise equality is possible): the per-step min over
 k server-free times is an exact associative reduction, each finish time
 is one ``max`` and one ``+`` on the same operands the sweep uses, and an
@@ -43,21 +53,30 @@ k == 1 Lindley closed form in ``engine`` reassociates; nothing here does.
 Determinism: simulated path — no RNG, no wall clocks; all state is
 threaded explicitly.
 
-This is the port's numpy copy of the reference module.  The reference's
-many-stream ``fleet_fifo_finish`` (a jitted ``lax.scan``) is not part of
-this copy; it is ported with the cluster-day runtime that calls it.
+This is the port's copy of the reference module.  The reference's fleet
+path is a jitted ``lax.scan``; the port's is the K4 kernel (one thread a
+stream) behind the same grouping, with ``fleet_jax`` renamed
+``fleet_kernel``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.common.types import resolve_device
+from repro_torch.kernels.fleet_fifo import ops as k4
 from repro_torch.serving.engine import _sweep
 
 _DEFAULT_BLOCK = 8192
+# fleet batching only pays when the step loop advances several jobs at
+# once; below this effective width the sequential sweep is already fine
+_MIN_FLEET_WIDTH = 4
 
 # per-call path mix (reset with engine.stats_reset)
 stats = {
     "light": 0, "saturated": 0, "fallback": 0, "blocks": 0, "calls": 0,
+    "fleet_calls": 0, "fleet_groups": 0, "fleet_jobs": 0,
+    "fleet_kernel": 0, "fleet_seq": 0,
 }
 
 
@@ -166,6 +185,89 @@ def _try_saturated(r, d, h, k):
         return None
     e = E[1:].ravel()[:B]
     return e, np.sort(q[B:B + k])
+
+
+# ---------------------------------------------------------------------------
+# fleet path — S independent streams through the fleet FIFO solver (K4)
+# ---------------------------------------------------------------------------
+
+def fleet_fifo_finish(streams, device: str | torch.device = "cuda"):
+    """Solve many independent k-server FIFO streams at once.
+
+    ``streams`` is a sequence of ``(ready, dur, k)`` or
+    ``(ready, dur, k, free0)`` tuples — one per pool slot.  Returns a
+    list of ``(ends, state)`` pairs aligned with the input, each
+    bitwise-equal to ``engine._sweep(ready, dur, k, free0,
+    return_state=True)``.
+
+    Streams are grouped by ``k``.  A group whose jobs per step (total
+    jobs over its longest stream) reach ``_MIN_FLEET_WIDTH`` is wide: all
+    wide groups of the call go to :func:`kernels.fleet_fifo.fleet_fifo`
+    together, on ``device`` (the CUDA kernel on ``"cuda"``, its plain
+    version on ``"cpu"``).  Narrow groups run sequentially through the
+    scalar sweep.
+    """
+    dev = resolve_device(device)
+    items = []
+    for s in streams:
+        r, d, k = s[0], s[1], int(s[2])
+        f0 = s[3] if len(s) > 3 else None
+        items.append((np.ascontiguousarray(r, dtype=np.float64),
+                      np.ascontiguousarray(d, dtype=np.float64),
+                      max(k, 1),
+                      None if f0 is None else
+                      np.asarray(f0, dtype=np.float64)))
+    out: list = [None] * len(items)
+    if not items:
+        return out
+    stats["fleet_calls"] += 1
+    stats["fleet_jobs"] += sum(it[0].shape[0] for it in items)
+
+    by_k: dict[int, list[int]] = {}
+    for i, it in enumerate(items):
+        by_k.setdefault(it[2], []).append(i)
+
+    wide: list[int] = []
+    for k, idxs in sorted(by_k.items()):
+        ns = [items[i][0].shape[0] for i in idxs]
+        n_max = max(ns)
+        # effective width: jobs advanced per step across the group
+        if n_max > 0 and sum(ns) / n_max >= _MIN_FLEET_WIDTH:
+            stats["fleet_groups"] += 1
+            stats["fleet_kernel"] += len(idxs)
+            wide.extend(idxs)
+        else:
+            stats["fleet_seq"] += len(idxs)
+            for i in idxs:
+                r, d, kk, f0 = items[i]
+                out[i] = _sweep(r, d, kk, free0=f0, return_state=True)
+    if wide:
+        _run_fleet(items, wide, out, dev)
+    return out
+
+
+def _run_fleet(items, idxs, out, dev):
+    """The wide streams ``idxs`` through one ``k4.fleet_fifo`` call (K4
+    on a CUDA device, its plain version on the CPU) in the ragged
+    layout."""
+    ks = [items[i][2] for i in idxs]
+    ns = np.array([items[i][0].shape[0] for i in idxs], np.int64)
+    offsets = np.zeros(len(idxs) + 1, np.int64)
+    np.cumsum(ns, out=offsets[1:])
+    free0 = np.zeros((len(idxs), max(ks)))
+    for j, i in enumerate(idxs):
+        f0 = items[i][3]
+        if f0 is not None:
+            free0[j, :ks[j]] = f0
+    ends, state = k4.fleet_fifo(
+        torch.from_numpy(np.concatenate([items[i][0] for i in idxs])).to(dev),
+        torch.from_numpy(np.concatenate([items[i][1] for i in idxs])).to(dev),
+        torch.from_numpy(offsets).to(dev), ks, torch.from_numpy(free0).to(dev))
+    ends = ends.cpu().numpy()
+    state = state.cpu().numpy()
+    for j, i in enumerate(idxs):
+        out[i] = (ends[offsets[j]:offsets[j + 1]].copy(),
+                  np.sort(state[j, :ks[j]]))
 
 
 def merge_event_streams(*streams: np.ndarray):

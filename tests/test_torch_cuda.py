@@ -13,6 +13,13 @@ dequantised eagerly), K3's bf16 entry at the head sizes its CUDA-core
 variant takes, and K2's tensor-core variant at ragged Tq/Tk, with
 q_offset, at head sizes 64 and 128.
 
+K4 (the fleet FIFO solver) bitwise against its plain version and against
+``engine._sweep``: every register bucket and the generic instance (k in
+{1, 2, 3, 5, 8, 16, 17, 20, 33, 40}), empty streams, ``free0`` given and
+not, streams of very different lengths, several k-groups in one launch,
+8 streams of 150,000 jobs (a full-width day's shape), a launch repeated,
+``fleet_fifo_finish(device="cuda")``, and a missing library raising.
+
 Imports neither jax nor the reference, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.  Without
 a card every test skips.  Tolerances are those of tests/test_kernels.py:
@@ -38,7 +45,11 @@ from repro_torch.kernels.embedding_bag import (
 )
 from repro_torch.kernels.embedding_bag.ref import shift_feature_ids
 from repro_torch.kernels.flash_attention.ref import dequantize_kv
+from repro_torch.kernels.fleet_fifo import fleet_fifo, fleet_fifo_ref
+from repro_torch.kernels.fleet_fifo import ops as k4_ops
 from repro_torch.models import embedding as emb
+from repro_torch.serving import event_core
+from repro_torch.serving.engine import _sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -280,3 +291,131 @@ def test_k1_hot_cold_on_card(cuda_device):
     assert k1_ops.launches == before + 2
     for got, want in zip(card, cpu):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4: the fleet FIFO solver
+# ---------------------------------------------------------------------------
+
+def _k4_streams(seed, spec):
+    """``spec``: (k, n, with_free0) per stream -> (ready, dur, k, free0)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k, n, with_f0 in spec:
+        r = rng.exponential(0.2 / k, n).cumsum()
+        d = rng.choice(rng.uniform(0.01, 0.8, 4), n)
+        f0 = rng.uniform(0.0, 3.0, k) if with_f0 else None
+        out.append((r, d, k, f0))
+    return out
+
+
+def _k4_pack(streams, device, pad=2):
+    ks = [s[2] for s in streams]
+    offsets = np.concatenate([[0], np.cumsum([len(s[0]) for s in streams])])
+    free0 = np.full((len(streams), max(ks) + pad), 5.0)
+    for j, s in enumerate(streams):
+        free0[j, :ks[j]] = 0.0 if s[3] is None else s[3]
+    cat = [np.concatenate([s[i] for s in streams]) for i in (0, 1)]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (cat[0], cat[1], offsets.astype(np.int64))], ks, \
+        torch.from_numpy(free0).to(device)
+
+
+def _k4_check(streams, device, plain=True):
+    (ready, dur, offsets), ks, free0 = _k4_pack(streams, device)
+    before = k4_ops.launches
+    ends, state = fleet_fifo(ready, dur, offsets, ks, free0)
+    torch.cuda.synchronize()
+    assert k4_ops.launches == before + 1
+    ends, state = ends.cpu().numpy(), state.cpu().numpy()
+    off = offsets.cpu().numpy()
+    for j, s in enumerate(streams):
+        we, ws = _sweep(s[0], s[1], s[2], s[3], return_state=True)
+        assert np.array_equal(ends[off[j]:off[j + 1]], we), j
+        assert np.array_equal(np.sort(state[j, :ks[j]]), ws), j
+    if plain:
+        (r, d, o), _, f = _k4_pack(streams, "cpu")
+        pe, ps = fleet_fifo_ref(r, d, o, ks, f)
+        # the same slot wins every tie (the first), so even the unsorted
+        # state and its +inf columns past k agree
+        assert np.array_equal(pe.numpy(), ends)
+        assert np.array_equal(ps.numpy(), state)
+    return ends, state
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 16, 17, 20, 33, 40])
+def test_k4_every_bucket(cuda_device, k):
+    spec = [(k, n, i % 2 == 0) for i, n in
+            enumerate([0, 1, 7, 64, 300, 1000, 2500, 33, 5, 129])]
+    _k4_check(_k4_streams(k, spec), cuda_device)
+
+
+def test_k4_several_groups_one_launch(cuda_device):
+    ks = [1, 2, 3, 4, 5, 8, 9, 16, 17, 20, 32, 33, 40]
+    rng = np.random.default_rng(1)
+    spec = [(int(rng.choice(ks)), int(rng.integers(0, 800)), i % 3 == 0)
+            for i in range(150)]
+    _k4_check(_k4_streams(2, spec), cuda_device)
+
+
+def test_k4_lengths_far_apart_and_empty(cuda_device):
+    spec = [(3, 0, True), (3, 20000, False), (3, 1, False), (5, 0, False),
+            (5, 3, True), (17, 12000, True), (17, 0, True), (2, 40000, False)]
+    _k4_check(_k4_streams(3, spec), cuda_device)
+
+
+def test_k4_full_width_day_shape(cuda_device):
+    """8 streams of 150,000 jobs at k = 17 (the longest chain of a
+    full-width day), held to the sweep only: the plain version's time-step
+    loop is too slow at this length."""
+    _k4_check(_k4_streams(4, [(17, 150_000, i % 2 == 0) for i in range(8)]),
+              cuda_device, plain=False)
+
+
+def test_k4_repeat_launch_bitwise(cuda_device):
+    streams = _k4_streams(5, [(k, 500, True) for k in (2, 5, 17, 40)] * 8)
+    (ready, dur, offsets), ks, free0 = _k4_pack(streams, cuda_device)
+    a = fleet_fifo(ready, dur, offsets, ks, free0)
+    b = fleet_fifo(ready, dur, offsets, ks, free0)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _engine_test_streams(seed, n_streams=24):
+    """The streams of tests/test_engine.py::TestEventCoreFleet."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_streams):
+        n = int(rng.integers(1, 120))
+        r = rng.exponential(0.2, n).cumsum()
+        d = rng.choice(rng.uniform(0.01, 0.8, 4), n)
+        k = int(rng.choice([2, 2, 4, 8]))
+        f0 = rng.uniform(0.0, 3.0, k) if i % 3 == 0 else None
+        out.append((r, d, k, f0) if f0 is not None else (r, d, k))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 7, 23])
+def test_k4_fleet_fifo_finish_on_card(cuda_device, seed, monkeypatch):
+    monkeypatch.setattr(event_core, "_MIN_FLEET_WIDTH", 1)
+    streams = _engine_test_streams(seed)
+    before = k4_ops.launches
+    got = event_core.fleet_fifo_finish(streams, device="cuda")
+    assert k4_ops.launches == before + 1  # every wide group in one launch
+    cpu = event_core.fleet_fifo_finish(streams, device="cpu")
+    for s, (e, st), (ce, cs) in zip(streams, got, cpu):
+        we, ws = _sweep(s[0], s[1], s[2], s[3] if len(s) > 3 else None,
+                        return_state=True)
+        assert np.array_equal(e, we) and np.array_equal(st, ws)
+        assert np.array_equal(ce, we) and np.array_equal(cs, ws)
+
+
+def test_k4_missing_library_raises(cuda_device, monkeypatch):
+    def missing(name):
+        raise OSError(f"no library for {name}")
+
+    monkeypatch.setattr(k4_ops, "_fn", None)
+    monkeypatch.setattr(k4_ops._build, "load", missing)
+    (ready, dur, offsets), ks, free0 = _k4_pack(
+        _k4_streams(6, [(3, 10, False)] * 4), cuda_device)
+    with pytest.raises(OSError, match="no library"):
+        fleet_fifo(ready, dur, offsets, ks, free0)
