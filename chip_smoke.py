@@ -67,10 +67,15 @@ Phases, one JSON line each:
   8. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
                day through ``repro_torch.serving.scenarios``: (a) K4 at
                benchmarks/bench_cluster.py's fleet shape (512 streams, k in
-               {2, 4, 8, 16}, 199,444 jobs), every stream bitwise
-               ``engine._sweep`` and K4's plain version, with planted
-               one-ulp faults; timed alone, through ``fleet_fifo_finish``
-               and against the sequential sweep; (b) the smoke event-core
+               {2, 4, 8, 16}, 199,444 jobs) and at a full-width day's
+               longest chain (8 streams of 150,000 jobs at k = 17), every
+               stream bitwise ``engine._sweep`` and K4's plain version,
+               with planted one-ulp faults; timed alone (ns a step, the
+               byte bound, and the kernel's step floor: each instance's ns
+               a step with one busy lane on jobs already in shared memory,
+               from tools/k4_bench.py's probes, built beside the kernels),
+               the fleet shape also through ``fleet_fifo_finish`` and
+               against the sequential sweep; (b) the smoke event-core
                day (``baseline_day``, cap 20,000), as it is (no wide group:
                no K4 launch) and with ``_MIN_FLEET_WIDTH`` = 1 (every
                call through K4), each bitwise the same day on the CPU and
@@ -1349,6 +1354,24 @@ def fleet_bench_streams(n_jobs: int = FLEET_JOBS, seed: int = 0):
     return streams
 
 
+def k4_day_streams(n_streams: int = 8, n: int = 150_000, k: int = 17,
+                   seed: int = 4):
+    """The longest chain of a full-width event-core day: 8 streams of
+    150,000 jobs at k = 17, every other one with initial free times (as
+    tests/test_torch_cuda.py's ``test_k4_full_width_day_shape`` builds
+    them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_streams):
+        r = rng.exponential(0.2 / k, n).cumsum()
+        d = rng.choice(rng.uniform(0.01, 0.8, 4), n)
+        f0 = rng.uniform(0.0, 3.0, k) if i % 2 == 0 else None
+        out.append((r, d, k, f0))
+    return out
+
+
 def sweep_all(streams):
     """The oracle: ``engine._sweep`` on every stream."""
     from repro_torch.serving.engine import _sweep
@@ -1426,26 +1449,26 @@ def same_tree(name, a, b, path="$") -> None:
 @contextlib.contextmanager
 def checked_fleet(log: dict):
     """``event_core.fleet_fifo_finish`` held bitwise against ``_sweep`` on
-    every stream of every call for the duration; ``ops.fleet_fifo`` timed
-    with CUDA events (K4's device time) and the wide groups' packing,
-    copies and unpacking on the host clock.  The checks' own time is kept
-    apart in ``log["check_s"]``."""
+    every stream of every call for the duration; ``ops.launch`` (K4) timed
+    with CUDA events (its device time) and the wide groups' packing, copies
+    and unpacking on the host clock.  The checks' own time is kept apart in
+    ``log["check_s"]``."""
     import torch
 
     from repro_torch.kernels.fleet_fifo import ops
     from repro_torch.serving import event_core
 
     finish, run_fleet, launch = (event_core.fleet_fifo_finish,
-                                 event_core._run_fleet, ops.fleet_fifo)
+                                 event_core._run_fleet, ops.launch)
     events = []
 
-    def timed_launch(*args):
+    def timed_launch(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = launch(*args)
+        out = launch(*args, **kw)
         end.record()
-        events.append((start, end, int((args[2][1:] - args[2][:-1]).max())))
+        events.append((start, end, args[2]))
         return out
 
     def timed_run_fleet(*args):
@@ -1469,15 +1492,16 @@ def checked_fleet(log: dict):
                wide_host_s=0.0)
     event_core.fleet_fifo_finish = checked
     event_core._run_fleet = timed_run_fleet
-    ops.fleet_fifo = timed_launch
+    ops.launch = timed_launch
     try:
         yield log
     finally:
         event_core.fleet_fifo_finish = finish
         event_core._run_fleet = run_fleet
-        ops.fleet_fifo = launch
+        ops.launch = launch
         torch.cuda.synchronize()
-        ms = [(a.elapsed_time(b), steps) for a, b, steps in events]
+        ms = [(a.elapsed_time(b), int((off[1:] - off[:-1]).max()))
+              for a, b, off in events]
         log["k4_device_ms"] = sum(m for m, _ in ms)
         log["k4_steps"] = max((steps for _, steps in ms), default=0)
         # the launch with the longest chain: its time over its steps is the
@@ -1497,73 +1521,134 @@ def day_line(day) -> dict:
                           for w, d in day.per_workload.items()}}
 
 
-def phase_cluster(dev, bw: float) -> dict:
-    """(a) K4 alone at bench_cluster's fleet shape, (b) the smoke
-    event-core day (as it is, then with every k > 1 group wide), each
-    bitwise the CPU day, (c) the full-width event-core day."""
-    import dataclasses
+def start_k4_probes():
+    """nvcc of K4's source with ``tools/k4_bench.py``'s probes appended,
+    started beside the kernels' build; returns (process, library)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import k4_bench
+    from repro_torch.kernels import _build
 
+    work = _build.BUILD_DIR / "k4_probes"
+    lib = work / "k4_probes.so"
+    cu = k4_bench.probe_source(_build.sources()["fleet_fifo"], work)
+    return k4_bench.compile_k4(cu, lib), lib
+
+
+def k4_floor_ns(probes, dev) -> dict[int, float]:
+    """ns a step of each register instance with one busy lane on jobs
+    already in shared memory (``k4_bench``'s ``k4_floor``)."""
+    import ctypes
+
+    import k4_bench
+
+    proc, lib = probes
+    k4_bench.finish(proc)
+    return k4_bench.floor_ns(ctypes.CDLL(str(lib)), range(1, 33), dev,
+                             time_ms)
+
+
+def k4_case(name, streams, dev, bw: float, floor: dict, finish_reps=0):
+    """K4 on ``streams`` through ``event_core.fleet_fifo_finish`` (one
+    launch), bitwise ``_sweep`` on every stream with planted one-ulp faults,
+    the launch's arguments held bitwise to K4's plain version (ends, and
+    the state rows as the kernel writes them: sorted); the kernel alone
+    timed, its ns a step, the byte bound and the kernel's step floor; with
+    ``finish_reps``, ``fleet_fifo_finish`` against the sequential sweep on
+    the host clock, interleaved best-of."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.fleet_fifo import fleet_fifo_ref
     from repro_torch.kernels.fleet_fifo import ops
     from repro_torch.serving import event_core
+
+    want = sweep_all(streams)
+    packed = []
+    launch = ops.launch
+    ops.launch = lambda *a, **kw: packed.append(a) or launch(*a, **kw)
+    try:
+        got = event_core.fleet_fifo_finish(streams, device=dev)
+    finally:
+        ops.launch = launch
+    if len(packed) != 1:
+        raise AssertionError(f"{name}: {len(packed)} K4 launches, not 1")
+    jobs = check_fleet(name, got, want)
+    fleet_must_fail(name, got, want)
+    args = packed[0]
+    ready, dur, offsets, lanes, free0 = args
+    lanes_np = lanes.cpu().numpy()
+    ks = np.zeros(free0.shape[0], dtype=np.int64)
+    ks[lanes_np[0][lanes_np[0] >= 0]] = lanes_np[1][lanes_np[0] >= 0]
+    ends, state = ops.launch(*args)
+    p_ends, p_state = fleet_fifo_ref(ready, dur, offsets, ks.tolist(), free0)
+    torch.cuda.synchronize()
+    if not torch.equal(ends, p_ends):
+        raise AssertionError(f"{name}: K4 ends differ from its plain version")
+    if not torch.equal(state, p_state):
+        raise AssertionError(f"{name}: K4 end state differs from its plain "
+                             "version")
+    lens = np.diff(offsets.cpu().numpy())
+    chain = int(lens.max())
+    n_bytes = 24 * jobs + 16 * int(ks.sum())
+    ms = time_ms(lambda: ops.launch(*args))
+    step_floor_ms = max((n * floor[int(k)] for n, k in zip(lens, ks)
+                         if int(k) in floor), default=0.0) / 1e6
+    out = {
+        "shape": f"{len(streams)} streams, k in {sorted(set(ks.tolist()))}, "
+                 f"{jobs} jobs",
+        "tolerance": "bitwise (ends and sorted end state, every stream, "
+                     "against _sweep and the plain version)",
+        "planted_faults_failed": 2,
+        "ms": ms, "chain_steps": chain, "ns_per_step": ms * 1e6 / chain,
+        "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes",
+        "bytes": n_bytes, "share_of_bound": n_bytes / bw * 1e3 / ms,
+        "step_floor_ms": step_floor_ms,
+        "step_floor_of": "the kernel's own floor, not the card's: each "
+                         "stream's length times its instance's ns a step "
+                         "with one busy lane on jobs in shared memory "
+                         "(k4_floor), the largest",
+        "share_of_step_floor": step_floor_ms / ms,
+        "library_ms": None, "max_abs_err": 0.0}
+    if finish_reps:
+        out["plain_ms"] = time_ms(
+            lambda: fleet_fifo_ref(ready, dur, offsets, ks.tolist(), free0),
+            reps=5)
+        fin_s = sw_s = float("inf")
+        for _ in range(finish_reps):  # interleaved, as bench_cluster's pair
+            t0 = time.perf_counter()
+            event_core.fleet_fifo_finish(streams, device=dev)
+            fin_s = min(fin_s, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            sweep_all(streams)
+            sw_s = min(sw_s, time.perf_counter() - t0)
+        out["fleet_fifo_finish_ms"] = fin_s * 1e3
+        out["sweep_ms"] = sw_s * 1e3
+    return out
+
+
+def phase_cluster(dev, bw: float, probes) -> dict:
+    """(a) K4 alone at bench_cluster's fleet shape and at a full-width
+    day's longest chain, (b) the smoke event-core day (as it is, then with
+    every k > 1 group wide), each bitwise the CPU day, (c) the full-width
+    event-core day."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels.fleet_fifo import ops
+    from repro_torch.serving import event_core
     from repro_torch.serving.scenarios import (compile_scenario, full_scale,
                                                get_scenario)
 
     res: dict = {"phase": "cluster"}
-    # (a) K4 alone
-    streams = fleet_bench_streams()
-    want = sweep_all(streams)
-    got = event_core.fleet_fifo_finish(streams, device=dev)
-    jobs = check_fleet("fleet bench", got, want)
-    fleet_must_fail("fleet bench", got, want)
-    # the wide groups' ragged layout, as fleet_fifo_finish packs it
-    packed = []
-    launch = ops.fleet_fifo
-    ops.fleet_fifo = lambda *a: packed.append(a) or launch(*a)
-    try:
-        event_core.fleet_fifo_finish(streams, device=dev)
-    finally:
-        ops.fleet_fifo = launch
-    args = packed[0]
-    ends, state = ops.fleet_fifo(*args)
-    p_ends, p_state = fleet_fifo_ref(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(ends, p_ends):
-        raise AssertionError("K4 ends differ from its plain version")
-    if not torch.equal(state.sort(dim=1).values, p_state.sort(dim=1).values):
-        raise AssertionError("K4 end state differs from its plain version")
-    ks = args[3]
-    lens = np.diff(args[2].cpu().numpy())
-    # the kernel alone: the thread layout made once, as a launch sees it
-    lanes = torch.from_numpy(ops.warp_lanes(ks)).to(dev)
-    kernel_args = (args[0], args[1], args[2], lanes, args[4])
-    state_bytes = 2 * 8 * sum(ks)
-    n_bytes = 24 * jobs + state_bytes
-    reps = 5
-    fin_s = sw_s = float("inf")
-    for _ in range(reps):  # interleaved best-of-5, as bench_cluster's pair
-        t0 = time.perf_counter()
-        event_core.fleet_fifo_finish(streams, device=dev)
-        fin_s = min(fin_s, time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        sweep_all(streams)
-        sw_s = min(sw_s, time.perf_counter() - t0)
-    res["a_fleet_bench"] = {
-        "shape": f"{len(streams)} streams, k in {{2, 4, 8, 16}}, {jobs} jobs",
-        "tolerance": "bitwise (ends and sorted end state, every stream, "
-                     "against _sweep and the plain version)",
-        "planted_faults_failed": 2,
-        "ms": time_ms(lambda: ops.launch(*kernel_args)),
-        "wrapper_ms": time_ms(lambda: ops.fleet_fifo(*args)),
-        "plain_ms": time_ms(lambda: fleet_fifo_ref(*args), reps=5),
-        "fleet_fifo_finish_ms": fin_s * 1e3,
-        "sweep_ms": sw_s * 1e3,
-        "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes",
-        "bytes": n_bytes, "chain_steps": int(lens.max()),
-        "library_ms": None, "max_abs_err": 0.0}
+    # (a) K4 alone, at bench_cluster's fleet shape and at a full-width day's
+    # longest chain
+    floor = k4_floor_ns(probes, dev)
+    res["a_fleet_bench"] = k4_case("fleet bench", fleet_bench_streams(), dev,
+                                   bw, floor, finish_reps=5)
+    res["a_day_shape"] = k4_case("day shape", k4_day_streams(), dev, bw,
+                                 floor)
+    res["a_floor_ns_per_step"] = floor
 
     # (b) the smoke event-core day
     spec = dataclasses.replace(
@@ -1668,6 +1753,7 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     m = k1["rmc1"]
     i8 = k3["int8"]
     fb = cluster["a_fleet_bench"]
+    day = cluster["a_day_shape"]
     decode_src = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
     k1_keys = ("ms", "ms_cold_l2", "ms_cold_clean", "ms_stream", "plain_ms",
                "library_ms", "bound_ms", "bound_by", "cold_share_of_bound",
@@ -1681,6 +1767,7 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
         "launches_note": "the serving path calls the per-feature entry "
                          "(ops.embedding_bag_features), one launch a fused "
                          "batch; the 2-D entry is the same kernel",
+        "redesigned_in": 15,
         "max_abs_err": m["max_abs_err"],
         "ms": m["ms"], "ms_cold_l2": m["ms_cold_l2"],
         "ms_cold_clean": m["ms_cold_clean"], "ms_stream": m["ms_stream"],
@@ -1759,14 +1846,21 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
         "launches": cluster["k4_launches"],
         "launches_note": "the full-width event-core day of the cluster "
                          "phase, counted from 0",
+        "redesigned_in": 17,
         "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
         "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
         "bound_by": fb["bound_by"], "library_ms": fb["library_ms"],
         "library_note": "no PyTorch call computes the k-server FIFO "
                         "recurrence",
+        "ns_per_step": fb["ns_per_step"], "chain_steps": fb["chain_steps"],
+        "step_floor_ms": fb["step_floor_ms"],
+        "share_of_step_floor": fb["share_of_step_floor"],
         "fleet_fifo_finish_ms": fb["fleet_fifo_finish_ms"],
-        "sweep_ms": fb["sweep_ms"], "chain_steps": fb["chain_steps"],
+        "sweep_ms": fb["sweep_ms"],
         "shape": fb["shape"], "tolerance": fb["tolerance"],
+        "day_shape": {k: day[k] for k in (
+            "shape", "ms", "chain_steps", "ns_per_step", "bound_ms",
+            "share_of_bound", "step_floor_ms", "share_of_step_floor")},
     }]
 
 
@@ -1803,6 +1897,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
+    probes = start_k4_probes()
     built = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"seconds": v["seconds"], "built": v["built"],
@@ -1833,7 +1928,7 @@ def main() -> int:
     emit(lm)
 
     # 8. the cluster day (K4's count is reset inside, just before each day)
-    cluster = phase_cluster(dev, bw)
+    cluster = phase_cluster(dev, bw, probes)
     emit(cluster)
 
     emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, cluster),

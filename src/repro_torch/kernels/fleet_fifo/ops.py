@@ -5,13 +5,25 @@ Replaces the reference's jitted ``lax.scan``
 (``repro/serving/event_core.py`` ``_load_jax.fleet_scan``, driven by
 ``fleet_fifo_finish`` and ``_run_fleet_group``), the one piece of device
 code an event-core cluster day runs.  It solves S independent k-server
-FIFO streams, bitwise what ``engine._sweep`` gives for each.
+FIFO streams, bitwise what ``engine._sweep`` gives for each, and returns
+each stream's final free times sorted, as ``_sweep`` does.
 
-On an H100 the kernel is bound by each stream's dependent chain (argmin
-over k, a select, an add per job), not by bytes: ``csrc/fleet_fifo.cu``
-runs one thread a stream with the k free times in registers, loads the
-jobs ahead of the recurrence, and takes every stream of a call in one
-launch so the chains overlap.
+On an H100 the kernel is bound by each stream's dependent chain, not by
+bytes.  The first kernel read each lane's jobs straight from device memory
+and kept k = 17..32 in a 32-slot bucket that ptxas put in local memory
+(1,478 ns a step there).  ``csrc/fleet_fifo.cu`` now runs one thread a
+stream with the k free times sorted in registers (an exact instance for
+every k up to 32: a step is a compare and two selects a slot, the compares
+independent of each other).  A second warp of each block stages the jobs
+of the block's 32 streams through shared memory with ``cp.async`` a chunk
+ahead of the recurrence and writes the ends back coalesced, so what binds
+the kernel is the step's instruction issue.  Every stream of a call goes
+in one launch; ``warp_lanes`` gives each block streams of one instance,
+longest first.
+
+``fleet_fifo_streams`` is the event core's entry: it packs the host arrays
+into one buffer (pinned on a card), copies it in once, launches, and copies
+ends and states back once.
 
 Which version runs is decided by where the caller put the tensors, never
 by what is installed: a CUDA tensor launches the kernel or raises.
@@ -20,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 from collections.abc import Sequence
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -31,7 +44,8 @@ from repro_torch.kernels.fleet_fifo.ref import fleet_fifo_ref
 launches = 0
 
 _WARP = 32
-_BUCKETS = (1, 2, 4, 8, 16, 32)  # register buckets of csrc/fleet_fifo.cu
+_MAX_REG = 32  # largest k with a register instance in csrc/fleet_fifo.cu
+CHUNK = 128    # jobs of a stream a shared-memory stage holds (kChunk there)
 _fn = None
 
 
@@ -49,21 +63,131 @@ def _kernel():
     return _fn
 
 
-def warp_lanes(ks: Sequence[int]) -> np.ndarray:
+def warp_lanes(ks: Sequence[int], ns: Sequence[int]) -> np.ndarray:
     """The kernel's thread layout: int32 [2, n_lanes], row 0 the stream of
-    each thread (-1 for none), row 1 its k.  Streams are ordered by the
-    kernel's register bucket and each bucket is padded to whole warps, so
-    every warp takes one branch of the bucket switch."""
+    each thread (-1 for none), row 1 its k.  Streams are grouped by the
+    kernel's instance (k itself up to 32, one generic instance above),
+    longest first inside a group (``ns``: the streams' lengths, so a warp's
+    lanes end close together), and each group is padded to whole warps
+    whose empty lanes carry the group's k, so every warp takes one branch
+    of the instance switch."""
     ks = np.asarray(ks, dtype=np.int64)
-    bucket = np.searchsorted(_BUCKETS, ks)   # len(_BUCKETS): generic
-    cols = []
-    for b in np.unique(bucket):
-        idx = np.flatnonzero(bucket == b)
-        pad = -len(idx) % _WARP
-        stream = np.concatenate([idx, np.full(pad, -1)])
-        cols.append(np.stack([stream, np.concatenate(
-            [ks[idx], np.full(pad, 1)])]))
-    return np.ascontiguousarray(np.concatenate(cols, axis=1), dtype=np.int32)
+    ns = np.asarray(ns, dtype=np.int64)
+    S = len(ks)
+    if S == 0:
+        return np.empty((2, 0), dtype=np.int32)
+    inst = np.minimum(ks, _MAX_REG + 1)
+    order = np.lexsort((-ns, inst))
+    inst_o = inst[order]
+    first = np.flatnonzero(np.r_[True, inst_o[1:] != inst_o[:-1]])
+    count = np.diff(np.r_[first, S])
+    width = -(-count // _WARP) * _WARP
+    group = np.repeat(np.arange(len(first)), count)
+    pos = np.r_[0, np.cumsum(width)[:-1]][group] + np.arange(S) - first[group]
+    lanes = np.empty((2, int(width.sum())), dtype=np.int32)
+    lanes[0] = -1
+    lanes[1] = np.repeat(ks[order][first], width)
+    lanes[0, pos] = order
+    lanes[1, pos] = ks[order]
+    return lanes
+
+
+@dataclass(frozen=True)
+class Layout:
+    """Byte layout of one packed call, the same in the host buffer and in
+    its copy on the card: ``ready``, ``dur`` f64 [total], ``free0`` f64
+    [S, kmax], ``offsets`` int64 [S + 1], ``lanes`` int32 [2, n_lanes];
+    every field starts at a multiple of 8 bytes."""
+    total: int
+    streams: int
+    kmax: int
+    n_lanes: int
+
+    def fields(self):
+        S, T = self.streams, self.total
+        return (("ready", torch.float64, (T,)), ("dur", torch.float64, (T,)),
+                ("free0", torch.float64, (S, self.kmax)),
+                ("offsets", torch.int64, (S + 1,)),
+                ("lanes", torch.int32, (2, self.n_lanes)))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(_field_bytes(dt, shape) for _, dt, shape in self.fields())
+
+    def views(self, buf: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Typed views of the fields in ``buf`` (uint8 [nbytes])."""
+        out, at = {}, 0
+        for name, dt, shape in self.fields():
+            n = int(np.prod(shape)) * dt.itemsize
+            out[name] = buf[at:at + n].view(dt).view(shape)
+            at += _field_bytes(dt, shape)
+        return out
+
+
+def _field_bytes(dt, shape) -> int:
+    return -(-int(np.prod(shape)) * dt.itemsize // 8) * 8
+
+
+def pack(ready: Sequence[np.ndarray], dur: Sequence[np.ndarray],
+         ks: Sequence[int], free0: Sequence[np.ndarray | None],
+         pin: bool = False) -> tuple[Layout, torch.Tensor]:
+    """The S streams (f64 arrays ``ready[s]``, ``dur[s]``, server count
+    ``ks[s]``, initial free times ``free0[s]`` of length ``ks[s]`` or None
+    for zeros) in one uint8 host buffer (pinned if ``pin``) of
+    ``Layout``: the ragged layout, its offsets, the thread layout."""
+    ks = np.asarray(ks, dtype=np.int64)
+    ns = np.fromiter((len(r) for r in ready), dtype=np.int64, count=len(ks))
+    lanes = warp_lanes(ks, ns)
+    layout = Layout(total=int(ns.sum()), streams=len(ks),
+                    kmax=int(ks.max(initial=1)), n_lanes=lanes.shape[1])
+    buf = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=pin)
+    v = {k: t.numpy() for k, t in layout.views(buf).items()}
+    if layout.total:
+        np.concatenate(ready, out=v["ready"])
+        np.concatenate(dur, out=v["dur"])
+    v["offsets"][0] = 0
+    np.cumsum(ns, out=v["offsets"][1:])
+    f0 = v["free0"]
+    f0[:] = np.inf
+    if layout.streams:
+        f0[np.arange(layout.kmax)[None, :] < ks[:, None]] = np.concatenate(
+            [np.zeros(k) if f is None else f for f, k in zip(free0, ks)])
+    v["lanes"][:] = lanes
+    return layout, buf
+
+
+def fleet_fifo_streams(ready: Sequence[np.ndarray], dur: Sequence[np.ndarray],
+                       ks: Sequence[int], free0: Sequence[np.ndarray | None],
+                       device: torch.device
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """S streams given as host arrays (as ``pack`` takes them) in one call:
+    on a CUDA ``device`` one pinned buffer copied in once, one launch, ends
+    and states copied back once; on the CPU the plain version on the same
+    buffer.  Returns ``ends`` f64 [total] (stream s at
+    ``offsets[s]:offsets[s + 1]``), the final free times f64 [S, kmax]
+    (row s sorted ascending in its first ``ks[s]`` columns, +inf past
+    them) and ``offsets``, all numpy."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    layout, buf = pack(ready, dur, ks, free0, pin=on_card)
+    offsets = layout.views(buf)["offsets"].numpy().copy()
+    if layout.streams == 0:
+        return np.zeros(0), np.zeros((0, layout.kmax)), offsets
+    if not on_card:
+        v = layout.views(buf)
+        ends, state = fleet_fifo_ref(v["ready"], v["dur"], v["offsets"],
+                                     [int(k) for k in ks], v["free0"])
+        return ends.numpy(), state.numpy(), offsets
+    v = layout.views(buf.to(device, non_blocking=True))
+    out = torch.empty(layout.total + layout.streams * layout.kmax,
+                      dtype=torch.float64, device=device)
+    ends = out[:layout.total]
+    state = out[layout.total:].view(layout.streams, layout.kmax)
+    launch(v["ready"], v["dur"], v["offsets"], v["lanes"], v["free0"],
+           ends=ends, state=state)
+    host = out.cpu().numpy()
+    return (host[:layout.total],
+            host[layout.total:].reshape(layout.streams, layout.kmax), offsets)
 
 
 def fleet_fifo(ready: torch.Tensor, dur: torch.Tensor, offsets: torch.Tensor,
@@ -76,7 +200,8 @@ def fleet_fifo(ready: torch.Tensor, dur: torch.Tensor, offsets: torch.Tensor,
     the S server counts (host ints, each >= 1); ``free0`` f64 [S, kmax]
     with kmax >= max(ks), stream s's initial free times in its first
     ``ks[s]`` columns.  Returns ``ends`` f64 [total] and the final free
-    times f64 [S, kmax] (first ``ks[s]`` columns of row s, unsorted)."""
+    times f64 [S, kmax] (first ``ks[s]`` columns of row s sorted
+    ascending, +inf past them)."""
     S = len(ks)
     if offsets.dtype != torch.int64 or offsets.shape != (S + 1,):
         raise ValueError(f"offsets must be int64 [{S + 1}], got "
@@ -104,17 +229,19 @@ def fleet_fifo(ready: torch.Tensor, dur: torch.Tensor, offsets: torch.Tensor,
         raise ValueError("kernel takes contiguous tensors")
     if S == 0:
         return torch.empty_like(ready), torch.empty_like(free0)
+    ns = np.diff(offsets.cpu().numpy())
     return launch(ready, dur, offsets,
-                  torch.from_numpy(warp_lanes(ks)).to(dev), free0)
+                  torch.from_numpy(warp_lanes(ks, ns)).to(dev), free0)
 
 
-def launch(ready, dur, offsets, lanes, free0):
+def launch(ready, dur, offsets, lanes, free0, *, ends=None, state=None):
     """The kernel alone, on checked contiguous CUDA tensors and the thread
-    layout ``lanes`` (``warp_lanes(ks)`` on the same device)."""
+    layout ``lanes`` (``warp_lanes(ks, ns)`` on the same device); ``ends``
+    and ``state`` may be given, contiguous, for it to write into."""
     global launches
     fn, err_str = _kernel()
-    ends = torch.empty_like(ready)
-    state = torch.empty_like(free0)
+    ends = torch.empty_like(ready) if ends is None else ends
+    state = torch.empty_like(free0) if state is None else state
     stream = torch.cuda.current_stream(ready.device).cuda_stream
     err = fn(ready.data_ptr(), dur.data_ptr(), offsets.data_ptr(),
              lanes.data_ptr(), free0.data_ptr(), ends.data_ptr(),

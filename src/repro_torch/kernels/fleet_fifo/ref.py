@@ -21,14 +21,15 @@ def fleet_fifo_ref(ready: torch.Tensor, dur: torch.Tensor,
     ``offsets[s]:offsets[s + 1]`` (``offsets`` int64 [S + 1]); ``ks`` are
     the S server counts; ``free0`` [S, kmax] holds stream s's initial free
     times in its first ``ks[s]`` columns.  Returns ``ends`` [total] and the
-    final free times [S, kmax] (the first ``ks[s]`` columns of row s,
-    unsorted; the columns past them are +inf).
+    final free times [S, kmax] (the first ``ks[s]`` columns of row s sorted
+    ascending, as ``engine._sweep`` returns them and the kernel writes
+    them; the columns past them are +inf).
 
     A loop over time steps advancing every stream that still has a job at
     step t, as the JAX step does: a row-wise argmin, a gather, ``where``,
-    an add and a one-hot masked write-back.  It runs on any device (the
-    card check times it there); ``ops.fleet_fifo`` takes it for CPU
-    tensors only."""
+    an add and a one-hot masked write-back, then each row sorted once.  It
+    runs on any device (the card check times it there); ``ops.fleet_fifo``
+    takes it for CPU tensors only."""
     S, K = free0.shape
     cols = torch.arange(K, device=free0.device)
     real = cols[None, :] < torch.as_tensor(
@@ -56,4 +57,4 @@ def fleet_fifo_ref(ready: torch.Tensor, dur: torch.Tensor,
         Ws[:live] = torch.where(hit, e[:, None], Wa)
         ends[idx] = e
     W[order] = Ws
-    return ends, W
+    return ends, W.sort(dim=1).values

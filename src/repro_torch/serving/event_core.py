@@ -55,7 +55,8 @@ threaded explicitly.
 
 This is the port's copy of the reference module.  The reference's fleet
 path is a jitted ``lax.scan``; the port's is the K4 kernel (one thread a
-stream) behind the same grouping, with ``fleet_jax`` renamed
+stream, the free times sorted in registers, jobs staged through shared
+memory) behind the same grouping, with ``fleet_jax`` renamed
 ``fleet_kernel``.
 """
 from __future__ import annotations
@@ -247,27 +248,16 @@ def fleet_fifo_finish(streams, device: str | torch.device = "cuda"):
 
 
 def _run_fleet(items, idxs, out, dev):
-    """The wide streams ``idxs`` through one ``k4.fleet_fifo`` call (K4
-    on a CUDA device, its plain version on the CPU) in the ragged
-    layout."""
+    """The wide streams ``idxs`` through one K4 call
+    (``k4.fleet_fifo_streams``: the kernel on a CUDA device, its plain
+    version on the CPU), packed once into the ragged layout; the state rows
+    come back sorted."""
     ks = [items[i][2] for i in idxs]
-    ns = np.array([items[i][0].shape[0] for i in idxs], np.int64)
-    offsets = np.zeros(len(idxs) + 1, np.int64)
-    np.cumsum(ns, out=offsets[1:])
-    free0 = np.zeros((len(idxs), max(ks)))
+    ends, state, offsets = k4.fleet_fifo_streams(
+        [items[i][0] for i in idxs], [items[i][1] for i in idxs], ks,
+        [items[i][3] for i in idxs], dev)
     for j, i in enumerate(idxs):
-        f0 = items[i][3]
-        if f0 is not None:
-            free0[j, :ks[j]] = f0
-    ends, state = k4.fleet_fifo(
-        torch.from_numpy(np.concatenate([items[i][0] for i in idxs])).to(dev),
-        torch.from_numpy(np.concatenate([items[i][1] for i in idxs])).to(dev),
-        torch.from_numpy(offsets).to(dev), ks, torch.from_numpy(free0).to(dev))
-    ends = ends.cpu().numpy()
-    state = state.cpu().numpy()
-    for j, i in enumerate(idxs):
-        out[i] = (ends[offsets[j]:offsets[j + 1]].copy(),
-                  np.sort(state[j, :ks[j]]))
+        out[i] = (ends[offsets[j]:offsets[j + 1]], state[j, :ks[j]])
 
 
 def merge_event_streams(*streams: np.ndarray):

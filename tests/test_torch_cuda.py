@@ -14,11 +14,14 @@ variant takes, and K2's tensor-core variant at ragged Tq/Tk, with
 q_offset, at head sizes 64 and 128.
 
 K4 (the fleet FIFO solver) bitwise against its plain version and against
-``engine._sweep``: every register bucket and the generic instance (k in
-{1, 2, 3, 5, 8, 16, 17, 20, 33, 40}), empty streams, ``free0`` given and
-not, streams of very different lengths, several k-groups in one launch,
-8 streams of 150,000 jobs (a full-width day's shape), a launch repeated,
-``fleet_fifo_finish(device="cuda")``, and a missing library raising.
+``engine._sweep``, its state rows sorted: every register instance (k = 1
+.. 33 and 40, the generic one past 32), streams of the shared-memory
+chunk's edge lengths (C - 1, C, C + 1, 2C + 1) starting at odd indices of
+the ragged layout, empty streams, ``free0`` given and not and with
+repeated values, lanes of one warp 100x apart in length, several k-groups
+in one launch, 8 streams of 150,000 jobs (a full-width day's shape), a
+launch repeated, ``fleet_fifo_finish(device="cuda")``, and a missing
+library raising.
 
 Imports neither jax nor the reference, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.  Without
@@ -333,13 +336,17 @@ def _k4_check(streams, device, plain=True):
         we, ws = _sweep(s[0], s[1], s[2], s[3], return_state=True)
         assert np.array_equal(ends[off[j]:off[j + 1]], we), j
         assert np.array_equal(np.sort(state[j, :ks[j]]), ws), j
+    # the kernel writes each row sorted, +inf past k
+    assert np.array_equal(state, np.sort(state, axis=1))
+    assert all(np.isinf(state[j, k:]).all() for j, k in enumerate(ks))
     if plain:
         (r, d, o), _, f = _k4_pack(streams, "cpu")
         pe, ps = fleet_fifo_ref(r, d, o, ks, f)
-        # the same slot wins every tie (the first), so even the unsorted
-        # state and its +inf columns past k agree
         assert np.array_equal(pe.numpy(), ends)
-        assert np.array_equal(ps.numpy(), state)
+        # rows compared sorted, +inf columns included: the function's
+        # contract (the sweep's state is a sorted heap)
+        assert np.array_equal(np.sort(ps.numpy(), axis=1),
+                              np.sort(state, axis=1))
     return ends, state
 
 
@@ -348,6 +355,56 @@ def test_k4_every_bucket(cuda_device, k):
     spec = [(k, n, i % 2 == 0) for i, n in
             enumerate([0, 1, 7, 64, 300, 1000, 2500, 33, 5, 129])]
     _k4_check(_k4_streams(k, spec), cuda_device)
+
+
+C = k4_ops.CHUNK
+
+
+@pytest.mark.parametrize("k", list(range(1, 34)) + [40])
+def test_k4_every_instance(cuda_device, k):
+    """Every register instance and the generic one, at lengths around the
+    shared-memory chunk, each stream starting at an odd index of the ragged
+    layout where the one before it has odd length."""
+    lens = [C - 1, C, C + 1, 2 * C + 1, 1, 3 * C, 0, 5]
+    spec = [(k, n, i % 2 == 0) for i, n in enumerate(lens)]
+    _k4_check(_k4_streams(100 + k, spec), cuda_device)
+
+
+@pytest.mark.parametrize("n", [C - 1, C, C + 1, 2 * C + 1])
+def test_k4_chunk_edges_odd_starts(cuda_device, n):
+    """A stream of each chunk-edge length after streams of odd length, so
+    it starts at an odd job index (its jobs are not 16-byte aligned)."""
+    spec, at = [], 0
+    for k in (4, 17, 2, 33):
+        filler = 1 if at % 2 == 0 else 2  # the next stream starts odd
+        spec += [(k, filler, True), (k, n, k % 2 == 0)]
+        at += filler + n
+    streams = _k4_streams(200 + n, spec)
+    (_, _, offsets), _, _ = _k4_pack(streams, "cpu")
+    assert all(offsets[j] % 2 == 1 for j in (1, 3, 5, 7))
+    _k4_check(streams, cuda_device)
+
+
+def test_k4_lanes_100x_apart(cuda_device):
+    """Warps whose lanes differ in length by 100x: 31 short streams and one
+    long one a warp, for two instances."""
+    spec = [(k, 100 * 50 if i % 32 == 0 else 50, i % 3 == 0)
+            for k in (6, 17) for i in range(64)]
+    _k4_check(_k4_streams(7, spec), cuda_device)
+
+
+def test_k4_repeated_free_times(cuda_device):
+    """free0 rows with repeated values (ties everywhere in the sorted
+    insertion), and durations that make ends equal to free times."""
+    rng = np.random.default_rng(8)
+    streams = []
+    for k in (2, 3, 8, 17, 32, 40):
+        f0 = rng.choice([0.0, 0.5, 1.0], k)
+        r = np.repeat(np.arange(200) * 0.25, 2)
+        d = rng.choice([0.25, 0.5], len(r))
+        streams.append((r, d, k, f0))
+        streams.append((r, d, k, np.full(k, 1.0)))
+    _k4_check(streams, cuda_device)
 
 
 def test_k4_several_groups_one_launch(cuda_device):

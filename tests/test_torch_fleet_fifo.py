@@ -88,6 +88,7 @@ def test_plain_version_vs_sweep(seed, ks):
     ends, state = fleet_fifo_ref(ready, dur, offsets, kk, free0)
     assert torch.isinf(state[torch.arange(free0.shape[1])[None, :]
                              >= torch.tensor(kk)[:, None]]).all()
+    assert torch.equal(state, state.sort(dim=1).values)  # rows come sorted
     got = [(ends[offsets[j]:offsets[j + 1]].numpy(),
             np.sort(state[j, :kk[j]].numpy())) for j in range(len(streams))]
     _same(got, [_sweep(s) for s in streams])
@@ -133,17 +134,105 @@ def test_stats_reset_through_engine():
         "fleet_kernel"}
 
 
+def _lanes_by_loop(ks, ns):
+    """The thread layout written out one group at a time (what
+    ``warp_lanes`` computes with vector operations)."""
+    inst = [min(k, k4._MAX_REG + 1) for k in ks]
+    cols = []
+    for g in sorted(set(inst)):
+        idx = sorted((i for i in range(len(ks)) if inst[i] == g),
+                     key=lambda i: (-ns[i], i))
+        pad = -len(idx) % 32
+        cols.append([idx + [-1] * pad,
+                     [ks[i] for i in idx] + [ks[idx[0]]] * pad])
+    return np.concatenate([np.array(c) for c in cols], axis=1)
+
+
 def test_warp_lanes_layout():
-    ks = [3, 1, 17, 5, 40, 3, 2, 33, 8, 16, 32, 4] * 5
-    lanes = k4.warp_lanes(ks)
+    rng = np.random.default_rng(0)
+    ks = [3, 1, 17, 5, 40, 3, 2, 33, 8, 16, 32, 4, 17, 50] * 5
+    ns = rng.integers(0, 500, len(ks)).tolist()
+    ns[3] = ns[5] = 200  # a tie keeps stream order
+    lanes = k4.warp_lanes(ks, ns)
     assert lanes.dtype == np.int32 and lanes.shape[1] % 32 == 0
     streams, kk = lanes
     assert sorted(streams[streams >= 0].tolist()) == list(range(len(ks)))
-    bucket = np.searchsorted(k4._BUCKETS, kk)
-    for w in range(lanes.shape[1] // 32):
-        real = streams[w * 32:(w + 1) * 32] >= 0
-        assert len(set(bucket[w * 32:(w + 1) * 32][real])) == 1
     assert all(kk[i] == ks[s] for i, s in enumerate(streams) if s >= 0)
+    inst = np.minimum(kk, k4._MAX_REG + 1)
+    for w in range(lanes.shape[1] // 32):
+        # one instance a warp (empty lanes carry it too), longest first
+        assert len(set(inst[w * 32:(w + 1) * 32])) == 1
+        real = streams[w * 32:(w + 1) * 32]
+        lens = [ns[s] for s in real[real >= 0]]
+        assert lens == sorted(lens, reverse=True)
+    assert np.array_equal(lanes, _lanes_by_loop(ks, ns))
+    assert k4.warp_lanes([], []).shape == (2, 0)
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 100])
+def test_warp_lanes_matches_loop(S):
+    rng = np.random.default_rng(S)
+    ks = rng.choice([1, 2, 3, 17, 32, 33, 40], S).tolist()
+    ns = rng.integers(0, 3, S).tolist()  # many ties
+    assert np.array_equal(k4.warp_lanes(ks, ns), _lanes_by_loop(ks, ns))
+
+
+def test_pack_layout():
+    """One host buffer holds the ragged inputs, the offsets, free0 (zeros
+    where none is given, +inf past k) and the thread layout, each field at
+    a multiple of 8 bytes."""
+    streams = _streams(5, 13, (1, 20, 3))
+    streams[4] = (np.zeros(0), np.zeros(0), 3)
+    rs, ds = [s[0] for s in streams], [s[1] for s in streams]
+    ks = [s[2] for s in streams]
+    f0s = [s[3] if len(s) > 3 else None for s in streams]
+    layout, buf = k4.pack(rs, ds, ks, f0s)
+    assert buf.dtype == torch.uint8 and buf.numel() == layout.nbytes
+    assert layout.nbytes % 8 == 0
+    v = layout.views(buf)
+    assert all(t.storage_offset() * t.element_size() % 8 == 0
+               for t in v.values())
+    assert torch.equal(v["ready"], torch.from_numpy(np.concatenate(rs)))
+    assert torch.equal(v["dur"], torch.from_numpy(np.concatenate(ds)))
+    ns = [len(r) for r in rs]
+    assert v["offsets"].tolist() == np.concatenate(
+        [[0], np.cumsum(ns)]).tolist()
+    assert np.array_equal(v["lanes"].numpy(), k4.warp_lanes(ks, ns))
+    f0 = v["free0"].numpy()
+    assert f0.shape == (len(ks), max(ks))
+    for j, (f, k) in enumerate(zip(f0s, ks)):
+        assert np.array_equal(f0[j, :k], np.zeros(k) if f is None else f)
+        assert np.isinf(f0[j, k:]).all()
+
+
+@pytest.mark.parametrize("seed,ks", CASES)
+def test_fleet_fifo_streams_cpu(seed, ks):
+    """The packed entry on the CPU: each stream bitwise ``_sweep``, each
+    state row sorted with +inf past k, and no launch."""
+    streams = _streams(seed, 24, ks)
+    streams.append((np.zeros(0), np.zeros(0), 2, np.array([1.0, 0.5])))
+    kk = [s[2] for s in streams]
+    k4.launches = 0
+    ends, state, offsets = k4.fleet_fifo_streams(
+        [s[0] for s in streams], [s[1] for s in streams], kk,
+        [s[3] if len(s) > 3 else None for s in streams], "cpu")
+    assert k4.launches == 0
+    assert np.array_equal(state, np.sort(state, axis=1))
+    got = [(ends[offsets[j]:offsets[j + 1]], state[j, :kk[j]])
+           for j in range(len(streams))]
+    _same(got, [_sweep(s) for s in streams])
+    assert all(np.isinf(state[j, kk[j]:]).all() for j in range(len(kk)))
+
+
+def test_constants_match_the_cuda_source():
+    """The chunk and register limits the tests and the layout use are the
+    kernel's own."""
+    import re
+    from pathlib import Path
+
+    src = (Path(k4.__file__).parent / "csrc" / "fleet_fifo.cu").read_text()
+    assert int(re.search(r"kChunk = (\d+);", src).group(1)) == k4.CHUNK
+    assert int(re.search(r"kMaxReg = (\d+);", src).group(1)) == k4._MAX_REG
 
 
 def test_wrapper_checks():
