@@ -64,7 +64,29 @@ Phases, one JSON line each:
                (d) the steps of (b) and (c) in f32, K3 held to its plain
                version at each call, their logits held to the same path
                with K3 replaced by its plain version;
-  8. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
+  8. recsys  - the rest of Hercules' paper models and the registry's
+               recsys cells (``repro_torch.launch.serve_recsys``,
+               ``repro_torch.launch.steps``), random weights from a seed:
+               (a) mt-wnd prod (26 x 20,000,000 x 32 deep and a dim-1 wide
+               table, 68.6 GB, ``torch.cuda.mem_get_info`` printed first)
+               served behind its T7 schedule for 40 queries, two K1 launches
+               a fused launch (counted from 0), one kept launch's [d, 5]
+               logits against the same model with K1's plain version, the
+               launch's stages, and K1 alone at the deep (D = 32) and the
+               wide (D = 1) launch as in the kernel phase; (b) din and (c)
+               dien prod (an 84.6 MB QR table, 200-step history) served the
+               same way, no K1 launch, one kept launch against the model's
+               CPU copy (DIEN at ``DIEN_TOL``), every logit finite, the item
+               ids shown to reach past the QR feature's 74,692 stored rows,
+               the launch's host time and DIEN's two recurrences' share of
+               it; (d) serve_p99 of wide-deep, din, mind and dlrm-rm2 FULL
+               and retrieval_cand of din (in chunks) and mind at 1,000,000
+               candidates: time, peak memory, K1 launches, each held to K1's
+               plain version where it reaches K1, else to a CPU copy (a
+               retrieval on 4 blocks of candidates); last, one din and one
+               dien launch under torch.profiler (device busy, idle share,
+               device events);
+  9. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
                day through ``repro_torch.serving.scenarios``: (a) K4 at
                benchmarks/bench_cluster.py's fleet shape (512 streams, k in
                {2, 4, 8, 16}, 199,444 jobs) and at a full-width day's
@@ -194,12 +216,12 @@ def time_ms(fn, reps: int = TIMING_REPS, before=None) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, reps: int = TIMING_REPS) -> float:
+def host_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     """Median host-clock milliseconds of ``fn()`` from an idle device to the
     device's end of it (for stages that include host work)."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -514,6 +536,29 @@ def phase_kernel(dev, bw: float, f32_rate: float, cfg, big_cfg,
     return results
 
 
+def launch_stages(model, batch_np, dev) -> dict:
+    """Where one fused launch's time goes (host clock, idle device between
+    the stages): features to the card, the sparse part, the dense part,
+    scores back."""
+    import torch
+
+    from repro_torch.models.recsys_base import batch_to_tensors
+
+    with torch.inference_mode():
+        batch = batch_to_tensors(batch_np, dev)
+        pooled = model.apply_sparse(batch)
+        logits = model.apply_dense_given_pooled(batch, pooled)
+        return {
+            "launch_ms": host_ms(
+                lambda: model(batch_to_tensors(batch_np, dev)).float().cpu()),
+            "h2d_ms": host_ms(lambda: batch_to_tensors(batch_np, dev)),
+            "sparse_k1_ms": host_ms(lambda: model.apply_sparse(batch)),
+            "dense_ms": host_ms(
+                lambda: model.apply_dense_given_pooled(batch, pooled)),
+            "d2h_ms": host_ms(lambda: logits.float().cpu()),
+        }
+
+
 def phase_serve(dev, cfg) -> dict:
     """The main path: ``cfg`` served behind dlrm-rmc1's schedule on T2."""
     import torch
@@ -552,19 +597,7 @@ def phase_serve(dev, cfg) -> dict:
     err = check("serve logits", torch.from_numpy(scores), plain.float().cpu(),
                 LOGIT_TOL)
 
-    # where one fused launch's time goes (host clock, device idle between)
-    with torch.inference_mode():
-        pooled = model.apply_sparse(batch)
-        logits = model.apply_dense_given_pooled(batch, pooled)
-        stages = {
-            "launch_ms": host_ms(
-                lambda: model(batch_to_tensors(batch_np, dev)).float().cpu()),
-            "h2d_ms": host_ms(lambda: batch_to_tensors(batch_np, dev)),
-            "sparse_k1_ms": host_ms(lambda: model.apply_sparse(batch)),
-            "dense_ms": host_ms(
-                lambda: model.apply_dense_given_pooled(batch, pooled)),
-            "d2h_ms": host_ms(lambda: logits.float().cpu()),
-        }
+    stages = launch_stages(model, batch_np, dev)
     return {
         "phase": "serve", "model": cfg.name,
         "table_gb": model.table.numel() * model.table.element_size() / 1e9,
@@ -967,9 +1000,11 @@ def k3_checked(errs: list):
 
 
 def tree_map(fn, tree):
-    """``fn`` applied to each tensor of a nested dict."""
+    """``fn`` applied to each tensor of a nested dict (lists included)."""
     if isinstance(tree, dict):
         return {key: tree_map(fn, val) for key, val in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, val) for val in tree]
     return fn(tree)
 
 
@@ -1054,6 +1089,7 @@ def profile_step(fn, top: int = 8) -> dict:
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy if rows else None,
             "device_idle_share": 1 - busy / wall_ms if rows else None,
+            "device_events": sum(r[2] for r in rows),
             "top": [{"kernel": k[:80], "ms": ms, "count": n}
                     for k, ms, n in rows[:top]]}
 
@@ -1315,6 +1351,340 @@ def phase_lm(dev) -> dict:
     res["peak_gb"] = max(peak_before_gb,
                          torch.cuda.max_memory_allocated() / 1e9)
     del params32, gen_cache, prefilled, timed, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the recsys slice: MT-WnD, DIN, DIEN and the registry's recsys cells
+# ---------------------------------------------------------------------------
+
+RECSYS_SERVER = "T7"  # the V100 accelerator host type of core/devices.py
+# DIEN's logits on the card against the CPU copy: f32 sums in other orders
+# at each of 200 GRU and 200 AUGRU steps (the recurrence contracts, so they
+# do not grow; the CPU tests see 1e-6 against the reference at T = 200)
+DIEN_TOL = 1e-4
+CELL_REPS = 5  # host-timed runs of a registry cell (after 3 warm-up runs)
+# DIEN: rounds of one fused launch and its two recurrences timed in turn,
+# so each round gives a share of loops in a launch measured beside it
+PAIRED_REPS = 9
+# candidates of a retrieval cell held to the CPU copy: blocks of this many
+# at the start, across the first chunk boundary, at random and at the end
+CHECK_BLOCK = 1024
+
+
+@contextlib.contextmanager
+def plain_k1():
+    """K1's per-feature entry replaced by its plain version where the models
+    reach it (``embedding_bag_local``), on the same tensors."""
+    from repro_torch.kernels.embedding_bag import ref
+    from repro_torch.models import embedding as emb
+
+    saved = emb.embedding_bag_features
+    emb.embedding_bag_features = ref.embedding_bag_features_ref
+    try:
+        yield
+    finally:
+        emb.embedding_bag_features = saved
+
+
+def cpu_copy(model):
+    """The same model with its parameters copied to the host."""
+    return type(model)(model.cfg, tree_map(lambda t: t.detach().cpu(),
+                                           model.tree()))
+
+
+def params_gb(model) -> float:
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+
+def served(out: dict, sla_ms: float) -> dict:
+    """The serving numbers of a ``serve`` result beside the SLA."""
+    keys = ("schedule", "served_queries", "items", "fused_launches",
+            "warmup_launches", "p50_ms", "p95_ms", "p99_ms", "wall_s")
+    return {**{k: out[k] for k in keys}, "sla_ms": sla_ms,
+            "p99_within_sla": out["p99_ms"] <= sla_ms}
+
+
+def recsys_mt_wnd(dev, bw: float, f32_rate: float) -> dict:
+    """(a) mt-wnd prod (26 x 20,000,000 x 32 deep and a dim-1 wide table,
+    68.6 GB) served behind its T7 schedule: two K1 launches a fused launch,
+    one kept launch against the same model with K1's plain version, the
+    launch's stages, and K1 alone at the deep and the wide launch."""
+    import torch
+
+    from repro_torch.configs.paper_models import SLA_MS, mt_wnd, paper_profile
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.launch.serve_recsys import serve
+    from repro_torch.models import widedeep
+    from repro_torch.models.embedding import routed_offsets
+    from repro_torch.models.recsys_base import batch_to_tensors
+
+    cfg = mt_wnd(True)
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "recsys", "stage": "mt_wnd_memory",
+          "free_gb_before_tables": free / 1e9, "total_gb": total / 1e9})
+    torch.cuda.reset_peak_memory_stats()
+    model = widedeep.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                          device=dev)
+    ops.launches = 0
+    out = serve(cfg, paper_profile("mt-wnd"), RECSYS_SERVER, device=dev,
+                n_queries=SERVE_QUERIES, qps=SERVE_QPS, seed=0, model=model,
+                keep_launches=1)
+    launches = ops.launches
+    expected = 2 * (out["fused_launches"] + out["warmup_launches"])
+    if not (launches > 0 and launches == expected == out["k1_launches"]):
+        raise AssertionError(f"mt-wnd: K1 launches {launches} (serve counted "
+                             f"{out['k1_launches']}), expected {expected}")
+
+    batch_np, scores = out["kept"][0]
+    d = out["schedule"]["batch"]
+    if scores.shape != (d, cfg.n_tasks):
+        raise AssertionError(f"mt-wnd scores {scores.shape}, expected "
+                             f"({d}, {cfg.n_tasks})")
+    with torch.inference_mode(), plain_k1():
+        plain = model(batch_to_tensors(batch_np, dev))
+    err = check("mt-wnd logits against K1's plain version",
+                torch.from_numpy(scores), plain.float().cpu(), LOGIT_TOL)
+    stages = launch_stages(model, batch_np, dev)
+
+    # K1 alone at the two launches of a fused launch: the 2-D entry on the
+    # shifted ids (as the kernel phase), the per-feature entry as served
+    ids = torch.from_numpy(shifted_ids(batch_np["sparse_ids"],
+                                       cfg.embedding.row_offsets)).to(dev)
+    ids3 = torch.from_numpy(batch_np["sparse_ids"]).to(dev)
+    stream = k1_stream(cfg, dev)
+    k1 = {}
+    for name, table, emb in (("deep", model.table, cfg.embedding),
+                             ("wide", model.wide, model.wide_cfg)):
+        off = routed_offsets(emb, dev)
+        e = check(f"mt-wnd {name} K1", ops.hot_embedding_bag(table, ids),
+                  ref.hot_embedding_bag_ref(table, ids), F32_TOL)
+        torch.cuda.synchronize()
+        k1[name] = {
+            "case": f"mt_wnd_{name}", "table": list(table.shape),
+            "dtype": "float32", "bags": ids.shape[0], "P": ids.shape[1],
+            "max_abs_err": e, "tolerance": F32_TOL,
+            **measure_k1(table, ids, bw, f32_rate, stream),
+            "features_entry_ms": time_ms(
+                lambda: ops.embedding_bag_features(table, ids3, off))}
+        emit({"phase": "recsys", "stage": "k1", **k1[name]})
+    res = {"model": cfg.name, "params_gb": params_gb(model),
+           **served(out, SLA_MS["mt-wnd"]), "k1_launches": launches,
+           "k1_launches_per_fused_launch": 2,
+           "logits_shape": list(scores.shape),
+           "logits_max_abs_err_vs_plain_k1": err, "logit_tolerance": LOGIT_TOL,
+           "fused_launch_breakdown": stages,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "k1": k1}
+    del model, plain, ids, ids3, stream
+    torch.cuda.empty_cache()
+    return res
+
+
+def item_reach(cfg, batch_np) -> dict:
+    """How far one launch's item ids (history and targets) reach against a
+    QR item table's storage: the reference adds ``row_offsets[0]`` to the
+    raw id, so an id past the stored rows reads another feature's rows or
+    past the table."""
+    import numpy as np
+
+    emb = cfg.embedding
+    hist = batch_np["history_ids"]
+    items = np.concatenate([hist[hist >= 0], batch_np["target_id"]]).astype(
+        np.int64) + int(emb.row_offsets[0])
+    return {"item_ids": int(items.size), "max_item_id": int(items.max()),
+            "stored_item_rows": emb.storage_rows(0),
+            "share_past_item_storage": float(
+                (items >= emb.row_offsets[1]).mean()),
+            "share_past_table": float((items >= emb.total_rows).mean())}
+
+
+def recsys_din(dev, name: str):
+    """(b) / (c) din / dien prod (an 84.6 MB QR table, 200-step history)
+    behind its T7 schedule: no K1 launch, one kept launch against the same
+    model's CPU copy, every logit finite, the item ids past the QR storage,
+    the launch's host time and (DIEN) its two recurrences' share."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_models import PAPER_MODELS, SLA_MS, paper_profile
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.launch.serve_recsys import serve
+    from repro_torch.models import din
+    from repro_torch.models.recsys_base import batch_to_tensors
+
+    cfg = PAPER_MODELS[name](True)
+    model = din.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                     device=dev)
+    ops.launches = 0
+    out = serve(cfg, paper_profile(name), RECSYS_SERVER, device=dev,
+                n_queries=SERVE_QUERIES, qps=SERVE_QPS, seed=0, model=model,
+                keep_launches=1)
+    if ops.launches or out["k1_launches"]:
+        raise AssertionError(f"{name} launched K1 ({ops.launches}): its "
+                             "lookups are plain gathers")
+    batch_np, scores = out["kept"][0]
+    d = out["schedule"]["batch"]
+    if scores.shape != (d,) or not np.isfinite(scores).all():
+        raise AssertionError(f"{name}: scores {scores.shape}, expected ({d},)"
+                             ", all finite")
+    tol = DIEN_TOL if cfg.use_gru else LOGIT_TOL
+    with torch.inference_mode():
+        want = cpu_copy(model)(batch_to_tensors(batch_np, torch.device("cpu")))
+    err = check(f"{name} logits on the card against the CPU copy",
+                torch.from_numpy(scores), want, tol)
+    reach = item_reach(cfg, batch_np)
+    if reach["max_item_id"] < reach["stored_item_rows"]:
+        raise AssertionError(f"{name}: no item id past the QR feature's "
+                             "stored rows; the QR lookup went untested")
+
+    def fused():
+        return model(batch_to_tensors(batch_np, dev)).float().cpu()
+
+    with torch.inference_mode():
+        if not cfg.use_gru:
+            launch = {"host_ms": host_ms(fused)}
+        else:
+            p = model.tree()
+            batch = batch_to_tensors(batch_np, dev)
+            mask = batch["history_ids"] >= 0
+            table = p["embedding"]["table"]
+            hist_emb = din.item_rows(table, batch["history_ids"], cfg) * \
+                mask[..., None].to(cfg.dtype)
+            target = din.item_rows(table, batch["target_id"], cfg)
+            states = din._run_gru(p["gru"], hist_emb)
+            att = torch.softmax(torch.where(mask, din.attention_scores(
+                p, states, target, mask, cfg), -1e30), dim=-1)
+            runs = {"host_ms": fused,
+                    "gru_ms": lambda: din._run_gru(p["gru"], hist_emb),
+                    "augru_ms": lambda: din._gru_states(p["augru"], states,
+                                                        att)[-1]}
+            for fn in runs.values():
+                host_ms(fn, reps=1)  # warm-up
+            times = {k: [] for k in runs}
+            for _ in range(PAIRED_REPS):
+                for k, fn in runs.items():
+                    times[k].append(host_ms(fn, reps=1, warmup=0))
+            shares = [(g + a) / t for g, a, t in zip(
+                times["gru_ms"], times["augru_ms"], times["host_ms"])]
+            launch = {"paired_rounds": PAIRED_REPS}
+            for k, ts in times.items():
+                launch[k] = statistics.median(ts)
+                launch[k + "_range"] = [min(ts), max(ts)]
+            launch["gru_share"] = statistics.median(shares)
+            launch["gru_share_range"] = [min(shares), max(shares)]
+    line = {"model": cfg.name, "params_gb": params_gb(model),
+            **served(out, SLA_MS[name]), "k1_launches": 0,
+            "logits_shape": list(scores.shape), "logits_finite": True,
+            "logits_max_abs_err_vs_cpu": err, "tolerance": tol,
+            "item_reach": reach, "fused_launch": launch}
+    return line, model, batch_np
+
+
+def checked_candidates(n: int, seed: int):
+    """Indices of the candidates held to the CPU copy: CHECK_BLOCK at the
+    start, across the first chunk boundary of DIN's retrieval, at random
+    and at the end."""
+    import numpy as np
+
+    from repro_torch.models.din import RETRIEVAL_CHUNK
+
+    starts = np.clip([0, RETRIEVAL_CHUNK - CHECK_BLOCK // 2, n - CHECK_BLOCK],
+                     0, max(n - CHECK_BLOCK, 0))
+    rand = np.random.default_rng(seed).integers(0, n, CHECK_BLOCK)
+    idx = np.unique(np.concatenate(
+        [np.arange(s, s + CHECK_BLOCK) for s in starts] + [rand]))
+    return idx[idx < n]
+
+
+def recsys_cell(dev, arch_id: str, shape: str) -> dict:
+    """(d) one registry cell at its FULL config on the card: the time of a
+    run, its peak memory above its inputs, the K1 launches it made; held to
+    K1's plain version where it reaches K1, else to a CPU copy of the same
+    parameters (a retrieval cell on ``checked_candidates``)."""
+    import torch
+
+    from repro_torch.data.clicklog import cell_batch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell(arch_id, shape, dev)
+    model = cell.init_state(torch.Generator(dev).manual_seed(1))
+    batch_np = cell_batch(cell.cfg, cell.batch_specs, seed=11)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0
+    scores = cell.run(model, batch)["scores"]
+    torch.cuda.synchronize()
+    k1_launches = ops.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    tol = BF16_TOL if cell.cfg.dtype == torch.bfloat16 else LOGIT_TOL
+    if k1_launches:
+        with plain_k1():
+            want = cell.run(model, batch)["scores"]
+        against = "K1's plain version"
+        err = check(f"{arch_id} {shape} against {against}", scores, want, tol)
+        checked = scores.shape[-1]
+    else:
+        cpu = cpu_copy(model)
+        tb = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        got = scores.cpu()
+        if "candidate_ids" in tb:
+            pick = checked_candidates(tb["candidate_ids"].shape[0], seed=12)
+            tb["candidate_ids"] = tb["candidate_ids"][pick]
+            got = got[..., pick]
+        against = "the CPU copy"
+        want = cell.run(cpu, tb)["scores"]
+        err = check(f"{arch_id} {shape} against {against}", got, want, tol)
+        checked = got.shape[-1]
+    res = {"arch": arch_id, "shape": shape, "config": cell.cfg.name,
+           "batch": cell.batch, "scores_shape": list(scores.shape),
+           "params_gb": params_gb(model),
+           "ms": host_ms(lambda: cell.run(model, batch), reps=CELL_REPS),
+           "peak_gb_above_inputs": peak / 1e9, "k1_launches": k1_launches,
+           "checked_against": against, "checked_scores": checked,
+           "max_abs_err": err, "tolerance": tol}
+    del model, batch, scores
+    torch.cuda.empty_cache()
+    return res
+
+
+RECSYS_CELLS = [(a, "serve_p99") for a in ("wide-deep", "din", "mind",
+                                           "dlrm-rm2")] + \
+    [(a, "retrieval_cand") for a in ("din", "mind")]
+
+
+def phase_recsys(dev, bw: float, f32_rate: float) -> dict:
+    """The recsys slice: (a) mt-wnd, (b) din, (c) dien at production width
+    behind their T7 schedules, (d) the registry's recsys cells, then one
+    fused din and dien launch each under torch.profiler."""
+    import torch
+
+    from repro_torch.models.recsys_base import batch_to_tensors
+
+    res = {"phase": "recsys", "server": RECSYS_SERVER}
+    res["mt_wnd"] = recsys_mt_wnd(dev, bw, f32_rate)
+    emit({"phase": "recsys", "stage": "mt_wnd", **res["mt_wnd"]})
+    kept = {}
+    for name in ("din", "dien"):
+        res[name], model, batch_np = recsys_din(dev, name)
+        emit({"phase": "recsys", "stage": name, **res[name]})
+        kept[name] = (model, batch_np)
+    res["cells"] = []
+    for arch_id, shape in RECSYS_CELLS:
+        res["cells"].append(recsys_cell(dev, arch_id, shape))
+        emit({"phase": "recsys", "stage": "cell", **res["cells"][-1]})
+    # last: under torch.profiler's tracing the host-bound launches after it
+    # run slower
+    for name, (model, batch_np) in kept.items():
+        with torch.inference_mode():
+            res[name]["fused_launch"]["profiled"] = profile_step(
+                lambda: model(batch_to_tensors(batch_np, dev)).float().cpu())
+    res["k1_launches"] = res["mt_wnd"]["k1_launches"] + sum(
+        c["k1_launches"] for c in res["cells"])
+    del kept
     torch.cuda.empty_cache()
     return res
 
@@ -1743,7 +2113,7 @@ def phase_cluster(dev, bw: float, probes) -> dict:
 
 
 def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
-                   lm: dict, cluster: dict) -> list[dict]:
+                   lm: dict, recsys: dict, cluster: dict) -> list[dict]:
     """The summary of every kernel: where it replaces a TPU kernel, its
     launches on the paths driven here, its error and its times."""
     import torch
@@ -1784,7 +2154,18 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                             f"{c['dtype']}, {c['bags']} bags x P={c['P']}",
                    **{k: c[k] for k in k1_keys}}
             for name, c in (("rm2_full_bf16", k1["rm2"]),
-                            ("rmc3_prod", k1["rmc3"]))},
+                            ("rmc3_prod", k1["rmc3"]),
+                            ("mt_wnd_deep", recsys["mt_wnd"]["k1"]["deep"]),
+                            ("mt_wnd_wide", recsys["mt_wnd"]["k1"]["wide"]))},
+        "recsys": {
+            "launches": recsys["k1_launches"],
+            "mt_wnd_launches": recsys["mt_wnd"]["k1_launches"],
+            "cell_launches": {f"{c['arch']}/{c['shape']}": c["k1_launches"]
+                              for c in recsys["cells"]},
+            "launches_note": "the recsys phase, counted from 0 before each "
+                             "path: mt-wnd served (two launches a fused "
+                             "launch: the deep and the wide table) and one "
+                             "run of each registry cell"},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1927,11 +2308,16 @@ def main() -> int:
     lm = phase_lm(dev)
     emit(lm)
 
-    # 8. the cluster day (K4's count is reset inside, just before each day)
+    # 8. the recsys slice (K1's count is reset inside, just before each path)
+    recsys = phase_recsys(dev, bw, f32_rate)
+    emit(recsys)
+
+    # 9. the cluster day (K4's count is reset inside, just before each day)
     cluster = phase_cluster(dev, bw, probes)
     emit(cluster)
 
-    emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, cluster),
+    emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, recsys,
+                                    cluster),
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

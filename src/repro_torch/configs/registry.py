@@ -25,6 +25,9 @@ ARCH_IDS = (
 # arch id -> config module, for the archs whose modules are ported
 _MODULES = {
     "llama3.2-3b": "llama3_2_3b",
+    "wide-deep": "wide_deep",
+    "mind": "mind_arch",
+    "din": "din_arch",
     "dlrm-rm2": "dlrm_rm2",
 }
 

@@ -133,3 +133,18 @@ class ClickLogGenerator:
             col = col[col >= 0]
             freqs.append(np.bincount(col, minlength=emb.vocab_sizes[f]).astype(np.float64))
         return freqs
+
+
+def cell_batch(cfg: RecsysConfig, specs: dict, seed: int) -> dict:
+    """Click-log inputs (numpy) for a recsys cell's batch specs (name ->
+    anything with a ``shape``); candidates drawn uniformly from the item
+    vocabulary."""
+    n = specs["history_ids"].shape[0] if "history_ids" in specs else \
+        next(iter(specs.values())).shape[0]
+    batch = ClickLogGenerator(cfg, seed=seed).batch(n, with_labels=False)
+    batch = {k: v for k, v in batch.items() if k in specs}
+    if "candidate_ids" in specs:
+        batch["candidate_ids"] = np.random.default_rng(seed).integers(
+            0, cfg.embedding.vocab_sizes[0], specs["candidate_ids"].shape
+        ).astype(np.int32)
+    return batch

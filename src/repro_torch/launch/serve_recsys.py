@@ -1,9 +1,14 @@
-"""Online serving of a DLRM behind its Hercules schedule, on the GPU.
+"""Online serving of a paper model behind its Hercules schedule, on the GPU.
 
 Port of ``examples/serve_recsys.py`` with one difference: the executed
 model is the scheduled model at its production width (by default
 ``dlrm-rmc1``: 10 tables x 2.5 M rows x 32, 3.2 GB of f32 tables on the
-card), not a small stand-in.  As in the reference:
+card; ``mt-wnd``: 26 x 20 M x 32 deep plus a dim-1 wide table, 68.6 GB;
+``din`` / ``dien``: an 84.6 MB QR-compressed table and a 200-step
+behaviour sequence), not a small stand-in.  The model is built by its
+interaction, as the reference's ``RECSYS_INIT`` does: ``dot`` a DLRM,
+``concat`` a Wide & Deep (MT-WnD), ``target-attn`` a DIN (DIEN).  As in
+the reference:
 
 - the offline stage picks the schedule with ``gradient_search`` over 300
   query sizes (``o_grid=(1, 2)``) for the chosen server type;
@@ -13,10 +18,12 @@ card), not a small stand-in.  As in the reference:
 
 A query's features are generated before its clock starts (they arrive
 with the request), so a latency is: features to the device, the model
-(SparseNet through kernel K1, DenseNet), scores back to the host.
+(the DLRM's and MT-WnD's SparseNet through kernel K1, the dense part),
+scores back to the host.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_recsys \\
-          [--model dlrm-rmc1] [--server T2] [--seconds 5] [--qps 60]
+          [--model {dlrm-rmc1,dlrm-rmc2,dlrm-rmc3,mt-wnd,din,dien}] \\
+          [--server T2] [--seconds 5] [--qps 60]
 """
 from __future__ import annotations
 
@@ -34,23 +41,25 @@ from repro_torch.core.gradient_search import gradient_search
 from repro_torch.core.workload import ModelProfile
 from repro_torch.data.clicklog import ClickLogGenerator
 from repro_torch.kernels.embedding_bag import ops as k1
-from repro_torch.models import dlrm
+from repro_torch.models import RECSYS_MODELS
 from repro_torch.models.recsys_base import RecsysConfig, batch_to_tensors
 from repro_torch.serving.router import QueryRouter, ServerSlot
 
-SERVABLE = ("dlrm-rmc1", "dlrm-rmc2", "dlrm-rmc3")
+SERVABLE = tuple(PAPER_MODELS)
 
 
 def serve(cfg: RecsysConfig, profile: ModelProfile, server: str = "T2", *,
           device: str | torch.device = "cuda", n_queries: int | None = None,
           seconds: float | None = None, qps: float = 60.0, seed: int = 0,
-          model: dlrm.DLRM | None = None, keep_launches: int = 0) -> dict:
+          model: torch.nn.Module | None = None, keep_launches: int = 0
+          ) -> dict:
     """Serve ``cfg`` behind the schedule computed for ``profile`` on
     ``server``, for ``n_queries`` queries or ``seconds`` of wall time.
 
-    ``model`` defaults to a DLRM with random weights made on ``device``
-    from ``seed``.  The first ``keep_launches`` fused launches are
-    returned as ``(numpy batch, numpy scores)`` pairs under ``"kept"``.
+    ``model`` defaults to ``cfg``'s model (by its interaction) with random
+    weights made on ``device`` from ``seed``.  The first ``keep_launches``
+    fused launches are returned as ``(numpy batch, numpy scores)`` pairs
+    under ``"kept"``.
 
     Returns latencies (ms), served queries and items, the schedule, the
     number of fused launches and the K1 launches counted during the call.
@@ -71,8 +80,8 @@ def serve(cfg: RecsysConfig, profile: ModelProfile, server: str = "T2", *,
     router = QueryRouter([ServerSlot(server, res.qps)])
 
     if model is None:
-        model = dlrm.init(cfg, generator=torch.Generator(dev).manual_seed(seed),
-                          device=dev)
+        model = RECSYS_MODELS[cfg.interaction].init(
+            cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
 
     def launch(batch_np: dict) -> torch.Tensor:
         scores = model(batch_to_tensors(batch_np, dev))

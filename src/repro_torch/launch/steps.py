@@ -1,33 +1,41 @@
-"""Per-(architecture x shape) programs: the LM prefill and decode cells.
+"""Per-(architecture x shape) programs: the LM prefill and decode cells and
+the recsys serve cells.
 
-Counterpart of ``repro.launch.steps`` (``build_cell`` / ``CellProgram``) for
-the LM cells on one device; training and the recsys and GNN cells wait.
-The reference's mesh becomes an explicit device:
+Counterpart of ``repro.launch.steps`` (``build_cell`` / ``CellProgram``) on
+one device; training and the GNN cells wait.  The reference's mesh becomes
+an explicit device:
 
 - ``device="cpu"`` mirrors the reference's ``mesh=None`` smoke cell: the
-  arch's ``SMOKE`` config at batch 4 and sequence 32;
+  arch's ``SMOKE`` config, for an LM at batch 4 and sequence 32, for a
+  recsys arch at batch 16 and 128 candidates;
 - ``device="cuda"`` (the default) runs the ``FULL`` config at the shape's
-  sequence length and, for decode, with ``decode_impl="flash"`` (kernel
-  K3), as the reference's device-placed cells do.  The batch is the
-  shape's global batch unless the caller states a cut with ``batch=``;
-  nothing shrinks it silently.
+  sizes and, for LM decode, with ``decode_impl="flash"`` (kernel K3), as
+  the reference's device-placed cells do.  The batch is the shape's global
+  batch unless the caller states a cut with ``batch=``; nothing shrinks it
+  silently.
 
-Decode is one token at ``pos = S - 1`` against an S-long cache passed in
-the batch; prefill fills a fresh cache from position 0.
+LM decode is one token at ``pos = S - 1`` against an S-long cache passed
+in the batch; prefill fills a fresh cache from position 0.  A recsys serve
+cell scores its batch (``serve_p99``, ``serve_bulk``); ``retrieval_cand``
+scores one user's history against every candidate for DIN and MIND, and
+scores the candidates as one bulk batch for the CTR rankers (Wide & Deep,
+DLRM).  The recsys ``train_batch`` cell waits for K1's backward.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.common.types import ArchKind, ShapeSpec, TensorSpec, resolve_device
 from repro_torch.configs.registry import get_arch
+from repro_torch.models import RECSYS_MODELS
 from repro_torch.models import transformer as tf_lib
-from repro_torch.models.transformer import LMConfig
+from repro_torch.models.recsys_base import input_specs as recsys_input_specs
 
 SMOKE_BATCH, SMOKE_SEQ = 4, 32  # the reference's mesh=None cut
+SMOKE_RECSYS_BATCH, SMOKE_CANDIDATES = 16, 128  # its recsys cut
 
 
 @dataclasses.dataclass
@@ -35,16 +43,18 @@ class CellProgram:
     arch_id: str
     shape: ShapeSpec
     kind: ArchKind
-    cfg: LMConfig
+    cfg: Any               # LMConfig or RecsysConfig
     device: torch.device
     batch: int
     seq_len: int
-    step_fn: Callable      # step(params, batch) -> outputs
+    step_fn: Callable      # step(state, batch) -> outputs
     batch_specs: dict      # TensorSpec tree of the step's batch
+    init_fn: Callable      # init(cfg, *, generator, device) -> state
 
-    def init_state(self, generator: torch.Generator) -> dict:
-        """Random parameters on the cell's device (``generator`` lives there)."""
-        return tf_lib.init(self.cfg, generator=generator, device=self.device)
+    def init_state(self, generator: torch.Generator):
+        """Random parameters on the cell's device (``generator`` lives
+        there): the LM's parameter tree, or the recsys model."""
+        return self.init_fn(self.cfg, generator=generator, device=self.device)
 
     def run(self, state, batch):
         with torch.inference_mode():
@@ -85,7 +95,48 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
 
     return CellProgram(arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND,
                        cfg=cfg, device=device, batch=B, seq_len=S,
-                       step_fn=step, batch_specs=batch_specs)
+                       step_fn=step, batch_specs=batch_specs,
+                       init_fn=tf_lib.init)
+
+
+def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
+                 batch: int | None) -> CellProgram:
+    on_card = device.type == "cuda"
+    cfg = arch.FULL if on_card else arch.SMOKE
+    if shape.step == "train":
+        raise NotImplementedError(
+            "recsys train cells wait for K1's backward (the kernel's output "
+            "carries no autograd graph)")
+    B = shape["batch"] if on_card else SMOKE_RECSYS_BATCH
+    n_cand = shape.get("n_candidates", 0)
+    if n_cand and not on_card:
+        n_cand = SMOKE_CANDIDATES
+    if batch is not None:
+        if n_cand:
+            raise ValueError("retrieval_cand scores one query; it takes no "
+                             "batch")
+        B = batch
+
+    if n_cand and cfg.interaction in ("target-attn", "multi-interest"):
+        B = shape["batch"]  # always 1: the retrieval query
+        specs = recsys_input_specs(cfg, B, n_candidates=n_cand)
+
+        def step(model, batch):
+            return {"scores": model.retrieval_scores(batch,
+                                                     batch["candidate_ids"])}
+    else:
+        if n_cand:  # CTR rankers score the candidates as one bulk batch
+            B = n_cand
+        specs = recsys_input_specs(cfg, B)
+
+        def step(model, batch):
+            return {"scores": model(batch)}
+
+    return CellProgram(
+        arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND, cfg=cfg,
+        device=device, batch=B, seq_len=cfg.seq_len, step_fn=step,
+        batch_specs={k: TensorSpec(*v) for k, v in specs.items()},
+        init_fn=RECSYS_MODELS[cfg.interaction].init)
 
 
 def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda",
@@ -95,6 +146,8 @@ def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda
     dev = resolve_device(device)
     arch = get_arch(arch_id)
     shape = next(s for s in arch.SHAPES if s.name == shape_name)
+    if arch.KIND == ArchKind.RECSYS:
+        return _recsys_cell(arch, shape, dev, batch)
     if arch.KIND not in (ArchKind.LM_DENSE, ArchKind.LM_MOE):
         raise NotImplementedError(f"{arch.KIND.value} cells are not ported yet")
     return _lm_cell(arch, shape, dev, batch)

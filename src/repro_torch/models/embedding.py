@@ -157,10 +157,26 @@ def embedding_bag_local(params, ids: torch.Tensor, cfg: EmbeddingConfig
     return pooled
 
 
+def feature_rows(table: torch.Tensor, ids: torch.Tensor, f: int,
+                 cfg: EmbeddingConfig) -> torch.Tensor:
+    """Rows of feature ``f`` for int ids of any shape -> ``ids.shape +
+    (dim,)``.  Negative ids read the feature's row 0; the caller masks
+    them.  A QR feature gives ``quot * rem`` (``_gather_qr_feature``).
+
+    The one-device counterpart of the reference's ``sharded_row_gather``
+    at feature ``f``'s rows, as DIN's and MIND's item and profile lookups
+    use it, but by the rule of the reference's ``_gather_with_qr``: the
+    reference's DIN and MIND add ``row_offsets[0]`` to the raw item id even
+    for a QR item table, which reads past that feature's storage."""
+    if f in cfg.qr_features:
+        return _gather_qr_feature(table, ids, f, cfg)
+    return table[int(cfg.row_offsets[f]) + ids.clamp_min(0).long()]
+
+
 def _gather_qr_feature(table: torch.Tensor, fid: torch.Tensor, f: int,
                        cfg: EmbeddingConfig) -> torch.Tensor:
-    """Rows of QR feature ``f`` for ids [B, P] (padding reads row 0 of the
-    feature; the caller masks it).
+    """Rows of QR feature ``f`` for ids of any shape (padding reads row 0
+    of the feature; the caller masks it).
 
     A QR feature of vocab V stores ``q = ceil(V/Q)`` quotient rows followed
     by ``Q`` remainder rows; emb(id) = quot[id // Q] * rem[id % Q]

@@ -5,7 +5,10 @@ D in {16, ..., 256} and P in {1, ..., 200}, in f32 and bf16, with -1 inside
 bags and bags that are all padding (exactly zero), an unaligned table view
 (the scalar path), two launches bitwise equal, the per-feature entry bitwise
 equal to the 2-D entry on the shifted ids, and the hot/cold pooling and
-``embedding_bag_local`` on the card against their CPU results.
+``embedding_bag_local`` on the card against their CPU results.  The recsys
+slice's rows: D = 1 (MT-WnD's wide table) and 18 (DIN) at P = 1 and 3
+through both entries; MT-WnD's SparseNet (two launches) and DIN / DIEN
+logits on the card against the CPU.
 
 The redesigned attention kernels: K3's int8 entry (within the bf16/f32 tolerance of its plain
 version, and bitwise equal to the entry in q's dtype on the cache
@@ -53,6 +56,7 @@ from repro_torch.kernels.fleet_fifo import ops as k4_ops
 from repro_torch.models import embedding as emb
 from repro_torch.serving import event_core
 from repro_torch.serving.engine import _sweep
+from torch_recsys_util import cut_vocab
 
 pytestmark = pytest.mark.cuda
 
@@ -294,6 +298,108 @@ def test_k1_hot_cold_on_card(cuda_device):
     assert k1_ops.launches == before + 2
     for got, want in zip(card, cpu):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("D", [1, 18])
+def test_k1_recsys_rows_both_entries(cuda_device, D, P, dtype):
+    """The rows of the recsys slice: MT-WnD's wide table (D = 1) and DIN's
+    dim 18, neither a whole 16-byte vector (the scalar path), one-hot and
+    short bags (P = 1 and 3, unvectorised ids), through the 2-D entry and
+    the per-feature entry (bitwise the 2-D entry on the shifted ids)."""
+    rng = np.random.default_rng(D * 10 + P)
+    B, sizes = 37, [3000, 700, 1200]
+    ids2 = _k1_ids(rng, (B, P), sum(sizes), pad=0.2)
+    ids2[EMPTY_BAGS] = -1
+    table = _k1_table(rng, sum(sizes), D, dtype, cuda_device)
+    _k1_check(table, torch.from_numpy(ids2).to(cuda_device), dtype)
+    off = torch.tensor([0, 3000, 3700], dtype=torch.int64, device=cuda_device)
+    ids3 = torch.from_numpy(np.stack(
+        [_k1_ids(rng, (B, P), v, pad=0.2) for v in sizes], axis=1)
+    ).to(cuda_device)
+    before = k1_ops.launches
+    got = embedding_bag_features(table, ids3, off)
+    torch.cuda.synchronize()
+    assert k1_ops.launches == before + 1 and got.shape == (B, 3, D)
+    flat = shift_feature_ids(ids3, off).to(torch.int32).reshape(-1, P)
+    assert torch.equal(got, hot_embedding_bag(table, flat).reshape(got.shape))
+    torch.testing.assert_close(
+        got.float(), embedding_bag_features_ref(table, ids3, off).float(),
+        rtol=K1_TOL[dtype], atol=K1_TOL[dtype])
+
+
+def _recsys_batch(cfg, n, seed):
+    from repro_torch.data.clicklog import ClickLogGenerator
+    from repro_torch.models.recsys_base import batch_to_tensors
+
+    batch = ClickLogGenerator(cfg, seed=seed).batch(n, with_labels=False)
+    return batch_to_tensors(batch, torch.device("cpu"))
+
+
+def _on(tree, device):
+    return {k: _on(v, device) for k, v in tree.items()} if isinstance(
+        tree, dict) else [_on(v, device) for v in tree] if isinstance(
+        tree, list) else tree.to(device)
+
+
+def test_widedeep_sparse_on_card(cuda_device):
+    """MT-WnD's SparseNet on the card: two K1 launches (deep and wide
+    tables), each the CPU result at K1's f32 tolerance; the logits within
+    1e-4 of the CPU's."""
+    from repro_torch.configs.paper_models import mt_wnd
+    from repro_torch.models import widedeep
+
+    cfg = cut_vocab(mt_wnd(True))
+    cpu = widedeep.init(cfg, generator=torch.Generator().manual_seed(0),
+                        device=torch.device("cpu"))
+    tree = {"embedding": {"table": cpu.table}, "wide": {"table": cpu.wide},
+            "wide_dense": cpu.wide_dense + 0.1,
+            "deep_mlp": cpu.deep_mlp.layers(),
+            "towers": [t.layers() for t in cpu.towers]}
+    cpu = widedeep.WideDeep(cfg, tree)
+    card = widedeep.WideDeep(cfg, _on(tree, cuda_device))
+    batch = _recsys_batch(cfg, 300, 1)
+    with torch.inference_mode():
+        want_deep, want_wide = cpu.apply_sparse(batch)
+        want = cpu(batch)
+        on_card = _on(batch, cuda_device)
+        before = k1_ops.launches
+        deep, wide = card.apply_sparse(on_card)
+        torch.cuda.synchronize()
+        assert k1_ops.launches == before + 2
+        got = card(on_card)
+    torch.testing.assert_close(deep.cpu(), want_deep, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(wide.cpu(), want_wide, rtol=1e-5, atol=1e-5)
+    assert got.shape == (300, 5)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("use_gru", [False, True])
+def test_din_dien_logits_on_card(cuda_device, use_gru):
+    """DIN / DIEN at their widths (dim 18, 200-step history) on a QR item
+    table (3,000 ids in 47 + 64 rows), the logits within 1e-4 of the CPU's
+    (scaled by the largest logit): f32 sums in other orders through 200
+    GRU and 200 AUGRU steps."""
+    import dataclasses
+
+    from repro_torch.configs.paper_models import din as din_cfg
+    from repro_torch.models import din
+
+    cfg = dataclasses.replace(cut_vocab(din_cfg(False), qr_features=(0,),
+                                     qr_buckets=64), use_gru=use_gru)
+    cpu = din.init(cfg, generator=torch.Generator().manual_seed(0),
+                   device=torch.device("cpu"))
+    card = din.DIN(cfg, _on(cpu.tree(), cuda_device))
+    batch = _recsys_batch(cfg, 256, 2)
+    with torch.inference_mode():
+        want = cpu(batch)
+        got = card(_on(batch, cuda_device))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * scale)
 
 
 # ---------------------------------------------------------------------------
