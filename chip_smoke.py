@@ -86,7 +86,32 @@ Phases, one JSON line each:
                retrieval on 4 blocks of candidates); last, one din and one
                dien launch under torch.profiler (device busy, idle share,
                device events);
-  9. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
+  9. train   - training through ``repro_torch.launch.steps``' train cells
+               (random weights from a seed, 3 steps on one fixed batch, the
+               loss at each step and after them, falling): (a) the recsys
+               train_batch cells of dlrm-rm2 (16.64 GB bf16 table), wide-deep,
+               din and mind at FULL width, B = 65,536, rowwise AdaGrad, K1's
+               forward and backward launches counted from 0 (one a K1 table
+               a pass); (b) GraphSAGE's four train cells at FULL width (AdamW):
+               ogb_products on a 2,449,029-node synthetic graph (one layer's
+               aggregate held to the CPU on the in-edges of 65,536 nodes,
+               every gradient finite), minibatch_lg (1,024 seeds sampled at
+               fanout 15-10 from a 232,965-node graph; the graph's and the
+               sampler's host seconds), full_graph_sm and molecule (each's
+               gradients held to a CPU copy at 1e-4); (c) K1's backward
+               against its plain version at the dlrm-rm2 train launch and
+               at wide-deep's deep launch (f32, D = 32, an 80,000,000-row
+               table past 2^31 elements) on the rows each touches, every
+               other row exactly zero, two launches bitwise equal; at
+               dlrm-rmc1 prod and at wide-deep's wide (D = 1) launch on the
+               whole dense gradient; timed beside its plain version, the
+               autograd of ``F.embedding_bag`` and its byte bound (the
+               pooled gradient and the ids read once, the dense gradient
+               written once); (d) each recsys model's gradients on the card against a
+               CPU copy at vocabularies cut to 3,000 rows, then one AdaGrad
+               step on each from the same gradients; each check with planted
+               faults; step ms, peak memory, parameter and optimizer GB;
+ 10. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
                day through ``repro_torch.serving.scenarios``: (a) K4 at
                benchmarks/bench_cluster.py's fleet shape (512 streams, k in
                {2, 4, 8, 16}, 199,444 jobs) and at a full-width day's
@@ -111,8 +136,8 @@ half the keys, the wrong KV head, the causal mask flipped, and for the int8
 entry each row read with the next row's scales); the kernel phases feed
 peaked queries so that attention outputs are O(1) against the bf16
 tolerance.
-Then the kernel summary line (K1, K2, K3, K3's int8 entry and K4), the
-nvidia-smi line, and last
+Then the kernel summary line (K1, K1's backward, K2, K3, K3's int8 entry
+and K4) with the whole script's seconds, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits 2 before any phase.
@@ -611,15 +636,6 @@ def phase_serve(dev, cfg) -> dict:
     }
 
 
-def leaves(tree):
-    """The tensors of a nested dict."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from leaves(v)
-    else:
-        yield tree
-
-
 def attn_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -999,15 +1015,6 @@ def k3_checked(errs: list):
         yield
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to each tensor of a nested dict (lists included)."""
-    if isinstance(tree, dict):
-        return {key: tree_map(fn, val) for key, val in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, val) for val in tree]
-    return fn(tree)
-
-
 def drift(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -1061,6 +1068,8 @@ def prefill_prompts(params, cfg, prompts, dev):
 def clone(tree):
     import torch
 
+    from repro_torch.common.tree import tree_map
+
     with torch.inference_mode():
         return tree_map(torch.clone, tree)
 
@@ -1111,6 +1120,7 @@ def phase_lm(dev) -> dict:
 
     import torch
 
+    from repro_torch.common.tree import tree_leaves, tree_map
     from repro_torch.configs.paper_models import LM_CONTEXT
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.steps import build_cell
@@ -1125,7 +1135,7 @@ def phase_lm(dev) -> dict:
         raise AssertionError(f"unexpected cell configs {pre.cfg} / {cfg}")
     torch.cuda.reset_peak_memory_stats()
     params = pre.init_state(g)
-    n_params = sum(t.numel() for t in leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     if n_params != cfg.param_count():
         raise AssertionError(f"{n_params} parameters, expected "
                              f"{cfg.param_count()}")
@@ -1390,6 +1400,8 @@ def plain_k1():
 
 def cpu_copy(model):
     """The same model with its parameters copied to the host."""
+    from repro_torch.common.tree import tree_map
+
     return type(model)(model.cfg, tree_map(lambda t: t.detach().cpu(),
                                            model.tree()))
 
@@ -1455,8 +1467,9 @@ def recsys_mt_wnd(dev, bw: float, f32_rate: float) -> dict:
     ids3 = torch.from_numpy(batch_np["sparse_ids"]).to(dev)
     stream = k1_stream(cfg, dev)
     k1 = {}
-    for name, table, emb in (("deep", model.table, cfg.embedding),
-                             ("wide", model.wide, model.wide_cfg)):
+    # the tables as served: without autograd (the parameters train)
+    for name, table, emb in (("deep", model.table.detach(), cfg.embedding),
+                             ("wide", model.wide.detach(), model.wide_cfg)):
         off = routed_offsets(emb, dev)
         e = check(f"mt-wnd {name} K1", ops.hot_embedding_bag(table, ids),
                   ref.hot_embedding_bag_ref(table, ids), F32_TOL)
@@ -1686,6 +1699,522 @@ def phase_recsys(dev, bw: float, f32_rate: float) -> dict:
         c["k1_launches"] for c in res["cells"])
     del kept
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# training (K1's backward)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 3    # steps of each FULL train cell, on one fixed batch
+TRAIN_RECSYS = ("dlrm-rm2", "wide-deep", "din", "mind")
+TRAIN_GNN = ("ogb_products", "minibatch_lg", "full_graph_sm", "molecule")
+# K1 tables of each recsys interaction (wide-deep: the deep and the wide)
+K1_TABLES = {"dot": 1, "concat": 2, "target-attn": 0, "multi-interest": 0}
+GRAD_BATCH = 2048  # the recsys gradient checks' batch (a CPU copy runs it)
+# f32 gradients on the card against the CPU copy: sums in other orders in
+# the matrix products, K1's backward and index_add (the tests see 1e-6)
+GRAD_TOL = 1e-4
+AGG_NODES = 65536  # ogb_products' aggregate held on these nodes' in-edges
+GRAD_REPS = 5      # timed runs of K1's backward and its yardsticks
+
+
+def tree_gb(tree) -> float:
+    from repro_torch.common.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 1e9
+
+
+def flat(tree):
+    """The tensors of a pytree as one float32 vector on the host."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+
+    return torch.cat([t.detach().float().reshape(-1).cpu()
+                      for t in tree_leaves(tree)])
+
+
+def train_cell(dev, arch_id: str, shape: str):
+    """One FULL train cell on the card: TRAIN_STEPS steps on one fixed
+    batch from a seed (host seconds of the click log, or of the graph and
+    its sampler), the loss at each step and after the last, the median
+    step ms (host clock, synchronised), peak memory, parameter and
+    optimizer-state GB.  Returns the line, the cell, its state and batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import clicklog, graph
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell(arch_id, shape, dev)
+    t0 = time.perf_counter()
+    data = {}
+    if cell.dims is None:
+        batch_np = clicklog.cell_batch(cell.cfg, cell.batch_specs, seed=21)
+    else:
+        g = graph.cell_graph(cell.cfg, cell.dims, seed=21)
+        if g is not None:
+            data["graph_host_s"] = time.perf_counter() - t0
+            data["graph_edges"] = g.n_edges
+        t1 = time.perf_counter()
+        batch_np = graph.cell_batch(cell.cfg, cell.dims, seed=21, graph=g)
+        data["sampler_host_s" if cell.cfg.mode == "mini"
+             else "batch_host_s"] = time.perf_counter() - t1
+        del g
+    data["data_host_s"] = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = cell.init_state(torch.Generator(dev).manual_seed(2))
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, out = cell.run(state, batch)
+        losses.append(float(out["loss"]))
+        times.append((time.perf_counter() - t) * 1e3)
+    with torch.no_grad():
+        after = float(cell.loss_fn(state["model"], batch))
+    # where a step goes: the loss and gradients alone (no update), once
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    grads = cell.value_and_grad(state, batch)[1]
+    torch.cuda.synchronize()
+    grad_ms = (time.perf_counter() - t) * 1e3
+    del grads
+    if not (np.isfinite(losses).all() and np.isfinite(after)
+            and after < losses[0]):
+        raise AssertionError(f"{arch_id} {shape}: losses {losses}, then "
+                             f"{after}: not finite, or not below the first")
+    line = {"arch": arch_id, "shape": shape, "config": cell.cfg.name,
+            "batch": cell.batch, "dims": cell.dims, "steps": TRAIN_STEPS,
+            "losses": losses, "loss_after": after, "step_ms": times,
+            "median_step_ms": statistics.median(times),
+            "grad_ms": grad_ms,
+            "update_ms": statistics.median(times) - grad_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_gb": tree_gb(state["model"].tree()),
+            "opt_state_gb": tree_gb(state["opt"]), **data}
+    return line, cell, state, batch_np
+
+
+def grad_faults(name, want, wrong: dict, tol) -> None:
+    """Planted faults of a gradient check: zeros and each of ``wrong``."""
+    import torch
+
+    must_fail(f"{name}, zeros", torch.zeros_like(want), want, tol)
+    for what, w in wrong.items():
+        must_fail(f"{name}, {what}", w, want, tol)
+
+
+def cpu_cell(cell):
+    """The same cell on the host (its CPU copy runs the checks)."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(cell, device=torch.device("cpu"))
+
+
+def rolled_labels(batch):
+    return {**batch, "labels": batch["labels"].roll(1, dims=0)}
+
+
+def gnn_check(dev, cell, state, batch_np) -> dict:
+    """A GNN cell's gradients on the card against its CPU copy on the same
+    batch, relative to the largest gradient, with planted faults (zeros,
+    the gradients of the labels rolled by one)."""
+    import torch
+
+    host = cpu_cell(cell)
+    model = cpu_copy(state["model"])
+    cpu_state = {"model": model, "opt": host.opt.init(model.tree())}
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    _, grads = cell.value_and_grad(state, {k: v.to(dev)
+                                           for k, v in batch.items()})
+    _, want = host.value_and_grad(cpu_state, batch)
+    name = f"{cell.shape.name} gradients against the CPU copy"
+    want = flat(want)
+    err = check(name, flat(grads), want, GRAD_TOL)
+    grad_faults(name, want, {"labels rolled": flat(host.value_and_grad(
+        cpu_state, rolled_labels(batch))[1])}, GRAD_TOL)
+    return {"grads_max_abs_err_vs_cpu": err, "grads_tolerance": GRAD_TOL,
+            "grads_max": float(want.abs().max())}
+
+
+def ogb_check(dev, cell, state, batch_np) -> dict:
+    """ogb_products: layer 1's ``aggregate_full`` on the card against the
+    CPU on the in-edges of the first AGG_NODES nodes (planted faults: zeros,
+    the sum without the mean, the out-edges), and every gradient of a step
+    finite."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.models.gnn import aggregate_full
+
+    feats = torch.from_numpy(batch_np["feats"])
+    edges = batch_np["edges"]
+    n = feats.shape[0]
+    k = int((edges[1] < AGG_NODES).sum())  # edges are sorted by dst
+    sub = torch.from_numpy(edges[:, :k])
+    with torch.no_grad():
+        got = aggregate_full(feats.to(dev), torch.from_numpy(edges).to(dev),
+                             n)[:AGG_NODES].cpu()
+        want = aggregate_full(feats, sub, n)[:AGG_NODES]
+        err = check("ogb_products aggregate_full", got, want, F32_TOL)
+        grad_faults("ogb_products aggregate_full", want, {
+            "sum, not mean": aggregate_full(feats, sub, n, "sum")[:AGG_NODES],
+            "out-edges": aggregate_full(feats, sub.flip(0), n)[:AGG_NODES]},
+            F32_TOL)
+    _, grads = cell.value_and_grad(state, {k: torch.from_numpy(v).to(dev)
+                                           for k, v in batch_np.items()})
+    if not all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads)):
+        raise AssertionError("ogb_products: a gradient is not finite")
+    return {"aggregate_nodes": AGG_NODES, "aggregate_edges": k,
+            "aggregate_max_abs_err_vs_cpu": err, "tolerance": F32_TOL,
+            "grads_finite": True}
+
+
+def unique_rows_grad(g, ids3, offsets):
+    """K1's plain backward restricted to the rows the ids read: the rows
+    ``u`` (sorted) and their gradient [len(u), D] (a dense plain gradient
+    of dlrm-rm2 FULL would be 33 GB in f32 beside the kernel's)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ref
+
+    rows = ref.shift_feature_ids(ids3, offsets)
+    valid = rows >= 0
+    u, inv = torch.unique(rows[valid], return_inverse=True)
+    compact = torch.full_like(rows, -1)
+    compact[valid] = inv
+    zeros = torch.zeros_like(offsets)
+    return u, lambda grad, cid=compact.to(torch.int32): \
+        ref.embedding_bag_features_grad_ref(grad, cid, zeros, u.numel())
+
+
+def once_per_bag(ids3):
+    """ids [B, F, P] with a bag's repeated ids dropped (-1): the planted
+    fault of counting a row read twice in a bag once."""
+    import torch
+
+    s, _ = ids3.sort(dim=2)
+    rep = torch.zeros_like(s, dtype=torch.bool)
+    rep[..., 1:] = (s[..., 1:] == s[..., :-1]) & (s[..., 1:] >= 0)
+    return torch.where(rep, -1, s)
+
+
+def first_pair_only(ids3, offsets):
+    """ids [B, F, P] with every pair but the first of each row dropped
+    (-1): the planted fault of a row that takes one pair's gradient where
+    the batch read it several times (a write where a sum belongs)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ref
+
+    rows = ref.shift_feature_ids(ids3, offsets).reshape(-1)
+    s, perm = torch.sort(rows, stable=True)
+    rep = torch.zeros_like(s, dtype=torch.bool)
+    rep[1:] = (s[1:] == s[:-1]) & (s[1:] >= 0)
+    drop = torch.empty_like(rep)
+    drop[perm] = rep
+    return torch.where(drop.reshape(ids3.shape), -1, ids3)
+
+
+def k1_grad_touched(dev, name: str, ids3, emb, seed: int):
+    """K1's backward at a train launch (the cell's own ids, a random pooled
+    gradient in the table's dtype): against its plain version on the
+    touched rows (a dense plain gradient at FULL vocabularies would not fit
+    beside the kernel's; in float64 for an f32 table, as in
+    ``k1_grad_whole``), planted faults (zeros, the next bag's gradient, a
+    row read by several pairs given one pair's, and where bags hold more
+    than one id a row read twice in a bag counted once), every untouched
+    row exactly zero, two launches bitwise equal -> (record, g, offsets)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.models.embedding import routed_offsets
+
+    H, D = emb.total_rows, emb.dim
+    off = routed_offsets(emb, dev)
+    g = torch.empty((*ids3.shape[:2], D), device=dev).normal_(
+        generator=torch.Generator(dev).manual_seed(seed)).to(emb.dtype)
+    got = ops.embedding_bag_features_grad(g, ids3, off, H)
+    same = bool(torch.equal(got, ops.embedding_bag_features_grad(
+        g, ids3, off, H)))
+    if not same:
+        raise AssertionError(f"K1's backward at {name}: two launches differ")
+    bf16 = emb.dtype == torch.bfloat16
+    tol = BF16_TOL if bf16 else F32_TOL
+    # the plain version's dtype: bf16 rounds as the cell's own gradient
+    # does; f32 is compared in float64
+    as_plain = (lambda t: t) if bf16 else (lambda t: t.double())
+    u, plain = unique_rows_grad(g, ids3, off)
+    want = plain(as_plain(g))
+    label = f"K1 backward at {name} (touched rows)"
+    err = check(label, got[u], want, tol)
+    # each fault keeps every row read, so the rows are u
+    wrong = {"next bag's gradient": plain(as_plain(g.roll(1, dims=0))),
+             "a row given one pair's gradient": unique_rows_grad(
+                 g, first_pair_only(ids3, off), off)[1](as_plain(g))}
+    if ids3.shape[2] > 1:
+        wrong["a repeated id counted once"] = unique_rows_grad(
+            g, once_per_bag(ids3), off)[1](as_plain(g))
+    grad_faults(label, want, wrong, tol)
+    del want, wrong
+    got[u] = 0
+    if bool(got.any()):
+        raise AssertionError(f"K1's backward at {name} wrote an untouched "
+                             "row")
+    del got
+    torch.cuda.empty_cache()
+    valid = int((ref.shift_feature_ids(ids3, off) >= 0).sum())
+    return ({"case": name, "table": [H, D], "dtype": str(emb.dtype),
+             "ids": list(ids3.shape), "valid_pairs": valid,
+             "touched_rows": int(u.numel()), "max_abs_err": err,
+             "tolerance": tol, "bitwise_repeat": same,
+             "untouched_rows_zero": True}, g, off)
+
+
+def k1_grad_rm2(dev, ids3, emb, bw: float, f32_rate: float) -> dict:
+    """K1's backward at the dlrm-rm2 train launch, checked by
+    ``k1_grad_touched``, then timed beside its plain version (dense,
+    float32), the autograd of ``F.embedding_bag(mode="sum")`` and its
+    bound.  The bound's bytes are the function's own: the pooled gradient
+    and the ids read once, the dense gradient written once; the sorted
+    design's traffic (a pooled-gradient row read for every valid pair) is
+    ``algo_bytes`` beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    res, g, off = k1_grad_touched(dev, "rm2_train_launch", ids3, emb, 5)
+    H, D = res["table"]
+    valid = res["valid_pairs"]
+    esize = g.element_size()
+    ids_bytes = ids3.numel() * ids3.element_size()
+    n_bytes = g.numel() * esize + ids_bytes + H * D * esize
+    algo_bytes = valid * D * esize + ids_bytes + H * D * esize
+    t_bytes, t_ops = n_bytes / bw * 1e3, valid * D / f32_rate * 1e3
+    ms = time_ms(lambda: ops.embedding_bag_features_grad(g, ids3, off, H),
+                 reps=GRAD_REPS)
+    torch.cuda.empty_cache()
+    rows = ref.shift_feature_ids(ids3, off).reshape(-1, ids3.shape[2])
+    keep = rows >= 0
+    flat_ids = rows[keep]
+    bag_off = torch.zeros(rows.shape[0], dtype=torch.long, device=dev)
+    bag_off[1:] = keep.sum(dim=1).cumsum(0)[:-1]
+    table = torch.zeros((H, D), dtype=emb.dtype, device=dev,
+                        requires_grad=True)
+    pooled = F.embedding_bag(flat_ids, table, bag_off, mode="sum")
+    g2 = g.reshape(-1, D)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        pooled, table, g2, retain_graph=True), reps=GRAD_REPS)
+    del table, pooled, flat_ids, bag_off, rows, keep
+    torch.cuda.empty_cache()
+    plain_ms = time_ms(lambda: ref.embedding_bag_features_grad_ref(
+        g, ids3, off, H), reps=GRAD_REPS)
+    torch.cuda.empty_cache()
+    bound_ms = max(t_bytes, t_ops)
+    return {**res, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "algo_bytes": algo_bytes,
+            "algo_bytes_ms": algo_bytes / bw * 1e3,
+            "share_of_bound": bound_ms / ms}
+
+
+def k1_grad_whole(dev, name: str, ids3, emb, dtype) -> dict:
+    """K1's backward against its whole dense plain version, run in
+    float64 (a hot row sums thousands of pairs, whose float32 rounding in
+    either order nears the f32 tolerance), on a random pooled gradient
+    (planted faults: zeros, the next bag's gradient), every row compared."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.models.embedding import routed_offsets
+
+    H = emb.total_rows
+    off = routed_offsets(emb, dev)
+    g = torch.empty((*ids3.shape[:2], emb.dim), device=dev).normal_(
+        generator=torch.Generator(dev).manual_seed(6)).to(dtype)
+    got = ops.embedding_bag_features_grad(g, ids3, off, H)
+    want = ref.embedding_bag_features_grad_ref(g.double(), ids3, off, H)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    err = check(f"K1 backward at {name}", got, want, tol)
+    grad_faults(f"K1 backward at {name}", want, {
+        "next bag's gradient": ref.embedding_bag_features_grad_ref(
+            g.roll(1, dims=0).double(), ids3, off, H)}, tol)
+    del want
+    torch.cuda.synchronize()
+    return {"case": name, "table": [H, emb.dim], "dtype": str(dtype),
+            "ids": list(ids3.shape), "max_abs_err": err, "tolerance": tol,
+            "ms": time_ms(lambda: ops.embedding_bag_features_grad(
+                g, ids3, off, H), reps=GRAD_REPS)}
+
+
+def recsys_grad_check(dev, arch_id: str) -> dict:
+    """A recsys train cell at FULL widths with vocabularies cut to 3,000
+    rows (``tests/torch_recsys_util.cut_vocab``), batch GRAD_BATCH: its
+    gradients on the card against a CPU copy of the same parameters on
+    the same batch (planted faults: zeros, another batch's), then one
+    rowwise AdaGrad step on each given the CPU's gradients: the parameters
+    at the model's tolerance (planted fault: the step at ten times the
+    learning rate) and the accumulators at F32_TOL (planted fault: zeros)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.tree import tree_map
+    from repro_torch.data.clicklog import cell_batch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train import optimizer as opt_lib
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_recsys_util import cut_vocab
+
+    cell = build_cell(arch_id, "train_batch", dev, batch=GRAD_BATCH)
+    cell = dataclasses.replace(cell, cfg=cut_vocab(cell.cfg))
+    host = cpu_cell(cell)
+    state = cell.init_state(torch.Generator(dev).manual_seed(3))
+    model = cpu_copy(state["model"])
+    cpu_state = {"model": model, "opt": host.opt.init(model.tree())}
+    batch = {k: torch.from_numpy(v) for k, v in cell_batch(
+        cell.cfg, cell.batch_specs, seed=23).items()}
+    launches = (ops.launches, ops.grad_launches)
+    _, grads = cell.value_and_grad(state, {k: v.to(dev)
+                                           for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = (ops.launches - launches[0], ops.grad_launches - launches[1])
+    tables = K1_TABLES[cell.cfg.interaction]
+    if launches != (tables, tables):
+        raise AssertionError(f"{arch_id}: K1 launches {launches} in one "
+                             f"gradient, expected {(tables, tables)}")
+    _, want = host.value_and_grad(cpu_state, batch)
+    bf16 = cell.cfg.dtype == torch.bfloat16
+    tol = BF16_TOL if bf16 else GRAD_TOL
+    name = f"{arch_id} gradients against the CPU copy"
+    err = check(name, flat(grads), flat(want), tol)
+    other = {k: torch.from_numpy(v) for k, v in cell_batch(
+        cell.cfg, cell.batch_specs, seed=24).items()}
+    grad_faults(name, flat(want), {"another batch": flat(host.value_and_grad(
+        cpu_state, other)[1])}, tol)
+    del grads
+
+    wrong = type(model)(model.cfg, tree_map(lambda t: t.detach().clone(),
+                                            model.tree()))
+    opt_lib.rowwise_adagrad(lr=0.1).update(
+        wrong.tree(), want, opt_lib.rowwise_adagrad().init(wrong.tree()))
+    cell.opt.update(state["model"].tree(), tree_map(lambda t: t.to(dev), want),
+                    state["opt"])
+    host.opt.update(model.tree(), want, cpu_state["opt"])
+    p_tol = BF16_TOL if bf16 else F32_TOL
+    p_want = flat(model.tree())
+    p_err = check(f"{arch_id} AdaGrad step", flat(state["model"].tree()),
+                  p_want, p_tol)
+    must_fail(f"{arch_id} AdaGrad step, ten times the learning rate",
+              flat(wrong.tree()), p_want, p_tol)
+    a_want = flat(cpu_state["opt"])
+    a_err = check(f"{arch_id} AdaGrad accumulators", flat(state["opt"]),
+                  a_want, F32_TOL)
+    must_fail(f"{arch_id} AdaGrad accumulators, zeros",
+              torch.zeros_like(a_want), a_want, F32_TOL)
+    res = {"arch": arch_id, "config": cell.cfg.name + " (vocab cut to 3000)",
+           "batch": GRAD_BATCH, "k1_launches": list(launches),
+           "grads_max_abs_err_vs_cpu": err, "grads_tolerance": tol,
+           "step_params_max_abs_err": p_err, "params_tolerance": p_tol,
+           "accumulators_max_abs_err": a_err}
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train(dev, bw: float, f32_rate: float) -> dict:
+    """Training on the card: (a) the recsys train_batch cells at FULL width
+    (B = 65,536), K1's forward and backward launches counted from 0 over
+    them; (b) GraphSAGE's four train cells at FULL width, each held to the
+    CPU (ogb_products: one aggregate and finite gradients); (c) K1's
+    backward against its plain version at the dlrm-rm2 train launch,
+    dlrm-rmc1 prod and the wide-deep deep (f32, D = 32, past 2^31
+    elements) and wide (D = 1) launches, with its times;
+    (d) each recsys model's gradients and one AdaGrad step against a CPU
+    copy at cut vocabularies."""
+    import torch
+
+    from repro_torch.configs.paper_models import rmc1
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models.widedeep import _wide_cfg
+
+    t0 = time.perf_counter()
+    res = {"phase": "train", "cells": []}
+    kept_ids = {}
+    ops.launches = 0
+    ops.grad_launches = 0
+    for arch_id in TRAIN_RECSYS:
+        before = (ops.launches, ops.grad_launches)
+        line, cell, state, batch_np = train_cell(dev, arch_id, "train_batch")
+        tables = K1_TABLES[cell.cfg.interaction]
+        line["k1_launches"] = ops.launches - before[0]
+        line["k1_grad_launches"] = ops.grad_launches - before[1]
+        # a launch a table a pass: the steps, the loss after them, and the
+        # gradient timed alone
+        if (line["k1_launches"], line["k1_grad_launches"]) != (
+                tables * (TRAIN_STEPS + 2), tables * (TRAIN_STEPS + 1)):
+            raise AssertionError(f"{arch_id}: K1 launches {line['k1_launches']}"
+                                 f" forward, {line['k1_grad_launches']} "
+                                 "backward, not one a table a pass")
+        if tables:
+            kept_ids[arch_id] = (cell.cfg, batch_np["sparse_ids"])
+        emit({"phase": "train", "stage": "cell", **line})
+        res["cells"].append(line)
+        del cell, state, batch_np
+        torch.cuda.empty_cache()
+    res["k1_launches"] = ops.launches
+    res["k1_grad_launches"] = ops.grad_launches
+
+    for shape in TRAIN_GNN:
+        line, cell, state, batch_np = train_cell(dev, "graphsage-reddit",
+                                                 shape)
+        check_fn = ogb_check if shape == "ogb_products" else gnn_check
+        line["check"] = check_fn(dev, cell, state, batch_np)
+        emit({"phase": "train", "stage": "cell", **line})
+        res["cells"].append(line)
+        del cell, state, batch_np
+        torch.cuda.empty_cache()
+
+    cfg, ids = kept_ids["dlrm-rm2"]
+    res["k1_grad"] = {"rm2": k1_grad_rm2(
+        dev, torch.from_numpy(ids).to(dev), cfg.embedding, bw, f32_rate)}
+    emit({"phase": "train", "stage": "k1_grad", **res["k1_grad"]["rm2"]})
+    rmc1_cfg = rmc1(True)
+    res["k1_grad"]["rmc1"] = k1_grad_whole(
+        dev, "rmc1_prod", torch.from_numpy(click_launches(rmc1_cfg, [3])[0])
+        .to(dev), rmc1_cfg.embedding, torch.float32)
+    cfg, ids = kept_ids["wide-deep"]
+    ids = torch.from_numpy(ids).to(dev)
+    deep, g, off = k1_grad_touched(dev, "wide_deep_deep", ids, cfg.embedding,
+                                   7)
+    deep["ms"] = time_ms(lambda: ops.embedding_bag_features_grad(
+        g, ids, off, deep["table"][0]), reps=GRAD_REPS)
+    res["k1_grad"]["deep"] = deep
+    del g
+    torch.cuda.empty_cache()
+    res["k1_grad"]["wide"] = k1_grad_whole(
+        dev, "wide_deep_wide", ids, _wide_cfg(cfg), torch.float32)
+    for case in ("rmc1", "deep", "wide"):
+        emit({"phase": "train", "stage": "k1_grad", **res["k1_grad"][case]})
+    del kept_ids
+    torch.cuda.empty_cache()
+
+    res["grad_checks"] = []
+    for arch_id in TRAIN_RECSYS:
+        res["grad_checks"].append(recsys_grad_check(dev, arch_id))
+        emit({"phase": "train", "stage": "grad_check",
+              **res["grad_checks"][-1]})
+    res["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -2113,7 +2642,8 @@ def phase_cluster(dev, bw: float, probes) -> dict:
 
 
 def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
-                   lm: dict, recsys: dict, cluster: dict) -> list[dict]:
+                   lm: dict, recsys: dict, train: dict,
+                   cluster: dict) -> list[dict]:
     """The summary of every kernel: where it replaces a TPU kernel, its
     launches on the paths driven here, its error and its times."""
     import torch
@@ -2121,6 +2651,7 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     from repro_torch.kernels.flash_attention.flash_attention import variant
 
     m = k1["rmc1"]
+    g = train["k1_grad"]["rm2"]
     i8 = k3["int8"]
     fb = cluster["a_fleet_bench"]
     day = cluster["a_day_shape"]
@@ -2166,6 +2697,38 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                              "path: mt-wnd served (two launches a fused "
                              "launch: the deep and the wide table) and one "
                              "run of each registry cell"},
+        "train": {
+            "launches": train["k1_launches"],
+            "launches_note": "the train phase's recsys cells, counted from "
+                             "0: a launch a K1 table a forward (3 steps, the "
+                             "loss after them, one gradient timed alone)"},
+    }, {
+        "name": "embedding_bag_grad",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                  "embedding_bag_grad.cu",
+        "replaces": "src/repro/models/embedding.py:138 (jax.grad of "
+                    "embedding_bag_local: its take's scatter-add; the TPU "
+                    "kernel hot_embedding_bag_pallas has no backward)",
+        "launches": train["k1_grad_launches"],
+        "launches_note": "the train phase's recsys cells, counted from 0: "
+                         "a launch a K1 table a backward (3 steps and one "
+                         "gradient timed alone: dlrm-rm2 4, wide-deep 8)",
+        **{k: g[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by", "share_of_bound",
+                             "algo_bytes_ms", "tolerance")},
+        "bound_note": "bytes: the pooled gradient and the ids read once, "
+                      "the dense gradient written once; algo_bytes_ms: the "
+                      "sorted design's traffic, a pooled-gradient row read "
+                      "for every valid pair",
+        "library_of": "torch.autograd.grad through F.embedding_bag("
+                      "mode='sum') on the same ids",
+        "shape": f"table {g['table'][0]}x{g['table'][1]} bf16, ids "
+                 f"{g['ids']} ({g['valid_pairs']} valid pairs, "
+                 f"{g['touched_rows']} rows)",
+        "other_shapes": {c: {k: train["k1_grad"][c][k] for k in (
+            "table", "ids", "ms", "max_abs_err")}
+            for c in ("rmc1", "deep", "wide")},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -2312,12 +2875,16 @@ def main() -> int:
     recsys = phase_recsys(dev, bw, f32_rate)
     emit(recsys)
 
-    # 9. the cluster day (K4's count is reset inside, just before each day)
+    # 9. training (K1's counts are reset inside, just before the train cells)
+    train = phase_train(dev, bw, f32_rate)
+    emit(train)
+
+    # 10. the cluster day (K4's count is reset inside, just before each day)
     cluster = phase_cluster(dev, bw, probes)
     emit(cluster)
 
     emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, recsys,
-                                    cluster),
+                                    train, cluster),
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -25,6 +25,7 @@ ARCH_IDS = (
 # arch id -> config module, for the archs whose modules are ported
 _MODULES = {
     "llama3.2-3b": "llama3_2_3b",
+    "graphsage-reddit": "graphsage_reddit",
     "wide-deep": "wide_deep",
     "mind": "mind_arch",
     "din": "din_arch",

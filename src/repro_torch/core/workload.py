@@ -25,6 +25,7 @@ from typing import TYPE_CHECKING, Sequence
 import numpy as np
 
 if TYPE_CHECKING:  # annotation only: core stays importable without torch
+    from repro_torch.models.gnn import GNNConfig
     from repro_torch.models.recsys_base import RecsysConfig
     from repro_torch.models.transformer import LMConfig
 
@@ -195,3 +196,34 @@ def profile_lm_decode(cfg: LMConfig, context: int, sla_ms: float) -> ModelProfil
     )
     return ModelProfile(name=cfg.name, ops=ops, table_gb=0.0,
                         weight_gb=weight_bytes / 1e9, sla_ms=sla_ms)
+
+
+def profile_gnn(cfg: GNNConfig, sla_ms: float, d_feat: int | None = None) -> ModelProfile:
+    """GNN serving profile: one item = one seed node (sampled fanout)."""
+    db = 4.0
+    d_in = d_feat or cfg.d_feat
+    fan = cfg.fanout
+    n_gathered = 1 + fan[0] + (fan[0] * fan[1] if len(fan) > 1 else 0)
+    ops = [OpCost(
+        name="neighbor_gather", stage="sparse", level=0,
+        flops=n_gathered * d_in,
+        gather_bytes=n_gathered * d_in * db,
+        host_bytes=n_gathered * 8.0,
+        stream_bytes=n_gathered * d_in * db,
+    )]
+    d = d_in
+    n_nodes_level = [1 + fan[0], 1]
+    for i in range(cfg.n_layers):
+        mult = n_nodes_level[i] if i < len(n_nodes_level) else 1
+        ops.append(OpCost(
+            name=f"sage_layer_{i}", stage="dense", level=i + 1,
+            flops=mult * 2.0 * 2.0 * d * cfg.d_hidden,
+            stream_bytes=mult * (d + cfg.d_hidden) * db,
+            weight_bytes=2.0 * d * cfg.d_hidden * db,
+        ))
+        d = cfg.d_hidden
+    ops.append(_mlp_cost("classifier", "dense", cfg.n_layers + 1,
+                         (cfg.d_hidden, cfg.n_classes), db))
+    return ModelProfile(name=cfg.name, ops=tuple(ops), table_gb=0.0,
+                        weight_gb=sum(o.weight_bytes for o in ops) / 1e9,
+                        sla_ms=sla_ms)

@@ -137,11 +137,14 @@ class ClickLogGenerator:
 
 def cell_batch(cfg: RecsysConfig, specs: dict, seed: int) -> dict:
     """Click-log inputs (numpy) for a recsys cell's batch specs (name ->
-    anything with a ``shape``); candidates drawn uniformly from the item
+    anything with a ``shape``): labels where the specs have them (a train
+    cell; drawn after the features, so the features are those of a serve
+    cell of the same seed); candidates drawn uniformly from the item
     vocabulary."""
     n = specs["history_ids"].shape[0] if "history_ids" in specs else \
         next(iter(specs.values())).shape[0]
-    batch = ClickLogGenerator(cfg, seed=seed).batch(n, with_labels=False)
+    batch = ClickLogGenerator(cfg, seed=seed).batch(
+        n, with_labels="label" in specs)
     batch = {k: v for k, v in batch.items() if k in specs}
     if "candidate_ids" in specs:
         batch["candidate_ids"] = np.random.default_rng(seed).integers(

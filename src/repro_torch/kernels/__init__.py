@@ -1,7 +1,9 @@
 """Kernels written by hand for Hopper (sm_90a), one per TPU kernel of the
 reference.
 
-- embedding_bag (K1): fused SparseLengthsSum over a hot table, CUDA C++.
+- embedding_bag (K1): fused SparseLengthsSum over a hot table, and its
+  backward (the dense table gradient, under an ``autograd.Function``),
+  CUDA C++.
 - flash_attention (K2): blocked causal GQA flash attention, CUDA C++
   (bf16: a TMA producer warp and two ``wgmma`` consumer warpgroups over a
   ring of K/V tiles; CUDA-core f32 variant).

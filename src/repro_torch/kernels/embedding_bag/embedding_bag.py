@@ -56,3 +56,49 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
             f"embedding_bag kernel launch failed: {err_str(err).decode()} "
             f"(cuda error {err})")
     return out
+
+
+_grad_fn = None
+
+
+def _grad_kernel():
+    global _grad_fn
+    if _grad_fn is None:
+        lib = _build.load("embedding_bag_grad")
+        fn = lib.repro_embedding_bag_grad
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.repro_embedding_bag_grad_chunk.argtypes = []
+        lib.repro_embedding_bag_grad_chunk.restype = ctypes.c_int64
+        lib.repro_embedding_bag_grad_error_string.argtypes = [ctypes.c_int]
+        lib.repro_embedding_bag_grad_error_string.restype = ctypes.c_char_p
+        _grad_fn = (fn, lib.repro_embedding_bag_grad_chunk(),
+                    lib.repro_embedding_bag_grad_error_string)
+    return _grad_fn
+
+
+def embedding_bag_grad_cuda(grad: torch.Tensor, keys: torch.Tensor,
+                            n_rows: int, P: int) -> torch.Tensor:
+    """The dense table gradient [n_rows, D] (grad's dtype) from the pooled
+    gradient ``grad`` [n_bags, D] and ``keys`` [n_bags * P] int32: the row
+    each (bag, slot) pair reads, ``n_rows`` for none.  Sorts the keys
+    (stable, torch), zeroes the output (one ``zero_``), then launches the
+    kernel's two passes; all on one CUDA device, contiguous."""
+    fn, chunk, err_str = _grad_kernel()
+    dev = grad.device
+    D = grad.shape[1]
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    out = torch.zeros((n_rows, D), dtype=grad.dtype, device=dev)
+    n = keys.numel()
+    part = torch.empty((2, -(-n // chunk), D), dtype=torch.float32,
+                       device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(sorted_keys.data_ptr(), perm.data_ptr(), grad.data_ptr(),
+             out.data_ptr(), part.data_ptr(), n, P, n_rows, D,
+             _DTYPE_CODE[grad.dtype], dev.index, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"embedding_bag_grad kernel launch failed: "
+            f"{err_str(err).decode()} (cuda error {err})")
+    return out

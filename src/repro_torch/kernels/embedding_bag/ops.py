@@ -18,6 +18,13 @@ Two entries share the kernel: ``hot_embedding_bag`` (ids [B, P] into the
 table) and ``embedding_bag_features`` (ids [B, F, P] per feature, shifted
 by ``row_offsets[f]`` inside the kernel in 64 bits).
 
+Both entries carry autograd when the table requires grad (outside
+``torch.inference_mode``): the backward is K1's gradient kernel
+(``csrc/embedding_bag_grad.cu``; ``embedding_bag_features_grad`` and
+``hot_embedding_bag_grad``), which returns the dense table gradient in the
+table's dtype, as ``jax.grad`` of the reference's ``embedding_bag_local``
+does.  Without grad the forward is called as it is.
+
 Which version runs is decided by where the caller put the tensors, never
 by what is installed: a CUDA tensor launches the kernel or raises.
 """
@@ -25,14 +32,24 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag_cuda
+from torch.autograd.function import once_differentiable
+
+from repro_torch.kernels.embedding_bag.embedding_bag import (
+    embedding_bag_cuda,
+    embedding_bag_grad_cuda,
+)
 from repro_torch.kernels.embedding_bag.ref import (
+    embedding_bag_features_grad_ref,
     embedding_bag_features_ref,
+    hot_embedding_bag_grad_ref,
     hot_embedding_bag_ref,
+    shift_feature_ids,
 )
 
-# Kernel launches since the last reset (set it to 0 to start a count).
+# Kernel launches since the last reset (set it to 0 to start a count): the
+# forward kernel's, and the gradient kernel's (one a backward call).
 launches = 0
+grad_launches = 0
 
 _MAX_ROWS = 2**31  # ids are int32
 
@@ -62,6 +79,33 @@ def _launch(table, ids, row_offsets=None) -> torch.Tensor:
     return out
 
 
+def _wants_grad(table: torch.Tensor) -> bool:
+    return table.requires_grad and torch.is_grad_enabled()
+
+
+def _hot_forward(table, ids) -> torch.Tensor:
+    if table.device.type == "cpu":
+        return hot_embedding_bag_ref(table, ids)
+    if table.shape[0] >= _MAX_ROWS:
+        raise ValueError(f"table has {table.shape[0]} rows; int32 ids "
+                         f"address fewer than 2**31")
+    return _launch(table, ids)
+
+
+class _HotBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return _hot_forward(table, ids)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        return hot_embedding_bag_grad(grad, ids, ctx.n_rows), None
+
+
 def hot_embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Fused hot-table SLS: table [H, D], ids [B, P] int32 (-1 padded) ->
     pooled [B, D] in the table's dtype, accumulated in float32.
@@ -71,12 +115,9 @@ def hot_embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected table [H, D] and ids [B, P], got "
                          f"{tuple(table.shape)} and {tuple(ids.shape)}")
     _check_table(table, ids)
-    if table.device.type == "cpu":
-        return hot_embedding_bag_ref(table, ids)
-    if table.shape[0] >= _MAX_ROWS:
-        raise ValueError(f"table has {table.shape[0]} rows; int32 ids "
-                         f"address fewer than 2**31")
-    return _launch(table, ids)
+    if _wants_grad(table):
+        return _HotBag.apply(table, ids)
+    return _hot_forward(table, ids)
 
 
 def embedding_bag_features(table: torch.Tensor, ids: torch.Tensor,
@@ -99,8 +140,99 @@ def embedding_bag_features(table: torch.Tensor, ids: torch.Tensor,
     if row_offsets.device != ids.device:
         raise ValueError(f"row_offsets on {row_offsets.device} but ids on "
                          f"{ids.device}")
+    if table.device.type == "cuda" and not row_offsets.is_contiguous():
+        raise ValueError("kernel takes contiguous row_offsets")
+    if _wants_grad(table):
+        return _FeaturesBag.apply(table, ids, row_offsets)
+    return _features_forward(table, ids, row_offsets)
+
+
+def _features_forward(table, ids, row_offsets) -> torch.Tensor:
     if table.device.type == "cpu":
         return embedding_bag_features_ref(table, ids, row_offsets)
-    if not row_offsets.is_contiguous():
-        raise ValueError("kernel takes contiguous row_offsets")
     return _launch(table, ids, row_offsets)
+
+
+class _FeaturesBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, row_offsets):
+        ctx.save_for_backward(ids, row_offsets)
+        ctx.n_rows = table.shape[0]
+        return _features_forward(table, ids, row_offsets)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        ids, row_offsets = ctx.saved_tensors
+        return (embedding_bag_features_grad(grad, ids, row_offsets,
+                                            ctx.n_rows), None, None)
+
+
+# ---------------------------------------------------------------------------
+# the table gradient
+# ---------------------------------------------------------------------------
+
+
+def _check_grad(grad: torch.Tensor, ids: torch.Tensor, n_rows: int) -> None:
+    if grad.device != ids.device:
+        raise ValueError(f"grad on {grad.device} but ids on {ids.device}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    if grad.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {grad.device}")
+    if grad.device.type == "cuda":
+        if grad.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"kernel takes float32 or bfloat16 gradients, "
+                            f"got {grad.dtype}")
+        if not 0 < n_rows < _MAX_ROWS:
+            raise ValueError(f"the gradient kernel's int32 keys address "
+                             f"1 to 2**31 - 1 rows, got {n_rows}")
+
+
+def _launch_grad(grad: torch.Tensor, rows: torch.Tensor, n_rows: int,
+                 P: int) -> torch.Tensor:
+    """rows: [n_bags, P] int64 combined-table rows (-1: none)."""
+    global grad_launches
+    if rows.numel() == 0 or grad.shape[-1] == 0:
+        return torch.zeros((n_rows, grad.shape[-1]), dtype=grad.dtype,
+                           device=grad.device)
+    keys = torch.where((rows >= 0) & (rows < n_rows), rows, n_rows).to(
+        torch.int32).reshape(-1)
+    out = embedding_bag_grad_cuda(grad.contiguous(), keys, n_rows, P)
+    grad_launches += 1
+    return out
+
+
+def hot_embedding_bag_grad(grad: torch.Tensor, ids: torch.Tensor,
+                           n_rows: int) -> torch.Tensor:
+    """The table gradient of ``hot_embedding_bag``: grad [B, D] (of the
+    pooled output), ids [B, P] int32 -> [n_rows, D] in grad's dtype, every
+    row written (untouched rows zero).  The kernel sums in float32,
+    compensated, in a fixed order: two calls on the card are bitwise
+    equal."""
+    if grad.dim() != 2 or ids.dim() != 2 or grad.shape[0] != ids.shape[0]:
+        raise ValueError(f"expected grad [B, D] and ids [B, P], got "
+                         f"{tuple(grad.shape)} and {tuple(ids.shape)}")
+    _check_grad(grad, ids, n_rows)
+    if grad.device.type == "cpu":
+        return hot_embedding_bag_grad_ref(grad, ids, n_rows)
+    return _launch_grad(grad, ids.long(), n_rows, ids.shape[1])
+
+
+def embedding_bag_features_grad(grad: torch.Tensor, ids: torch.Tensor,
+                                row_offsets: torch.Tensor, n_rows: int
+                                ) -> torch.Tensor:
+    """The table gradient of ``embedding_bag_features``: grad [B, F, D],
+    ids [B, F, P] int32, row_offsets [F] int64 -> [n_rows, D] in grad's
+    dtype.  Feature f's pairs add into rows ``ids + row_offsets[f]``; an
+    unrouted feature (negative offset) and padding add nothing.  One launch
+    of the gradient kernel."""
+    if grad.dim() != 3 or ids.dim() != 3 or grad.shape[:2] != ids.shape[:2]:
+        raise ValueError(f"expected grad [B, F, D] and ids [B, F, P], got "
+                         f"{tuple(grad.shape)} and {tuple(ids.shape)}")
+    _check_grad(grad, ids, n_rows)
+    if grad.device.type == "cpu":
+        return embedding_bag_features_grad_ref(grad, ids, row_offsets, n_rows)
+    B, F, P = ids.shape
+    return _launch_grad(grad.reshape(B * F, grad.shape[2]),
+                        shift_feature_ids(ids, row_offsets), n_rows, P)

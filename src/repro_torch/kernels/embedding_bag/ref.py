@@ -1,23 +1,30 @@
-"""Plain PyTorch version of the fused hot-embedding SparseLengthsSum.
+"""Plain PyTorch version of the fused hot-embedding SparseLengthsSum and of
+its table gradient.
 
 Counterpart of ``repro.kernels.embedding_bag.ref``; also the CPU path of
-``ops.hot_embedding_bag`` and ``ops.embedding_bag_features`` and the oracle
-the CUDA kernel is held against.
+``ops.hot_embedding_bag`` and ``ops.embedding_bag_features`` (and of their
+gradients) and the oracle the CUDA kernels are held against.  Sums are
+taken in float32, or float64 for a float64 table (``gradcheck``).
 """
 from __future__ import annotations
 
 import torch
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
 def hot_embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
                           weights: torch.Tensor | None = None) -> torch.Tensor:
     """table [H, D]; ids [B, P] int (-1 padded); optional per-sample weights
     [B, P] -> pooled [B, D] in the table's dtype (summed in float32)."""
+    acc = _acc_dtype(table.dtype)
     mask = ids >= 0
-    rows = table[ids.clamp_min(0).long()].float()       # [B, P, D]
-    w = mask.float()
+    rows = table[ids.clamp_min(0).long()].to(acc)       # [B, P, D]
+    w = mask.to(acc)
     if weights is not None:
-        w = w * weights.float()
+        w = w * weights.to(acc)
     return (rows * w[..., None]).sum(dim=1).to(table.dtype)
 
 
@@ -37,3 +44,33 @@ def embedding_bag_features_ref(table: torch.Tensor, ids: torch.Tensor,
     B, F, P = ids.shape
     shifted = shift_feature_ids(ids, row_offsets).reshape(B * F, P)
     return hot_embedding_bag_ref(table, shifted).reshape(B, F, table.shape[1])
+
+
+def hot_embedding_bag_grad_ref(grad: torch.Tensor, ids: torch.Tensor,
+                               n_rows: int) -> torch.Tensor:
+    """The table gradient of ``hot_embedding_bag_ref`` (no weights): grad
+    [B, D] (of the pooled output), ids [B, P] int (-1 padded) -> [n_rows, D]
+    in grad's dtype.  An ``index_add_`` in float32 of each valid (bag,
+    slot)'s gradient row into the row it read: an id twice in a bag counts
+    twice, padding gives nothing."""
+    B, P = ids.shape
+    valid = ids >= 0
+    rows = ids[valid].long()
+    bags = torch.arange(B, device=ids.device)[:, None].expand(B, P)[valid]
+    acc = _acc_dtype(grad.dtype)
+    out = torch.zeros((n_rows, grad.shape[1]), dtype=acc, device=grad.device)
+    out.index_add_(0, rows, grad.to(acc)[bags])
+    return out.to(grad.dtype)
+
+
+def embedding_bag_features_grad_ref(grad: torch.Tensor, ids: torch.Tensor,
+                                    row_offsets: torch.Tensor, n_rows: int
+                                    ) -> torch.Tensor:
+    """The table gradient of ``embedding_bag_features_ref``: grad [B, F, D],
+    ids [B, F, P], row_offsets [F] int64 -> [n_rows, D] in grad's dtype
+    (the shift, then ``hot_embedding_bag_grad_ref``; an unrouted feature
+    gives nothing)."""
+    B, F, P = ids.shape
+    shifted = shift_feature_ids(ids, row_offsets).reshape(B * F, P)
+    return hot_embedding_bag_grad_ref(grad.reshape(B * F, grad.shape[-1]),
+                                      shifted, n_rows)

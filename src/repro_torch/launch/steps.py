@@ -1,25 +1,38 @@
-"""Per-(architecture x shape) programs: the LM prefill and decode cells and
-the recsys serve cells.
+"""Per-(architecture x shape) programs: the LM prefill and decode cells,
+the recsys serve and train cells, and the GNN train cells.
 
 Counterpart of ``repro.launch.steps`` (``build_cell`` / ``CellProgram``) on
-one device; training and the GNN cells wait.  The reference's mesh becomes
-an explicit device:
+one device.  The reference's mesh becomes an explicit device:
 
 - ``device="cpu"`` mirrors the reference's ``mesh=None`` smoke cell: the
   arch's ``SMOKE`` config, for an LM at batch 4 and sequence 32, for a
-  recsys arch at batch 16 and 128 candidates;
-- ``device="cuda"`` (the default) runs the ``FULL`` config at the shape's
-  sizes and, for LM decode, with ``decode_impl="flash"`` (kernel K3), as
-  the reference's device-placed cells do.  The batch is the shape's global
-  batch unless the caller states a cut with ``batch=``; nothing shrinks it
-  silently.
+  recsys arch at batch 16 and 128 candidates; every GNN shape takes the
+  GNN's ``SMOKE`` config (mode ``mini``, 8 seeds) as the reference does,
+  sampled from a synthetic graph of ``SMOKE_GRAPH`` (nodes, edges a node);
+- ``device="cuda"`` (the default) runs the ``FULL`` config (a GNN shape's
+  ``SHAPE_CONFIGS`` entry) at the shape's sizes and, for LM decode, with
+  ``decode_impl="flash"`` (kernel K3), as the reference's device-placed
+  cells do.  The batch is the shape's unless the caller states a cut with
+  ``batch=``; nothing shrinks it silently.  A full-graph GNN cell draws a
+  synthetic graph of the shape's nodes at ``round(E / N)`` edges a node
+  (``dims``; ogb_products: 25, so 61,225,725 edges of the shape's
+  61,859,140).
 
 LM decode is one token at ``pos = S - 1`` against an S-long cache passed
 in the batch; prefill fills a fresh cache from position 0.  A recsys serve
 cell scores its batch (``serve_p99``, ``serve_bulk``); ``retrieval_cand``
 scores one user's history against every candidate for DIN and MIND, and
 scores the candidates as one bulk batch for the CTR rankers (Wide & Deep,
-DLRM).  The recsys ``train_batch`` cell waits for K1's backward.
+DLRM).
+
+A train cell (recsys ``train_batch``: ``rowwise_adagrad(lr=0.01)`` on
+``binary_ce``; every GNN shape: ``adamw(lr=1e-3)`` on ``softmax_ce``) has
+the state ``{"model", "opt"}``: the model module and its optimizer state
+over the model's ``tree()``.  ``run`` takes one step with grad enabled (the
+recsys tables' gradient through K1's backward on a card), updates the
+state in place and returns ``(state, {"loss"})``, the loss before the
+update, as the reference's step does.  ``value_and_grad`` gives the loss
+and the gradient tree without the update.  The LM train cell waits.
 """
 from __future__ import annotations
 
@@ -28,14 +41,22 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.common.types import ArchKind, ShapeSpec, TensorSpec, resolve_device
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import RECSYS_MODELS
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import transformer as tf_lib
+from repro_torch.models.recsys_base import binary_ce
 from repro_torch.models.recsys_base import input_specs as recsys_input_specs
+from repro_torch.train import optimizer as opt_lib
 
 SMOKE_BATCH, SMOKE_SEQ = 4, 32  # the reference's mesh=None cut
 SMOKE_RECSYS_BATCH, SMOKE_CANDIDATES = 16, 128  # its recsys cut
+# the reference's mesh=None GNN cut: 8 seeds (mini), or 64 nodes and 256
+# edges (full), or 8 graphs of 6 nodes and 10 edges (batched)
+SMOKE_GNN_BATCH, SMOKE_GNN_FULL, SMOKE_GNN_GRAPHS = 8, (64, 4), (8, 6, 10)
+SMOKE_GRAPH = (256, 8)  # the graph a CPU minibatch cell samples from
 
 
 @dataclasses.dataclass
@@ -43,20 +64,47 @@ class CellProgram:
     arch_id: str
     shape: ShapeSpec
     kind: ArchKind
-    cfg: Any               # LMConfig or RecsysConfig
+    cfg: Any               # LMConfig, RecsysConfig or GNNConfig
     device: torch.device
     batch: int
     seq_len: int
-    step_fn: Callable      # step(state, batch) -> outputs
+    step_fn: Callable | None  # step(state, batch) -> outputs (None: train)
     batch_specs: dict      # TensorSpec tree of the step's batch
-    init_fn: Callable      # init(cfg, *, generator, device) -> state
+    init_fn: Callable      # init(cfg, *, generator, device) -> model
+    opt: opt_lib.Optimizer | None = None  # train cells
+    loss_fn: Callable | None = None       # train: loss(model, batch)
+    dims: dict | None = None  # GNN cells: sizes for data.graph.cell_batch
 
     def init_state(self, generator: torch.Generator):
         """Random parameters on the cell's device (``generator`` lives
-        there): the LM's parameter tree, or the recsys model."""
-        return self.init_fn(self.cfg, generator=generator, device=self.device)
+        there): the LM's parameter tree, the recsys or GNN model, or for a
+        train cell ``{"model", "opt"}``."""
+        model = self.init_fn(self.cfg, generator=generator, device=self.device)
+        if self.opt is None:
+            return model
+        return {"model": model, "opt": self.opt.init(model.tree())}
+
+    def value_and_grad(self, state, batch):
+        """A train cell's loss on ``batch`` and the gradient of every
+        parameter, as the model's ``tree()`` (no update)."""
+        model = state["model"]
+        params = model.tree()
+        with torch.enable_grad():
+            loss = self.loss_fn(model, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(params),
+                                        materialize_grads=True)
+        return loss.detach(), tree_unflatten(params, grads)
+
+    def train_step(self, state, batch):
+        """Loss and gradients, then the optimizer's in-place update of the
+        model's tree -> ``(state, {"loss"})``."""
+        loss, grads = self.value_and_grad(state, batch)
+        self.opt.update(state["model"].tree(), grads, state["opt"])
+        return state, {"loss": loss}
 
     def run(self, state, batch):
+        if self.opt is not None:
+            return self.train_step(state, batch)
         with torch.inference_mode():
             return self.step_fn(state, batch)
 
@@ -103,11 +151,18 @@ def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
                  batch: int | None) -> CellProgram:
     on_card = device.type == "cuda"
     cfg = arch.FULL if on_card else arch.SMOKE
-    if shape.step == "train":
-        raise NotImplementedError(
-            "recsys train cells wait for K1's backward (the kernel's output "
-            "carries no autograd graph)")
     B = shape["batch"] if on_card else SMOKE_RECSYS_BATCH
+    if shape.step == "train":
+        if batch is not None:
+            B = batch
+        specs = recsys_input_specs(cfg, B, with_labels=True)
+        return CellProgram(
+            arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND, cfg=cfg,
+            device=device, batch=B, seq_len=cfg.seq_len, step_fn=None,
+            batch_specs={k: TensorSpec(*v) for k, v in specs.items()},
+            init_fn=RECSYS_MODELS[cfg.interaction].init,
+            opt=opt_lib.rowwise_adagrad(lr=0.01),
+            loss_fn=lambda model, b: binary_ce(model(b), b["label"]))
     n_cand = shape.get("n_candidates", 0)
     if n_cand and not on_card:
         n_cand = SMOKE_CANDIDATES
@@ -139,6 +194,42 @@ def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
         init_fn=RECSYS_MODELS[cfg.interaction].init)
 
 
+def _gnn_cell(arch, shape: ShapeSpec, device: torch.device,
+              batch: int | None) -> CellProgram:
+    on_card = device.type == "cuda"
+    cfg = arch.SHAPE_CONFIGS[shape.name] if on_card else arch.SMOKE
+    # the shape's nodes at its edges a node, rounded
+    graph = (shape["n_nodes"], round(shape["n_edges"] / shape["n_nodes"]))
+    if cfg.mode == "full":
+        N, deg = graph if on_card else SMOKE_GNN_FULL
+        if batch is not None:
+            raise ValueError("a full-graph cell trains on the whole graph; "
+                             "it takes no batch")
+        dims = {"graph_nodes": N, "graph_degree": deg, "n_nodes": N,
+                "n_edges": N * deg}
+        B = N
+    elif cfg.mode == "mini":
+        B = shape.get("batch_nodes", 1024) if on_card else SMOKE_GNN_BATCH
+        if batch is not None:
+            B = batch
+        n, deg = graph if on_card else SMOKE_GRAPH
+        dims = {"batch_nodes": B, "fanout": tuple(shape.get("fanout",
+                                                            cfg.fanout)),
+                "graph_nodes": n, "graph_degree": deg}
+    else:  # batched small graphs (molecule)
+        B, n, e = ((shape.get("batch", 128), shape["n_nodes"],
+                    shape["n_edges"]) if on_card else SMOKE_GNN_GRAPHS)
+        if batch is not None:
+            B = batch
+        dims = {"batch": B, "n_nodes": n, "n_edges": e}
+    return CellProgram(
+        arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND, cfg=cfg,
+        device=device, batch=B, seq_len=0, step_fn=None,
+        batch_specs=gnn_lib.input_specs(cfg, dims), init_fn=gnn_lib.init,
+        opt=opt_lib.adamw(lr=1e-3),
+        loss_fn=gnn_lib.GraphSAGE.loss, dims=dims)
+
+
 def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda",
                *, batch: int | None = None) -> CellProgram:
     """The cell ``shape_name`` of ``arch_id`` on ``device``; ``batch``
@@ -148,6 +239,6 @@ def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda
     shape = next(s for s in arch.SHAPES if s.name == shape_name)
     if arch.KIND == ArchKind.RECSYS:
         return _recsys_cell(arch, shape, dev, batch)
-    if arch.KIND not in (ArchKind.LM_DENSE, ArchKind.LM_MOE):
-        raise NotImplementedError(f"{arch.KIND.value} cells are not ported yet")
+    if arch.KIND == ArchKind.GNN:
+        return _gnn_cell(arch, shape, dev, batch)
     return _lm_cell(arch, shape, dev, batch)

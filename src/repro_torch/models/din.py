@@ -186,13 +186,13 @@ def retrieval_scores(params, batch, candidate_ids: torch.Tensor,
 
 
 class GRU(nn.Module):
-    """The ``{"r", "z", "h"} x {"wx", "wh", "b"}`` gates as frozen
-    parameters; ``tree()`` gives the reference's pytree back."""
+    """The ``{"r", "z", "h"} x {"wx", "wh", "b"}`` gates as parameters;
+    ``tree()`` gives the reference's pytree back."""
 
     def __init__(self, params):
         super().__init__()
         self.gates = nn.ParameterDict({
-            f"{g}_{k}": nn.Parameter(params[g][k], requires_grad=False)
+            f"{g}_{k}": nn.Parameter(params[g][k])
             for g in "rzh" for k in ("wx", "wh", "b")})
 
     def tree(self):
@@ -206,9 +206,7 @@ class DIN(nn.Module):
     def __init__(self, cfg: RecsysConfig, params):
         super().__init__()
         self.cfg = cfg
-        # frozen: the port serves
-        self.table = nn.Parameter(params["embedding"]["table"],
-                                  requires_grad=False)
+        self.table = nn.Parameter(params["embedding"]["table"])
         self.attn_mlp = MLP(params["attn_mlp"])
         self.top_mlp = MLP(params["top_mlp"])
         if cfg.use_gru:

@@ -45,11 +45,17 @@ class DLRM(nn.Module):
     def __init__(self, cfg: RecsysConfig, params):
         super().__init__()
         self.cfg = cfg
-        # frozen: the port serves, and K1 has no backward yet
-        self.table = nn.Parameter(params["embedding"]["table"],
-                                  requires_grad=False)
+        self.table = nn.Parameter(params["embedding"]["table"])
         self.bottom_mlp = MLP(params["bottom_mlp"]) if cfg.n_dense else None
         self.top_mlp = MLP(params["top_mlp"])
+
+    def tree(self):
+        """The parameters as the reference's pytree (the same tensors)."""
+        tree = {"embedding": {"table": self.table}}
+        if self.cfg.n_dense:
+            tree["bottom_mlp"] = self.bottom_mlp.layers()
+        tree["top_mlp"] = self.top_mlp.layers()
+        return tree
 
     def apply_sparse(self, batch) -> torch.Tensor:
         """G_s: the SparseNet — multi-hot EmbeddingBag -> pooled [B, F, D]."""

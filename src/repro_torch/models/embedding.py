@@ -6,7 +6,8 @@ feature table is concatenated row-wise into ONE combined
 ``row_offsets[f]``, so the whole SparseNet is a single gather.
 
 Pooling goes through the hot embedding-bag kernel K1
-(``repro_torch.kernels.embedding_bag``): its per-feature entry takes the
+(``repro_torch.kernels.embedding_bag``, which carries autograd: its
+backward is K1's gradient kernel): its per-feature entry takes the
 ``[B, F, P]`` ids as they are (``-1`` padded) with an int64 offset per
 feature, built once per (config, device), and pools all ``B*F`` bags in one
 launch.  Quotient-remainder features (a Hadamard product of two gathered
@@ -27,6 +28,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.embedding_bag import embedding_bag_features, hot_embedding_bag
 
@@ -121,13 +123,15 @@ def routed_offsets(cfg: EmbeddingConfig, device: torch.device) -> torch.Tensor:
     """K1's per-feature row offsets, int64 [F] on ``device``: feature f's
     start row in the combined table, or -1 for a QR feature (K1 pools it to
     zero; it is pooled afterwards).  Built once per (config, device), so a
-    launch copies nothing from the host."""
+    launch copies nothing from the host; built outside inference mode, so
+    a model trained after it served can save it for its backward."""
     key = (cfg, device)
     off = _ROUTED_OFFSETS.get(key)
     if off is None:
         host = cfg.row_offsets[:-1].copy()
         host[list(cfg.qr_features)] = -1
-        off = torch.as_tensor(host, dtype=torch.int64, device=device)
+        with torch.inference_mode(False):
+            off = torch.as_tensor(host, dtype=torch.int64, device=device)
         _ROUTED_OFFSETS[key] = off
     return off
 
@@ -139,13 +143,18 @@ def embedding_bag_local(params, ids: torch.Tensor, cfg: EmbeddingConfig
     Returns pooled embeddings [B, F, dim] in the table's dtype.  Non-QR
     features pool through K1 in one launch that reads the per-feature ids
     and adds each feature's row offset itself; QR features are left out of
-    that launch (offset -1) and pooled with plain torch ops."""
+    that launch (offset -1) and pooled with plain torch ops.  A table that
+    requires grad gets its gradient through K1's backward (and through the
+    QR features' gathers); under ``torch.inference_mode`` nothing records
+    a graph."""
     table = params["table"]
     F = ids.shape[1]
     if F != cfg.num_features:
         raise ValueError(f"expected {cfg.num_features} features, got {F}")
     pooled = embedding_bag_features(table, ids.contiguous(),
                                     routed_offsets(cfg, ids.device))
+    if cfg.qr_features and pooled.requires_grad:
+        pooled = pooled.clone()  # autograd forbids writing K1's output
     if cfg.qr_features or cfg.combine == "mean":
         valid = ids >= 0
     for f in cfg.qr_features:
@@ -167,10 +176,16 @@ def feature_rows(table: torch.Tensor, ids: torch.Tensor, f: int,
     at feature ``f``'s rows, as DIN's and MIND's item and profile lookups
     use it, but by the rule of the reference's ``_gather_with_qr``: the
     reference's DIN and MIND add ``row_offsets[0]`` to the raw item id even
-    for a QR item table, which reads past that feature's storage."""
+    for a QR item table, which reads past that feature's storage.
+
+    The rows are gathered by ``F.embedding`` (the reference's
+    ``jnp.take``): its backward sums a row's repeats in segments, where
+    indexing's (``index_put_``) walks a power-law id's thousands of repeats
+    one at a time on a card."""
     if f in cfg.qr_features:
         return _gather_qr_feature(table, ids, f, cfg)
-    return table[int(cfg.row_offsets[f]) + ids.clamp_min(0).long()]
+    return F.embedding(int(cfg.row_offsets[f]) + ids.clamp_min(0).long(),
+                       table)
 
 
 def _gather_qr_feature(table: torch.Tensor, fid: torch.Tensor, f: int,
@@ -184,8 +199,8 @@ def _gather_qr_feature(table: torch.Tensor, fid: torch.Tensor, f: int,
     safe = fid.clamp_min(0).long()
     base = int(cfg.row_offsets[f])
     q_rows = -(-cfg.vocab_sizes[f] // cfg.qr_buckets)
-    quot = table[base + safe // cfg.qr_buckets]
-    rem = table[base + q_rows + safe % cfg.qr_buckets]
+    quot = F.embedding(base + safe // cfg.qr_buckets, table)
+    rem = F.embedding(base + q_rows + safe % cfg.qr_buckets, table)
     return quot * rem
 
 

@@ -46,17 +46,12 @@ def apply_mlp(params, x: torch.Tensor, *, final_activation: str | None = None
 
 
 class MLP(nn.Module):
-    """The layers of ``init_mlp`` as a module (``w[i]`` is [in, out]).
-
-    Parameters are frozen: the port serves, and its kernels have no
-    backward yet."""
+    """The layers of ``init_mlp`` as a module (``w[i]`` is [in, out])."""
 
     def __init__(self, params):
         super().__init__()
-        self.w = nn.ParameterList(
-            [nn.Parameter(p["w"], requires_grad=False) for p in params])
-        self.b = nn.ParameterList(
-            [nn.Parameter(p["b"], requires_grad=False) for p in params])
+        self.w = nn.ParameterList([nn.Parameter(p["w"]) for p in params])
+        self.b = nn.ParameterList([nn.Parameter(p["b"]) for p in params])
 
     def layers(self) -> list[dict[str, torch.Tensor]]:
         return [{"w": w, "b": b} for w, b in zip(self.w, self.b)]

@@ -72,10 +72,9 @@ class MIND(nn.Module):
     def __init__(self, cfg: RecsysConfig, params):
         super().__init__()
         self.cfg = cfg
-        # frozen: the port serves
-        self.table = nn.Parameter(params["embedding"]["table"],
-                                  requires_grad=False)
-        self.S = nn.Parameter(params["S"], requires_grad=False)
+        self.table = nn.Parameter(params["embedding"]["table"])
+        # the shared routing map S trains (the routing logits b do not)
+        self.S = nn.Parameter(params["S"])
         self.head = MLP(params["head"])
 
     def tree(self):

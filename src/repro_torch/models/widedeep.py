@@ -39,15 +39,23 @@ class WideDeep(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.wide_cfg = _wide_cfg(cfg)
-        # frozen: the port serves, and K1 has no backward yet
-        self.table = nn.Parameter(params["embedding"]["table"],
-                                  requires_grad=False)
-        self.wide = nn.Parameter(params["wide"]["table"], requires_grad=False)
-        self.wide_dense = (nn.Parameter(params["wide_dense"],
-                                        requires_grad=False)
+        self.table = nn.Parameter(params["embedding"]["table"])
+        self.wide = nn.Parameter(params["wide"]["table"])
+        self.wide_dense = (nn.Parameter(params["wide_dense"])
                            if cfg.n_dense else None)
         self.deep_mlp = MLP(params["deep_mlp"])
         self.towers = nn.ModuleList(MLP(t) for t in params["towers"])
+
+    def tree(self):
+        """The parameters as the reference's pytree (the same tensors):
+        ``wide`` is the reference's ``wide/table``."""
+        tree = {"embedding": {"table": self.table},
+                "wide": {"table": self.wide}}
+        if self.cfg.n_dense:
+            tree["wide_dense"] = self.wide_dense
+        tree["deep_mlp"] = self.deep_mlp.layers()
+        tree["towers"] = [t.layers() for t in self.towers]
+        return tree
 
     def apply_sparse(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """G_s: deep embeddings [B, F, D] and wide scalar sums [B, F, 1]."""

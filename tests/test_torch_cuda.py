@@ -10,6 +10,14 @@ slice's rows: D = 1 (MT-WnD's wide table) and 18 (DIN) at P = 1 and 3
 through both entries; MT-WnD's SparseNet (two launches) and DIN / DIEN
 logits on the card against the CPU.
 
+K1's backward (the dense table gradient) against its plain version at
+D = 1, 18, 32, 64 and P = 1, 3, 64 in f32 and bf16, with padding, empty
+bags, ids read twice in a bag and a feature left unrouted (untouched rows
+exactly zero, two launches bitwise equal), a run of one row across many
+of the kernel's chunks, the 2-D entry and autograd through both entries;
+one recsys (wide-deep) and one GNN (full_graph_sm) train step against a
+CPU copy.
+
 The redesigned attention kernels: K3's int8 entry (within the bf16/f32 tolerance of its plain
 version, and bitwise equal to the entry in q's dtype on the cache
 dequantised eagerly), K3's bf16 entry at the head sizes its CUDA-core
@@ -44,8 +52,11 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.embedding_bag import (
     embedding_bag_features,
+    embedding_bag_features_grad,
+    embedding_bag_features_grad_ref,
     embedding_bag_features_ref,
     hot_embedding_bag,
+    hot_embedding_bag_grad,
     hot_embedding_bag_ref,
     ops as k1_ops,
 )
@@ -400,6 +411,174 @@ def test_din_dien_logits_on_card(cuda_device, use_gru):
     assert torch.isfinite(got).all()
     scale = float(want.abs().max())
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * scale)
+
+
+# ---------------------------------------------------------------------------
+# K1's backward: the dense table gradient
+# ---------------------------------------------------------------------------
+
+
+def _k1_grad_case(rng, B, D, P, dtype, device, sizes=(3000, 700, 1200),
+                  hot=0.0):
+    """ids [B, 3, P] with padding, all-padding bags, duplicate ids in a
+    bag and feature 1 unrouted; a share ``hot`` of the ids on row 7 of
+    feature 0 (one run across many of the kernel's chunks)."""
+    ids = np.stack([_k1_ids(rng, (B, P), v, pad=0.2) for v in sizes], axis=1)
+    ids[EMPTY_BAGS[0] % B] = -1
+    if P > 1:
+        ids[:, 2, 1] = np.where(ids[:, 2, 0] >= 0, ids[:, 2, 0], ids[:, 2, 1])
+    if hot:
+        ids[:, 0][rng.random((B, P)) < hot] = 7
+    off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    off[1] = -1
+    grad = rng.standard_normal((B, len(sizes), D)).astype(np.float32)
+    return (torch.from_numpy(grad).to(device, TDT[dtype]),
+            torch.from_numpy(ids).to(device), torch.from_numpy(off).to(device),
+            sum(sizes))
+
+
+def _k1_grad_check(grad, ids, off, H, dtype):
+    """The kernel against its plain version (CPU, in float64: a hot row
+    sums ~10^4 pairs, whose float32 rounding in either order reaches the
+    f32 tolerance), twice bitwise, one launch each, every untouched row
+    exactly zero."""
+    before = k1_ops.grad_launches
+    got = embedding_bag_features_grad(grad, ids, off, H)
+    again = embedding_bag_features_grad(grad, ids, off, H)
+    torch.cuda.synchronize()
+    assert k1_ops.grad_launches == before + 2
+    assert got.dtype == grad.dtype and got.shape == (H, grad.shape[2])
+    assert torch.equal(got, again)
+    want = embedding_bag_features_grad_ref(grad.cpu().double(), ids.cpu(),
+                                           off.cpu(), H)
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               rtol=K1_TOL[dtype],
+                               atol=K1_TOL[dtype] * max(scale, 1.0))
+    touched = torch.zeros(H, dtype=torch.bool)
+    rows = shift_feature_ids(ids.cpu(), off.cpu())
+    touched[rows[rows >= 0]] = True
+    assert not got.cpu()[~touched].any()
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("P", [1, 3, 64])
+@pytest.mark.parametrize("D", [1, 18, 32, 64])
+def test_k1_grad_matches_plain(cuda_device, D, P, dtype):
+    rng = np.random.default_rng(D * 100 + P)
+    _k1_grad_check(*_k1_grad_case(rng, 300, D, P, dtype, cuda_device), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [1, 64, 300])
+def test_k1_grad_long_run_across_chunks(cuda_device, D, dtype):
+    """Half the ids of feature 0 on one row: a run of ~12,000 pairs over
+    a dozen of the kernel's chunks (the join pass); D = 300 spans two
+    column blocks."""
+    rng = np.random.default_rng(D + 5)
+    _k1_grad_check(*_k1_grad_case(rng, 400, D, 64, dtype, cuda_device,
+                                  hot=0.5), dtype)
+
+
+def test_k1_grad_2d_entry_and_autograd(cuda_device):
+    """hot_embedding_bag's gradient (the 2-D entry) equals the per-feature
+    entry's on the shifted ids, bitwise; autograd through both entries
+    reaches the kernel once a backward."""
+    rng = np.random.default_rng(3)
+    grad, ids, off, H = _k1_grad_case(rng, 200, 32, 30, "f32", cuda_device)
+    want = _k1_grad_check(grad, ids, off, H, "f32")
+    flat = shift_feature_ids(ids, off).to(torch.int32).reshape(-1, 30)
+    got = hot_embedding_bag_grad(grad.reshape(-1, 32), flat, H)
+    assert torch.equal(got, want)
+    table = torch.from_numpy(rng.standard_normal((H, 32)).astype(
+        np.float32)).to(cuda_device).requires_grad_()
+    before = (k1_ops.launches, k1_ops.grad_launches)
+    g3, = torch.autograd.grad(embedding_bag_features(table, ids, off), table,
+                              grad)
+    g2, = torch.autograd.grad(hot_embedding_bag(table, flat), table,
+                              grad.reshape(-1, 32))
+    torch.cuda.synchronize()
+    assert (k1_ops.launches, k1_ops.grad_launches) == (before[0] + 2,
+                                                       before[1] + 2)
+    assert torch.equal(g3, want) and torch.equal(g2, want)
+
+
+def _train_on_card_and_cpu(cell, cfg, batch_np, dims=None):
+    """One train cell's model on the card and its CPU copy; the card's
+    loss and gradients (with the K1 launches they made), the CPU's."""
+    import dataclasses
+
+    from repro_torch.common.tree import tree_map
+
+    cell = dataclasses.replace(cell, cfg=cfg, dims=dims)
+    state = cell.init_state(torch.Generator(cell.device).manual_seed(0))
+    model = state["model"]
+    cpu = type(model)(cfg, tree_map(lambda t: t.detach().cpu(), model.tree()))
+    cpu_cell = dataclasses.replace(cell, device=torch.device("cpu"))
+    cpu_state = {"model": cpu, "opt": cpu_cell.opt.init(cpu.tree())}
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    before = (k1_ops.launches, k1_ops.grad_launches)
+    loss, grads = cell.value_and_grad(state, _on(batch, cell.device))
+    torch.cuda.synchronize()
+    launches = (k1_ops.launches - before[0], k1_ops.grad_launches - before[1])
+    want_loss, want = cpu_cell.value_and_grad(cpu_state, batch)
+    return (cell, state, loss, grads), (cpu_cell, cpu_state, want_loss,
+                                        want), launches
+
+
+def _check_train(card, cpu, tol):
+    """Loss and gradients of the card within ``tol`` of the CPU's (scaled
+    by the largest), then one optimizer step on each, given the CPU's
+    gradients, within 1e-5."""
+    from repro_torch.common.tree import tree_leaves, tree_map
+
+    cell, state, loss, grads = card
+    cpu_cell, cpu_state, want_loss, want = cpu
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=tol, atol=tol)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g.cpu(), w, rtol=tol,
+                                   atol=tol * max(scale, 1e-30))
+    cell.opt.update(state["model"].tree(), _on(want, cell.device),
+                    state["opt"])
+    cpu_cell.opt.update(cpu_state["model"].tree(), want, cpu_state["opt"])
+    for p, q in zip(tree_leaves(state["model"].tree()),
+                    tree_leaves(cpu_state["model"].tree())):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_recsys_train_step_on_card(cuda_device):
+    """wide-deep's train step at its FULL widths (vocabularies cut to
+    3,000 rows, batch 512): K1 forward and backward on the deep (D = 32)
+    and the wide (D = 1) table, the gradients within 1e-4 of the CPU's
+    (f32 sums in other orders), then rowwise AdaGrad on each."""
+    from repro_torch.data.clicklog import cell_batch
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell("wide-deep", "train_batch", cuda_device, batch=512)
+    cfg = cut_vocab(cell.cfg)
+    card, cpu, launches = _train_on_card_and_cpu(
+        cell, cfg, cell_batch(cfg, cell.batch_specs, seed=2))
+    assert launches == (2, 2)
+    _check_train(card, cpu, 1e-4)
+
+
+def test_gnn_train_step_on_card(cuda_device):
+    """graphsage-reddit's full_graph_sm cell at its sizes (2,708 nodes,
+    10,832 edges, 1,433 features): the gradients within 1e-4 of the CPU's
+    (``index_add`` sums in no fixed order on the card), then AdamW on
+    each."""
+    from repro_torch.data.graph import cell_batch
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell("graphsage-reddit", "full_graph_sm", cuda_device)
+    card, cpu, launches = _train_on_card_and_cpu(
+        cell, cell.cfg, cell_batch(cell.cfg, cell.dims, seed=2), cell.dims)
+    assert launches == (0, 0)
+    _check_train(card, cpu, 1e-4)
 
 
 # ---------------------------------------------------------------------------

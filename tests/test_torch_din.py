@@ -112,8 +112,8 @@ def test_attention_scores_match_reference():
     got = tdin.attention_scores(
         model.tree(), *(torch.from_numpy(np.array(a))
                         for a in (hist_emb, target, mask)), tcfg)
-    close(got.numpy(), want, LAYER_TOL)
-    assert not got.numpy()[~np.asarray(mask)].any()  # masked positions: 0
+    close(got.detach().numpy(), want, LAYER_TOL)
+    assert not got.detach().numpy()[~np.asarray(mask)].any()  # masked: 0
 
 
 def _gru_params(seed, d=18, scale=6.0):

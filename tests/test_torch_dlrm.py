@@ -84,7 +84,7 @@ def test_bf16_logits_match_reference():
     assert model.table.dtype == torch.bfloat16
     assert model.top_mlp.w[0].dtype == torch.bfloat16
     np.testing.assert_array_equal(
-        model.table.float().numpy(),
+        model.table.detach().float().numpy(),
         np.asarray(jparams["embedding"]["table"], np.float32))
     batch = _batch(jcfg)
     want = jdlrm.apply(jparams, jax.tree.map(jnp.asarray, batch), jcfg)

@@ -2,9 +2,12 @@
 reference's Pallas kernel (interpret mode on CPU) and its jnp oracle, the
 per-feature entry's plain version against the reference's
 ``embedding_bag_local``, and the CUDA kernel against the plain version where
-a card is present.
+a card is present.  The table gradient through the autograd entries (K1's
+backward; its plain version on the CPU) against ``jax.grad`` of the
+reference's ``embedding_bag_local``, and ``gradcheck`` of the plain path.
 
 Tolerances are those of tests/test_kernels.py: f32 1e-5, bf16 3e-2."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,10 +19,13 @@ from repro.models import embedding as jemb
 from repro_torch.kernels import _build
 from repro_torch.kernels.embedding_bag import (
     embedding_bag_features,
+    embedding_bag_features_grad,
     hot_embedding_bag,
+    hot_embedding_bag_grad,
     hot_embedding_bag_ref,
     ops,
 )
+from repro_torch.models import embedding as temb
 from repro_torch.kernels.embedding_bag.ref import shift_feature_ids
 from repro_torch.models.dlrm import params_from_reference
 
@@ -193,3 +199,104 @@ def test_features_entry_rejected_inputs():
     with pytest.raises(TypeError):
         embedding_bag_features(t, i.long(), o)
     assert embedding_bag_features(t, i[:0], o).shape == (0, 3, cfg.dim)
+
+
+# ---------------------------------------------------------------------------
+# the table gradient (K1's backward)
+# ---------------------------------------------------------------------------
+
+
+def _with_duplicates(ids):
+    """Slot 1 of every bag repeats slot 0 where slot 0 is an id: a row
+    read twice in one bag."""
+    ids = ids.copy()
+    ids[:, :, 1] = np.where(ids[:, :, 0] >= 0, ids[:, :, 0], ids[:, :, 1])
+    return ids
+
+
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("qr", [False, True])
+def test_table_grad_matches_reference_local(qr, combine):
+    """``embedding_bag_local``'s table gradient (autograd through the
+    per-feature entry, its QR feature through plain gathers) against
+    ``jax.grad`` of the reference's ``embedding_bag_local``, on padding,
+    empty bags and ids read twice in a bag."""
+    cfg, jt, ids, _ = _features_case("f32", qr, combine)
+    ids = _with_duplicates(ids)
+    tcfg = temb.EmbeddingConfig(
+        vocab_sizes=cfg.vocab_sizes, dim=cfg.dim, pooling=cfg.pooling,
+        combine=combine, qr_features=cfg.qr_features,
+        qr_buckets=cfg.qr_buckets)
+    w = np.random.default_rng(5).standard_normal(
+        (ids.shape[0], cfg.num_features, cfg.dim)).astype(np.float32)
+    want = np.asarray(jax.grad(lambda t: jnp.sum(jemb.embedding_bag_local(
+        {"table": t}, jnp.asarray(ids), cfg) * w))(jt))
+    t = params_from_reference(np.asarray(jt), device=CPU).requires_grad_()
+    pooled = temb.embedding_bag_local({"table": t}, torch.from_numpy(ids),
+                                      tcfg)
+    got, = torch.autograd.grad((pooled * torch.from_numpy(w)).sum(), t)
+    assert got.dtype == t.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_plain_path_gradcheck():
+    """``gradcheck`` in float64 of both autograd entries on the CPU:
+    padding, an empty bag, duplicates and an unrouted feature."""
+    _, jt, ids, off = _features_case("f32", True, "sum", B=5)
+    ids = _with_duplicates(ids)[:, :, :6]
+    ids[2] = -1
+    table = torch.from_numpy(np.asarray(jt, np.float64)).requires_grad_()
+    i, o = torch.from_numpy(np.ascontiguousarray(ids)), torch.from_numpy(off)
+    assert torch.autograd.gradcheck(
+        lambda t: embedding_bag_features(t, i, o), (table,))
+    flat = shift_feature_ids(i, o).to(torch.int32).reshape(-1, 6)
+    assert torch.autograd.gradcheck(lambda t: hot_embedding_bag(t, flat),
+                                    (table,))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_grad_entries_agree_and_reject(dtype):
+    """The 2-D entry's gradient on the shifted ids equals the per-feature
+    entry's, bitwise, in the gradient's dtype; no CPU call launches; an
+    unrouted feature adds nothing; bad shapes raise."""
+    cfg, jt, ids, off = _features_case(dtype, True, "sum", B=12)
+    B, F, P = ids.shape
+    H = cfg.total_rows
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (B, F, cfg.dim)).astype(np.float32)).to(
+        {"f32": torch.float32, "bf16": torch.bfloat16}[dtype])
+    i, o = torch.from_numpy(ids), torch.from_numpy(off)
+    before = ops.grad_launches
+    got = embedding_bag_features_grad(g, i, o, H)
+    flat = shift_feature_ids(i, o).to(torch.int32).reshape(B * F, P)
+    assert torch.equal(got, hot_embedding_bag_grad(g.reshape(B * F, -1),
+                                                   flat, H))
+    assert ops.grad_launches == before and got.dtype == g.dtype
+    q0, q1 = cfg.row_offsets[1], cfg.row_offsets[2]
+    touched = np.zeros(H, bool)
+    touched[flat[flat >= 0].numpy()] = True
+    assert not touched[q0:q1].any() and not got[~torch.from_numpy(
+        touched)].any()
+    with pytest.raises(ValueError):
+        embedding_bag_features_grad(g[:, :2], i, o, H)
+    with pytest.raises(ValueError):
+        hot_embedding_bag_grad(g, flat, H)
+    with pytest.raises(TypeError):
+        embedding_bag_features_grad(g, i.long(), o, H)
+
+
+def test_table_grad_after_serving_in_inference_mode():
+    """The per-feature offsets cached while a model served (inference
+    mode) serve its training too: the backward saves them."""
+    cfg, jt, ids, _ = _features_case("f32", False, "sum", B=6)
+    tcfg = temb.EmbeddingConfig(vocab_sizes=cfg.vocab_sizes, dim=cfg.dim,
+                                pooling=(9, 4, 12))
+    t = params_from_reference(np.asarray(jt), device=CPU).requires_grad_()
+    i = torch.from_numpy(ids)
+    with torch.inference_mode():
+        served = temb.embedding_bag_local({"table": t}, i, tcfg)
+    pooled = temb.embedding_bag_local({"table": t}, i, tcfg)
+    assert torch.equal(pooled.detach(), served)
+    got, = torch.autograd.grad(pooled.sum(), t)
+    assert got.shape == t.shape and got.any()

@@ -64,7 +64,7 @@ def test_interest_capsules_match_reference(scale):
     want = jmind.interest_capsules(jparams, jb["history_ids"], j_mind.SMOKE)
     got = tmind.interest_capsules(model.tree(), tb["history_ids"], t_mind.SMOKE)
     assert got.shape == (24, 4, 16)
-    close(got.numpy(), want, LAYER_TOL)
+    close(got.detach().numpy(), want, LAYER_TOL)
 
 
 @pytest.mark.parametrize("scale", SCALES)

@@ -3,7 +3,7 @@ the reference's ``build_cell(..., mesh=None)``: serve_p99, serve_bulk and
 retrieval_cand of wide-deep, din, mind and dlrm-rm2 on their SMOKE
 configs (batch 16, 128 candidates), on the reference's parameters and the
 same click-log inputs; the registry's configs equal the reference's; the
-train cells still raise (K1 has no backward).
+train cells build (their parity is tests/test_torch_train_cells.py).
 
 Scores use 1e-4 (XLA-CPU and torch sum the matrix products in other
 orders), scaled by the largest score compared."""
@@ -62,7 +62,8 @@ def test_cell_matches_reference(arch_id, shape):
 @pytest.mark.parametrize("arch_id", ARCHS)
 def test_registry_and_train_cell(arch_id):
     """get_arch returns the ported config module, its configs equal the
-    reference's field by field, its random init runs; train raises."""
+    reference's field by field, its random init runs; the train cell
+    builds with the reference's optimizer and a labelled batch."""
     mod, jmod = get_arch(arch_id), j_get_arch(arch_id)
     assert (mod.ARCH_ID, mod.SLA_MS, [s.name for s in mod.SHAPES]) == \
         (jmod.ARCH_ID, jmod.SLA_MS, [s.name for s in jmod.SHAPES])
@@ -80,8 +81,9 @@ def test_registry_and_train_cell(arch_id):
     model = cell.init_state(torch.Generator().manual_seed(0))
     assert type(model).__module__ == \
         RECSYS_MODELS[cell.cfg.interaction].__name__
-    with pytest.raises(NotImplementedError):
-        build_cell(arch_id, "train_batch", device="cpu")
+    train = build_cell(arch_id, "train_batch", device="cpu")
+    assert train.opt.name == "rowwise_adagrad(lr=0.01)"
+    assert train.batch == 16 and train.batch_specs["label"].shape == (16,)
 
 
 def test_cell_batch_and_device():

@@ -298,8 +298,6 @@ def test_cell_device_and_batch():
     assert cell.batch_specs["cache"]["k"].shape == (2, 2, 32, 2, 32)
     with pytest.raises(NotImplementedError):
         t_build_cell("llama3.2-3b", "train_4k", device="cpu")
-    # the recsys serve cells are ported; their train cell waits for K1's
-    # backward
+    # the recsys serve and train cells are ported (the LM train cell waits)
     assert t_build_cell("dlrm-rm2", "serve_p99", device="cpu").batch == 16
-    with pytest.raises(NotImplementedError):
-        t_build_cell("dlrm-rm2", "train_batch", device="cpu")
+    assert t_build_cell("dlrm-rm2", "train_batch", device="cpu").batch == 16
