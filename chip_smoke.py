@@ -149,6 +149,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -216,16 +217,70 @@ def card_rates(name: str) -> tuple[float, float, str]:
     return bw, f32, "NVIDIA H100 80GB HBM3 (assumed)"
 
 
-def time_ms(fn, reps: int = TIMING_REPS, before=None) -> float:
+class SmClock:
+    """The card's SM clock in MHz, read through NVML (the library
+    nvidia-smi reads) by a thread every ``period_s`` while the ``with``
+    block runs.  ``time_ms(..., clock=c)`` marks its timed window;
+    ``c.window()`` gives [min, median, max] of the readings inside the
+    last window, or None where NVML cannot be loaded."""
+
+    def __init__(self, period_s: float = 0.002):
+        self.period_s = period_s
+        self.samples: list[tuple[float, int]] = []
+        self.t0 = self.t1 = None
+        self._stop = threading.Event()
+        self._thread = None
+
+    def __enter__(self):
+        import ctypes
+
+        import torch
+
+        try:
+            nvml = ctypes.CDLL("libnvidia-ml.so.1")
+        except OSError:
+            return self
+        handle, mhz = ctypes.c_void_p(), ctypes.c_uint()
+        if nvml.nvmlInit_v2() or nvml.nvmlDeviceGetHandleByIndex_v2(
+                torch.cuda.current_device(), ctypes.byref(handle)):
+            return self
+
+        def run():
+            while not self._stop.is_set():
+                if nvml.nvmlDeviceGetClockInfo(handle, 1,  # NVML_CLOCK_SM
+                                               ctypes.byref(mhz)) == 0:
+                    self.samples.append((time.perf_counter(), mhz.value))
+                self._stop.wait(self.period_s)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+        return False
+
+    def window(self) -> list[int] | None:
+        got = sorted(m for t, m in self.samples if self.t0 <= t <= self.t1)
+        return [got[0], got[len(got) // 2], got[-1]] if got else None
+
+
+def time_ms(fn, reps: int = TIMING_REPS, before=None,
+            clock: SmClock | None = None) -> float:
     """Median device milliseconds of ``fn()`` on the current stream, after
     warm-up; ``before()`` runs ahead of each timed call, outside the timed
     window.  A spin kernel ahead of the start event keeps the device busy
-    while the host enqueues ``fn``, so host launch overhead is not timed."""
+    while the host enqueues ``fn``, so host launch overhead is not timed.
+    ``clock`` (an open ``SmClock``) gets the timed window."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    if clock is not None:
+        clock.t0 = time.perf_counter()
     times = []
     for _ in range(reps):
         if before is not None:
@@ -238,6 +293,8 @@ def time_ms(fn, reps: int = TIMING_REPS, before=None) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    if clock is not None:
+        clock.t1 = time.perf_counter()
     return statistics.median(times)
 
 
@@ -1717,6 +1774,20 @@ GRAD_BATCH = 2048  # the recsys gradient checks' batch (a CPU copy runs it)
 GRAD_TOL = 1e-4
 AGG_NODES = 65536  # ogb_products' aggregate held on these nodes' in-edges
 GRAD_REPS = 5      # timed runs of K1's backward and its yardsticks
+# Seconds the card is left idle before each of them is timed.  For ~0.1 s
+# after a torch.cuda.empty_cache() that frees tens of GB of cached
+# blocks, K1's backward ran ~10% slower on the H100, at the same SM clock
+# (1980 MHz) and with no allocation in the calls; after an idle wait its
+# first calls ran as fast as its later ones (tools/k1_bench.py --settle).
+GRAD_SETTLE_S = 1.0
+
+
+def settle() -> None:
+    """Wait for the card, then leave it idle for GRAD_SETTLE_S."""
+    import torch
+
+    torch.cuda.synchronize()
+    time.sleep(GRAD_SETTLE_S)
 
 
 def tree_gb(tree) -> float:
@@ -1977,48 +2048,63 @@ def k1_grad_touched(dev, name: str, ids3, emb, seed: int):
              "untouched_rows_zero": True}, g, off)
 
 
-def k1_grad_rm2(dev, ids3, emb, bw: float, f32_rate: float) -> dict:
-    """K1's backward at the dlrm-rm2 train launch, checked by
-    ``k1_grad_touched``, then timed beside its plain version (dense,
-    float32), the autograd of ``F.embedding_bag(mode="sum")`` and its
+def measure_k1_grad(g, ids3, off, H: int, bw: float, f32_rate: float
+                    ) -> dict:
+    """K1's backward on the pooled gradient ``g`` [B, F, D], ids [B, F, P]
+    and offsets, timed beside its plain version (dense, float32), the
+    autograd of ``F.embedding_bag(mode="sum")`` on the same ids and its
     bound.  The bound's bytes are the function's own: the pooled gradient
     and the ids read once, the dense gradient written once; the sorted
     design's traffic (a pooled-gradient row read for every valid pair) is
-    ``algo_bytes`` beside it."""
+    ``algo_bytes`` beside it.  All three are timed after ``settle()`` and
+    3 untimed calls; ``ms_first`` is the kernel right after the checks
+    (their ``empty_cache``), with no wait; ``sm_mhz`` and ``sm_mhz_first``
+    the SM clock's [min, median, max] over the two windows."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import ops, ref
 
-    res, g, off = k1_grad_touched(dev, "rm2_train_launch", ids3, emb, 5)
-    H, D = res["table"]
-    valid = res["valid_pairs"]
+    D = g.shape[-1]
+    rows = ref.shift_feature_ids(ids3, off).reshape(-1, ids3.shape[2])
+    keep = (rows >= 0) & (rows < H)
+    valid = int(keep.sum())
     esize = g.element_size()
     ids_bytes = ids3.numel() * ids3.element_size()
     n_bytes = g.numel() * esize + ids_bytes + H * D * esize
     algo_bytes = valid * D * esize + ids_bytes + H * D * esize
     t_bytes, t_ops = n_bytes / bw * 1e3, valid * D / f32_rate * 1e3
-    ms = time_ms(lambda: ops.embedding_bag_features_grad(g, ids3, off, H),
-                 reps=GRAD_REPS)
+
+    def entry():
+        return ops.embedding_bag_features_grad(g, ids3, off, H)
+
+    first, steady = SmClock(), SmClock()
+    with first:
+        ms_first = time_ms(entry, reps=GRAD_REPS, clock=first)
+    settle()
+    with steady:
+        ms = time_ms(entry, reps=GRAD_REPS, clock=steady)
     torch.cuda.empty_cache()
-    rows = ref.shift_feature_ids(ids3, off).reshape(-1, ids3.shape[2])
-    keep = rows >= 0
     flat_ids = rows[keep]
-    bag_off = torch.zeros(rows.shape[0], dtype=torch.long, device=dev)
+    bag_off = torch.zeros(rows.shape[0], dtype=torch.long, device=g.device)
     bag_off[1:] = keep.sum(dim=1).cumsum(0)[:-1]
-    table = torch.zeros((H, D), dtype=emb.dtype, device=dev,
+    table = torch.zeros((H, D), dtype=g.dtype, device=g.device,
                         requires_grad=True)
     pooled = F.embedding_bag(flat_ids, table, bag_off, mode="sum")
     g2 = g.reshape(-1, D)
+    settle()
     library_ms = time_ms(lambda: torch.autograd.grad(
         pooled, table, g2, retain_graph=True), reps=GRAD_REPS)
     del table, pooled, flat_ids, bag_off, rows, keep
     torch.cuda.empty_cache()
+    settle()
     plain_ms = time_ms(lambda: ref.embedding_bag_features_grad_ref(
         g, ids3, off, H), reps=GRAD_REPS)
     torch.cuda.empty_cache()
     bound_ms = max(t_bytes, t_ops)
-    return {**res, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": ms, "sm_mhz": steady.window(), "ms_first": ms_first,
+            "sm_mhz_first": first.window(),
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": n_bytes, "algo_bytes": algo_bytes,
@@ -2026,11 +2112,59 @@ def k1_grad_rm2(dev, ids3, emb, bw: float, f32_rate: float) -> dict:
             "share_of_bound": bound_ms / ms}
 
 
-def k1_grad_whole(dev, name: str, ids3, emb, dtype) -> dict:
+def k1_grad_stages(g, ids3, off, H: int) -> dict:
+    """K1's backward at one launch stage by stage (CUDA events, median of
+    GRAD_REPS, after ``settle()``): ``pairs`` (the valid pairs from the int32 ids), ``sort``
+    (the radix sort by row, each run on the pairs as emitted), ``sum`` (the
+    touched rows) and ``write`` (zeros into the other rows), with
+    torch.sort's time on the same compacted rows beside the sort (sorting
+    them with their int64 permutation: a yardstick, not on the path), the
+    run lengths and the scratch."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag.embedding_bag import GradLaunch
+
+    D = g.shape[-1]
+    call = GradLaunch(g.reshape(-1, D).contiguous(), ids3.contiguous(), off,
+                      H)
+    settle()
+    res = {"pairs_ms": time_ms(lambda: call.run(call.PAIRS), reps=GRAD_REPS)}
+    rows = call.pairs()[0].clone()
+    res["sort_ms"] = time_ms(lambda: call.run(call.SORT), reps=GRAD_REPS,
+                             before=lambda: call.run(call.PAIRS))
+    res["torch_sort_ms"] = time_ms(lambda: torch.sort(rows, stable=True),
+                                   reps=GRAD_REPS)
+    del rows
+    call.run(call.PAIRS | call.SORT)
+    res["sum_ms"] = time_ms(lambda: call.run(call.SUM), reps=GRAD_REPS)
+    res["write_ms"] = time_ms(lambda: call.run(call.WRITE), reps=GRAD_REPS)
+    runs = torch.unique_consecutive(call.sorted_pairs()[0],
+                                    return_counts=True)[1]
+    res.update(valid_pairs=int(runs.sum()), touched_rows=int(runs.numel()),
+               longest_run=int(runs.max()) if runs.numel() else 0,
+               sort_bits=max(H - 1, 0).bit_length(),
+               scratch_gb=call.scratch.numel() / 1e9)
+    del call, runs
+    torch.cuda.empty_cache()
+    return res
+
+
+def k1_grad_rm2(dev, ids3, emb, bw: float, f32_rate: float) -> dict:
+    """K1's backward at the dlrm-rm2 train launch, checked by
+    ``k1_grad_touched``, timed by ``measure_k1_grad`` and stage by stage
+    by ``k1_grad_stages``."""
+    res, g, off = k1_grad_touched(dev, "rm2_train_launch", ids3, emb, 5)
+    H = res["table"][0]
+    return {**res, **measure_k1_grad(g, ids3, off, H, bw, f32_rate),
+            "stages": k1_grad_stages(g, ids3, off, H)}
+
+
+def k1_grad_whole(dev, name: str, ids3, emb, dtype):
     """K1's backward against its whole dense plain version, run in
     float64 (a hot row sums thousands of pairs, whose float32 rounding in
     either order nears the f32 tolerance), on a random pooled gradient
-    (planted faults: zeros, the next bag's gradient), every row compared."""
+    (planted faults: zeros, the next bag's gradient), every row compared
+    -> (record, g, offsets)."""
     import torch
 
     from repro_torch.kernels.embedding_bag import ops, ref
@@ -2047,12 +2181,11 @@ def k1_grad_whole(dev, name: str, ids3, emb, dtype) -> dict:
     grad_faults(f"K1 backward at {name}", want, {
         "next bag's gradient": ref.embedding_bag_features_grad_ref(
             g.roll(1, dims=0).double(), ids3, off, H)}, tol)
-    del want
-    torch.cuda.synchronize()
-    return {"case": name, "table": [H, emb.dim], "dtype": str(dtype),
-            "ids": list(ids3.shape), "max_abs_err": err, "tolerance": tol,
-            "ms": time_ms(lambda: ops.embedding_bag_features_grad(
-                g, ids3, off, H), reps=GRAD_REPS)}
+    del want, got
+    torch.cuda.empty_cache()
+    return ({"case": name, "table": [H, emb.dim], "dtype": str(dtype),
+             "ids": list(ids3.shape), "max_abs_err": err, "tolerance": tol},
+            g, off)
 
 
 def recsys_grad_check(dev, arch_id: str) -> dict:
@@ -2190,22 +2323,27 @@ def phase_train(dev, bw: float, f32_rate: float) -> dict:
         dev, torch.from_numpy(ids).to(dev), cfg.embedding, bw, f32_rate)}
     emit({"phase": "train", "stage": "k1_grad", **res["k1_grad"]["rm2"]})
     rmc1_cfg = rmc1(True)
-    res["k1_grad"]["rmc1"] = k1_grad_whole(
-        dev, "rmc1_prod", torch.from_numpy(click_launches(rmc1_cfg, [3])[0])
-        .to(dev), rmc1_cfg.embedding, torch.float32)
     cfg, ids = kept_ids["wide-deep"]
     ids = torch.from_numpy(ids).to(dev)
-    deep, g, off = k1_grad_touched(dev, "wide_deep_deep", ids, cfg.embedding,
-                                   7)
-    deep["ms"] = time_ms(lambda: ops.embedding_bag_features_grad(
-        g, ids, off, deep["table"][0]), reps=GRAD_REPS)
-    res["k1_grad"]["deep"] = deep
-    del g
-    torch.cuda.empty_cache()
-    res["k1_grad"]["wide"] = k1_grad_whole(
-        dev, "wide_deep_wide", ids, _wide_cfg(cfg), torch.float32)
-    for case in ("rmc1", "deep", "wide"):
-        emit({"phase": "train", "stage": "k1_grad", **res["k1_grad"][case]})
+
+    def whole(name, ids, emb):
+        return k1_grad_whole(dev, name, ids, emb, torch.float32)
+
+    def touched(name, ids, emb):
+        return k1_grad_touched(dev, name, ids, emb, 7)
+
+    for case, name, case_ids, emb, checked in (
+            ("rmc1", "rmc1_prod", torch.from_numpy(click_launches(
+                rmc1_cfg, [3])[0]).to(dev), rmc1_cfg.embedding, whole),
+            ("deep", "wide_deep_deep", ids, cfg.embedding, touched),
+            ("wide", "wide_deep_wide", ids, _wide_cfg(cfg), whole)):
+        line, g, off = checked(name, case_ids, emb)
+        line.update(measure_k1_grad(g, case_ids, off, emb.total_rows, bw,
+                                    f32_rate))
+        res["k1_grad"][case] = line
+        emit({"phase": "train", "stage": "k1_grad", **line})
+        del g
+        torch.cuda.empty_cache()
     del kept_ids
     torch.cuda.empty_cache()
 
@@ -2726,8 +2864,10 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
         "shape": f"table {g['table'][0]}x{g['table'][1]} bf16, ids "
                  f"{g['ids']} ({g['valid_pairs']} valid pairs, "
                  f"{g['touched_rows']} rows)",
+        "stages": g["stages"],
         "other_shapes": {c: {k: train["k1_grad"][c][k] for k in (
-            "table", "ids", "ms", "max_abs_err")}
+            "table", "ids", "ms", "max_abs_err", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "share_of_bound")}
             for c in ("rmc1", "deep", "wide")},
     }, {
         "name": "flash_attention",

@@ -3,7 +3,9 @@
 The counterpart of the reference's ``hot_embedding_bag_pallas``: it takes
 the checked tensors from ``ops`` and launches the kernel on PyTorch's
 current stream.  No batch padding: the kernel masks its own ragged edge,
-so any number of bags comes out exact.
+so any number of bags comes out exact.  K1's backward
+(``csrc/embedding_bag_grad.cu``) is launched the same way, by
+``GradLaunch``.
 """
 from __future__ import annotations
 
@@ -66,39 +68,96 @@ def _grad_kernel():
     if _grad_fn is None:
         lib = _build.load("embedding_bag_grad")
         fn = lib.repro_embedding_bag_grad
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [
+            ctypes.c_int64] * 3 + [ctypes.c_void_p, ctypes.c_void_p] + [
+            ctypes.c_int64] * 3 + [ctypes.c_void_p] + [ctypes.c_int64] * 2 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.repro_embedding_bag_grad_chunk.argtypes = []
-        lib.repro_embedding_bag_grad_chunk.restype = ctypes.c_int64
+        layout = lib.repro_embedding_bag_grad_layout
+        layout.argtypes = [ctypes.c_int64] * 4 + [
+            ctypes.POINTER(ctypes.c_int64)]
+        layout.restype = ctypes.c_int
         lib.repro_embedding_bag_grad_error_string.argtypes = [ctypes.c_int]
         lib.repro_embedding_bag_grad_error_string.restype = ctypes.c_char_p
-        _grad_fn = (fn, lib.repro_embedding_bag_grad_chunk(),
-                    lib.repro_embedding_bag_grad_error_string)
+        _grad_fn = (fn, layout, lib.repro_embedding_bag_grad_error_string)
     return _grad_fn
 
 
-def embedding_bag_grad_cuda(grad: torch.Tensor, keys: torch.Tensor,
-                            n_rows: int, P: int) -> torch.Tensor:
+class GradLaunch:
+    """One call of K1's backward (``csrc/embedding_bag_grad.cu``): the
+    pooled gradient ``grad`` [n_bags, D] (16-byte aligned), ``ids`` [...,
+    P] int32 whose leading dims are the bags (the last one the feature
+    when ``row_offsets`` [F] int64 is given), all contiguous on one CUDA
+    device, with fewer than 2**31 slots; the output [n_rows, D] and the
+    scratch, allocated once with ``torch.empty``.
+
+    ``run(stages)`` launches the kernels of the stages set in ``stages``
+    (PAIRS: the valid pairs from the ids; SORT: the radix sort by row; SUM:
+    the sums of the touched rows, marked in a bitmap; WRITE: zeros into
+    the unmarked rows), each from what the earlier ones left in the
+    scratch, on the current stream; ALL is the backward."""
+
+    PAIRS, SORT, SUM, WRITE = 1, 2, 4, 8
+    ALL = 15
+
+    def __init__(self, grad: torch.Tensor, ids: torch.Tensor,
+                 row_offsets: torch.Tensor | None, n_rows: int):
+        fn, layout_fn, self._err_str = _grad_kernel()
+        self._fn = fn
+        self.grad, self.ids, self.row_offsets = grad, ids, row_offsets
+        self.n_rows, self.D = n_rows, grad.shape[1]
+        self.P = ids.shape[-1]
+        self.F = 1 if row_offsets is None else row_offsets.shape[0]
+        layout = (ctypes.c_int64 * 4)()
+        self._check(layout_fn(ids.numel(), n_rows, self.D,
+                              _DTYPE_CODE[grad.dtype], layout))
+        self._layout = list(layout)
+        dev = grad.device
+        self.out = torch.empty((n_rows, self.D), dtype=grad.dtype, device=dev)
+        self.scratch = torch.empty(layout[0], dtype=torch.uint8, device=dev)
+
+    def _check(self, err: int) -> None:
+        if err != 0:
+            raise RuntimeError(
+                f"embedding_bag_grad kernel launch failed: "
+                f"{self._err_str(err).decode()} (cuda error {err})")
+
+    def run(self, stages: int = ALL) -> torch.Tensor:
+        dev = self.grad.device
+        self._check(self._fn(
+            self.ids.data_ptr(),
+            None if self.row_offsets is None else self.row_offsets.data_ptr(),
+            self.ids.numel(), self.P, self.F, self.grad.data_ptr(),
+            self.out.data_ptr(), self.n_rows, self.D,
+            _DTYPE_CODE[self.grad.dtype], self.scratch.data_ptr(), stages,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream))
+        return self.out
+
+    def count(self) -> int:
+        """The valid pairs the last PAIRS stage found (synchronises)."""
+        return int(self.scratch[self._layout[1]:self._layout[1] + 4].view(
+            torch.int32)[0])
+
+    def _pairs(self, offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+        m = self.count()
+        pairs = self.scratch[offset:offset + 8 * m].view(torch.int32)
+        return pairs[0::2], pairs[1::2]
+
+    def pairs(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(rows, flat indices) int32 as PAIRS emitted them (flat-index
+        order); SORT overwrites them."""
+        return self._pairs(self._layout[2])
+
+    def sorted_pairs(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(rows, flat indices) int32 as SORT left them: by row, then by
+        flat index."""
+        return self._pairs(self._layout[3])
+
+
+def embedding_bag_grad_cuda(grad: torch.Tensor, ids: torch.Tensor,
+                            row_offsets: torch.Tensor | None,
+                            n_rows: int) -> torch.Tensor:
     """The dense table gradient [n_rows, D] (grad's dtype) from the pooled
-    gradient ``grad`` [n_bags, D] and ``keys`` [n_bags * P] int32: the row
-    each (bag, slot) pair reads, ``n_rows`` for none.  Sorts the keys
-    (stable, torch), zeroes the output (one ``zero_``), then launches the
-    kernel's two passes; all on one CUDA device, contiguous."""
-    fn, chunk, err_str = _grad_kernel()
-    dev = grad.device
-    D = grad.shape[1]
-    sorted_keys, perm = torch.sort(keys, stable=True)
-    out = torch.zeros((n_rows, D), dtype=grad.dtype, device=dev)
-    n = keys.numel()
-    part = torch.empty((2, -(-n // chunk), D), dtype=torch.float32,
-                       device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(sorted_keys.data_ptr(), perm.data_ptr(), grad.data_ptr(),
-             out.data_ptr(), part.data_ptr(), n, P, n_rows, D,
-             _DTYPE_CODE[grad.dtype], dev.index, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"embedding_bag_grad kernel launch failed: "
-            f"{err_str(err).decode()} (cuda error {err})")
-    return out
+    gradient ``grad`` [n_bags, D] and the ids the bags read (see
+    ``GradLaunch``): every stage of the kernel, every row written by it."""
+    return GradLaunch(grad, ids, row_offsets, n_rows).run()

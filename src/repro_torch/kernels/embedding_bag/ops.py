@@ -23,7 +23,10 @@ Both entries carry autograd when the table requires grad (outside
 (``csrc/embedding_bag_grad.cu``; ``embedding_bag_features_grad`` and
 ``hot_embedding_bag_grad``), which returns the dense table gradient in the
 table's dtype, as ``jax.grad`` of the reference's ``embedding_bag_local``
-does.  Without grad the forward is called as it is.
+does.  It takes the int32 ids and the offsets as they are: its kernels
+emit the valid pairs, sort them by row with a radix sort of their own and
+write every row of the output once (no sort or fill by torch).  Without
+grad the forward is called as it is.
 
 Which version runs is decided by where the caller put the tensors, never
 by what is installed: a CUDA tensor launches the kernel or raises.
@@ -43,7 +46,6 @@ from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_features_ref,
     hot_embedding_bag_grad_ref,
     hot_embedding_bag_ref,
-    shift_feature_ids,
 )
 
 # Kernel launches since the last reset (set it to 0 to start a count): the
@@ -67,6 +69,16 @@ def _check_table(table: torch.Tensor, ids: torch.Tensor) -> None:
                             f"{table.dtype}")
         if not (table.is_contiguous() and ids.is_contiguous()):
             raise ValueError("kernel takes contiguous table and ids")
+
+
+def _check_offsets(ids: torch.Tensor, row_offsets: torch.Tensor) -> None:
+    if (row_offsets.dim() != 1 or row_offsets.shape[0] != ids.shape[1]
+            or row_offsets.dtype != torch.int64):
+        raise ValueError(f"row_offsets must be int64 [{ids.shape[1]}], got "
+                         f"{row_offsets.dtype} {tuple(row_offsets.shape)}")
+    if row_offsets.device != ids.device:
+        raise ValueError(f"row_offsets on {row_offsets.device} but ids on "
+                         f"{ids.device}")
 
 
 def _launch(table, ids, row_offsets=None) -> torch.Tensor:
@@ -133,13 +145,7 @@ def embedding_bag_features(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"expected table [H, D] and ids [B, F, P], got "
                          f"{tuple(table.shape)} and {tuple(ids.shape)}")
     _check_table(table, ids)
-    if (row_offsets.dim() != 1 or row_offsets.shape[0] != ids.shape[1]
-            or row_offsets.dtype != torch.int64):
-        raise ValueError(f"row_offsets must be int64 [{ids.shape[1]}], got "
-                         f"{row_offsets.dtype} {tuple(row_offsets.shape)}")
-    if row_offsets.device != ids.device:
-        raise ValueError(f"row_offsets on {row_offsets.device} but ids on "
-                         f"{ids.device}")
+    _check_offsets(ids, row_offsets)
     if table.device.type == "cuda" and not row_offsets.is_contiguous():
         raise ValueError("kernel takes contiguous row_offsets")
     if _wants_grad(table):
@@ -185,20 +191,32 @@ def _check_grad(grad: torch.Tensor, ids: torch.Tensor, n_rows: int) -> None:
             raise TypeError(f"kernel takes float32 or bfloat16 gradients, "
                             f"got {grad.dtype}")
         if not 0 < n_rows < _MAX_ROWS:
-            raise ValueError(f"the gradient kernel's int32 keys address "
+            raise ValueError(f"the gradient kernel's int32 rows address "
                              f"1 to 2**31 - 1 rows, got {n_rows}")
+        _check_kernel_slots(ids)
 
 
-def _launch_grad(grad: torch.Tensor, rows: torch.Tensor, n_rows: int,
-                 P: int) -> torch.Tensor:
-    """rows: [n_bags, P] int64 combined-table rows (-1: none)."""
+def _check_kernel_slots(ids: torch.Tensor) -> None:
+    """The gradient kernel's flat pair index is 32-bit: fewer than 2**31
+    slots (the plain version has no such limit)."""
+    if ids.numel() >= _MAX_ROWS:
+        raise ValueError(f"ids hold {ids.numel()} slots; the gradient "
+                         f"kernel's 32-bit pair index takes fewer than 2**31")
+
+
+def _launch_grad(grad: torch.Tensor, ids: torch.Tensor,
+                 row_offsets: torch.Tensor | None, n_rows: int
+                 ) -> torch.Tensor:
+    """grad [n_bags, D]; ids [..., P] int32 whose leading dims are the bags
+    (the last one the feature, with row_offsets [F] int64)."""
     global grad_launches
-    if rows.numel() == 0 or grad.shape[-1] == 0:
-        return torch.zeros((n_rows, grad.shape[-1]), dtype=grad.dtype,
-                           device=grad.device)
-    keys = torch.where((rows >= 0) & (rows < n_rows), rows, n_rows).to(
-        torch.int32).reshape(-1)
-    out = embedding_bag_grad_cuda(grad.contiguous(), keys, n_rows, P)
+    D = grad.shape[-1]
+    if D == 0:
+        return torch.empty((n_rows, 0), dtype=grad.dtype, device=grad.device)
+    grad = grad.contiguous()
+    if grad.data_ptr() % 16:  # the kernel's 16-byte row loads
+        grad = grad.clone()
+    out = embedding_bag_grad_cuda(grad, ids.contiguous(), row_offsets, n_rows)
     grad_launches += 1
     return out
 
@@ -209,14 +227,14 @@ def hot_embedding_bag_grad(grad: torch.Tensor, ids: torch.Tensor,
     pooled output), ids [B, P] int32 -> [n_rows, D] in grad's dtype, every
     row written (untouched rows zero).  The kernel sums in float32,
     compensated, in a fixed order: two calls on the card are bitwise
-    equal."""
+    equal; there ids of 2**31 slots or more are refused."""
     if grad.dim() != 2 or ids.dim() != 2 or grad.shape[0] != ids.shape[0]:
         raise ValueError(f"expected grad [B, D] and ids [B, P], got "
                          f"{tuple(grad.shape)} and {tuple(ids.shape)}")
     _check_grad(grad, ids, n_rows)
     if grad.device.type == "cpu":
         return hot_embedding_bag_grad_ref(grad, ids, n_rows)
-    return _launch_grad(grad, ids.long(), n_rows, ids.shape[1])
+    return _launch_grad(grad, ids, None, n_rows)
 
 
 def embedding_bag_features_grad(grad: torch.Tensor, ids: torch.Tensor,
@@ -225,14 +243,16 @@ def embedding_bag_features_grad(grad: torch.Tensor, ids: torch.Tensor,
     """The table gradient of ``embedding_bag_features``: grad [B, F, D],
     ids [B, F, P] int32, row_offsets [F] int64 -> [n_rows, D] in grad's
     dtype.  Feature f's pairs add into rows ``ids + row_offsets[f]``; an
-    unrouted feature (negative offset) and padding add nothing.  One launch
-    of the gradient kernel."""
+    unrouted feature (negative offset) and padding add nothing.  One call
+    of the gradient kernel; on the card ids of 2**31 slots or more are
+    refused."""
     if grad.dim() != 3 or ids.dim() != 3 or grad.shape[:2] != ids.shape[:2]:
         raise ValueError(f"expected grad [B, F, D] and ids [B, F, P], got "
                          f"{tuple(grad.shape)} and {tuple(ids.shape)}")
+    _check_offsets(ids, row_offsets)
     _check_grad(grad, ids, n_rows)
     if grad.device.type == "cpu":
         return embedding_bag_features_grad_ref(grad, ids, row_offsets, n_rows)
-    B, F, P = ids.shape
-    return _launch_grad(grad.reshape(B * F, grad.shape[2]),
-                        shift_feature_ids(ids, row_offsets), n_rows, P)
+    B, F, _ = ids.shape
+    return _launch_grad(grad.reshape(B * F, grad.shape[2]), ids,
+                        row_offsets.contiguous(), n_rows)

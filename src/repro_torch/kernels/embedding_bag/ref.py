@@ -74,3 +74,23 @@ def embedding_bag_features_grad_ref(grad: torch.Tensor, ids: torch.Tensor,
     shifted = shift_feature_ids(ids, row_offsets).reshape(B * F, P)
     return hot_embedding_bag_grad_ref(grad.reshape(B * F, grad.shape[-1]),
                                       shifted, n_rows)
+
+
+def grad_sorted_pairs_ref(ids: torch.Tensor, n_rows: int,
+                          row_offsets: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pairs K1's backward sums, in the order it sums them: ids [...,
+    P] int (the last leading dim the feature when ``row_offsets`` [F] is
+    given) -> (rows, flat indices), int32, of every slot that reads a row,
+    sorted by row and then by flat index (bag * P + slot).  A slot reads
+    row ``id + row_offsets[f]`` unless the id is padding (< 0), its feature
+    is unrouted (offset < 0) or the row is at or past ``n_rows``."""
+    rows = ids.long()
+    if row_offsets is not None:
+        rows = shift_feature_ids(ids, row_offsets)
+    rows = rows.reshape(-1)
+    flat = torch.arange(rows.numel(), device=rows.device)
+    keep = (rows >= 0) & (rows < n_rows)
+    rows, flat = rows[keep], flat[keep]
+    order = torch.sort(rows, stable=True).indices
+    return rows[order].to(torch.int32), flat[order].to(torch.int32)

@@ -13,8 +13,15 @@ logits on the card against the CPU.
 K1's backward (the dense table gradient) against its plain version at
 D = 1, 18, 32, 64 and P = 1, 3, 64 in f32 and bf16, with padding, empty
 bags, ids read twice in a bag and a feature left unrouted (untouched rows
-exactly zero, two launches bitwise equal), a run of one row across many
-of the kernel's chunks, the 2-D entry and autograd through both entries;
+exactly zero, two launches bitwise equal), at every row geometry of its
+sums pass (D = 1, 8, 32, 64, 100, 128, 256, 300), at H = 1, at an H that
+is not a multiple of the zero sweep's 32 rows and with the last row read,
+a run of one row across many of the kernel's chunks, its pairs and sort
+stages bitwise against their plain version (0, 2 and 4 radix passes; ids
+past the table), a table of 2**27 - 3 rows, no valid pair, an empty
+batch and bags of no slot (zeros), ids of 2**31 slots refused, dirty memory
+under the output (every row written), the 2-D entry and autograd through
+both entries;
 one recsys (wide-deep) and one GNN (full_graph_sm) train step against a
 CPU copy.
 
@@ -447,8 +454,12 @@ def _k1_grad_check(grad, ids, off, H, dtype):
     again = embedding_bag_features_grad(grad, ids, off, H)
     torch.cuda.synchronize()
     assert k1_ops.grad_launches == before + 2
-    assert got.dtype == grad.dtype and got.shape == (H, grad.shape[2])
     assert torch.equal(got, again)
+    return _k1_grad_against_plain(got, grad, ids, off, H, dtype)
+
+
+def _k1_grad_against_plain(got, grad, ids, off, H, dtype):
+    assert got.dtype == grad.dtype and got.shape == (H, grad.shape[2])
     want = embedding_bag_features_grad_ref(grad.cpu().double(), ids.cpu(),
                                            off.cpu(), H)
     scale = float(want.float().abs().max())
@@ -502,6 +513,170 @@ def test_k1_grad_2d_entry_and_autograd(cuda_device):
     assert (k1_ops.launches, k1_ops.grad_launches) == (before[0] + 2,
                                                        before[1] + 2)
     assert torch.equal(g3, want) and torch.equal(g2, want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [1, 8, 32, 64, 100, 128, 256, 300])
+def test_k1_grad_row_widths(cuda_device, D, dtype):
+    """Every row geometry of the sums pass: rows of 1 to 8 whole 16-byte
+    vectors through the cp.async sums (1, 2, 4 and 8 lanes a row), one
+    element a lane elsewhere: a lane a chunk at D = 1, 32 lanes over the
+    columns at D = 64 and wider in f32 and D = 100 and wider in bf16, with
+    column blocks of 32 (up to 10 at D = 300)."""
+    rng = np.random.default_rng(D * 7 + len(dtype))
+    _k1_grad_check(*_k1_grad_case(rng, 200, D, 12, dtype, cuda_device),
+                   dtype)
+
+
+@pytest.mark.parametrize("case", ["one_row", "ragged_rows", "last_row"])
+def test_k1_grad_table_edges(cuda_device, case):
+    """H = 1 (no sort pass: every pair on row 0); H = 1,033, not a
+    multiple of the 32 rows a warp of the zero sweep takes; the table's
+    last row read by many pairs."""
+    rng = np.random.default_rng(11)
+    B, P, D = 150, 7, 32
+    H = 1 if case == "one_row" else 1033
+    ids = _k1_ids(rng, (B, 1, P), H)
+    if case == "last_row":
+        ids[rng.random(ids.shape) < 0.3] = H - 1
+    grad = torch.from_numpy(rng.standard_normal((B, 1, D)).astype(
+        np.float32)).to(cuda_device)
+    off = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    got = _k1_grad_check(grad, torch.from_numpy(ids).to(cuda_device), off, H,
+                         "f32")
+    if case != "ragged_rows":
+        assert got[H - 1].any()
+
+
+def _k1_pairs_case(rng, H, layout, device):
+    """ids with padding, an unrouted feature (features layout), the last
+    row and ids past the table: (ids, offsets or None) on ``device``."""
+    B, F, P = 300, 4, 20
+    span = max(H // 3, 1)
+    ids = rng.integers(-1, span + 40, (B, F, P)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.2] = -1
+    if layout == "flat":
+        ids = ids.reshape(B * F, P)
+        ids[:, 0] = H - 1
+        ids[::3, 1] = H + 7  # past the table
+        return torch.from_numpy(ids).to(device), None
+    off = np.array([0, span, -1, H - span], np.int64)
+    ids[:, 3, 0] = span - 1  # the table's last row
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(off).to(device))
+
+
+@pytest.mark.parametrize("H", [1, 4900, 2**27 + 5])
+@pytest.mark.parametrize("layout", ["features", "flat"])
+def test_k1_grad_sorted_pairs_bitwise(cuda_device, layout, H):
+    """The backward's pairs stage (its valid pairs in flat-index order) and
+    its radix sort (no pass at H = 1, 2 at 13 bits, 4 at 28) bitwise
+    against the plain version."""
+    from repro_torch.kernels.embedding_bag.embedding_bag import GradLaunch
+    from repro_torch.kernels.embedding_bag.ref import grad_sorted_pairs_ref
+
+    rng = np.random.default_rng(H % 1000)
+    ids, off = _k1_pairs_case(rng, H, layout, cuda_device)
+    want_rows, want_flat = grad_sorted_pairs_ref(
+        ids.cpu(), H, None if off is None else off.cpu())
+    grad = torch.zeros((ids.numel() // ids.shape[-1], 1), device=cuda_device)
+    call = GradLaunch(grad, ids, off, H)
+    call.run(call.PAIRS)
+    rows, flat = (t.cpu() for t in call.pairs())
+    in_order = torch.argsort(want_flat)
+    assert torch.equal(flat, want_flat[in_order])
+    assert torch.equal(rows, want_rows[in_order])
+    call.run(call.SORT)
+    rows, flat = (t.cpu() for t in call.sorted_pairs())
+    assert torch.equal(rows, want_rows) and torch.equal(flat, want_flat)
+
+
+def test_k1_grad_three_sort_passes(cuda_device):
+    """The gradient over a table of 2**27 - 3 rows (27 bits, as dlrm-rm2's:
+    3 radix passes, the top row bits set) at D = 1, held to the plain
+    version in float64 on the touched rows, every other row exactly 0."""
+    from repro_torch.kernels.embedding_bag.ref import grad_sorted_pairs_ref
+
+    H = 2**27 - 3
+    rng = np.random.default_rng(5)
+    ids, off = _k1_pairs_case(rng, H, "features", cuda_device)
+    grad = torch.from_numpy(rng.standard_normal(
+        (*ids.shape[:2], 1)).astype(np.float32)).to(cuda_device)
+    got = embedding_bag_features_grad(grad, ids, off, H).cpu()[:, 0]
+    rows, flat = grad_sorted_pairs_ref(ids.cpu(), H, off.cpu())
+    u, inv = np.unique(rows.numpy(), return_inverse=True)
+    want = np.zeros(u.size)
+    np.add.at(want, inv, grad.cpu().double().reshape(-1).numpy()[
+        flat.numpy() // ids.shape[2]])
+    scale = max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(got[u].numpy(), want, rtol=K1_TOL["f32"],
+                               atol=K1_TOL["f32"] * scale)
+    got[torch.from_numpy(u)] = 0
+    assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k1_grad_no_valid_pairs(cuda_device, dtype):
+    """No pair reads a row (padding, an unrouted feature, ids past the
+    table), an empty batch and bags of no slot (P = 0), through both
+    entries: zeros, written by the kernel, one call counted each."""
+    H, D = 700, 16
+    ids = np.full((40, 2, 6), -1, np.int32)
+    ids[:, 1] = 3         # feature 1 is unrouted
+    ids[:, 0, 0] = 5000   # past the table
+    ids = torch.from_numpy(ids).to(cuda_device)
+    off = torch.tensor([0, -1], dtype=torch.int64, device=cuda_device)
+    grad = torch.ones((40, 2, D), dtype=TDT[dtype], device=cuda_device)
+    before = k1_ops.grad_launches
+    got = [embedding_bag_features_grad(grad, ids, off, H),
+           embedding_bag_features_grad(grad[:0], ids[:0], off, H),
+           hot_embedding_bag_grad(grad[:0, 0], ids[:0, 0], H),
+           embedding_bag_features_grad(grad, ids[..., :0], off, H),
+           hot_embedding_bag_grad(grad[:, 0], ids[:, 0, :0], H)]
+    torch.cuda.synchronize()
+    assert k1_ops.grad_launches == before + 5
+    zeros = torch.zeros((H, D), dtype=TDT[dtype], device=cuda_device)
+    for g in got:
+        assert g.dtype == zeros.dtype and torch.equal(g, zeros)
+
+
+def test_k1_grad_refuses_2_31_slots(cuda_device):
+    """ids of 2**31 slots or more (the kernel's pair index is 32-bit) are
+    refused by both entries before any work or launch (views of one
+    element)."""
+    one = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda_device)
+    ids = one.expand(2**16, 2**10, 2**5)
+    grad = torch.zeros((1, 1, 4), device=cuda_device).expand(
+        2**16, 2**10, 4)
+    off = torch.zeros(2**10, dtype=torch.int64, device=cuda_device)
+    before = k1_ops.grad_launches
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        embedding_bag_features_grad(grad, ids, off, 10)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        hot_embedding_bag_grad(grad.reshape(2**26, 4),
+                               ids.reshape(2**26, 2**5), 10)
+    assert k1_ops.grad_launches == before
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k1_grad_writes_every_row(cuda_device, dtype):
+    """Every row is written by the kernel: a block of the output's size is
+    filled with NaN and freed first, so PyTorch's caching allocator hands
+    the kernel dirty memory; and a launch whose output is filled with NaN
+    before it runs.  No untouched row is anything but 0."""
+    from repro_torch.kernels.embedding_bag.embedding_bag import GradLaunch
+
+    rng = np.random.default_rng(21)
+    grad, ids, off, H = _k1_grad_case(rng, 300, 32, 8, dtype, cuda_device,
+                                      sizes=(20000, 700, 9300))
+    dirty = torch.full((H, 32), float("nan"), dtype=TDT[dtype],
+                       device=cuda_device)
+    del dirty
+    _k1_grad_against_plain(embedding_bag_features_grad(grad, ids, off, H),
+                           grad, ids, off, H, dtype)
+    call = GradLaunch(grad.reshape(-1, 32), ids, off, H)
+    call.out.fill_(float("nan"))
+    _k1_grad_against_plain(call.run(), grad, ids, off, H, dtype)
 
 
 def _train_on_card_and_cpu(cell, cfg, batch_np, dims=None):

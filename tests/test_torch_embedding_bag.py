@@ -4,7 +4,9 @@ per-feature entry's plain version against the reference's
 ``embedding_bag_local``, and the CUDA kernel against the plain version where
 a card is present.  The table gradient through the autograd entries (K1's
 backward; its plain version on the CPU) against ``jax.grad`` of the
-reference's ``embedding_bag_local``, and ``gradcheck`` of the plain path.
+reference's ``embedding_bag_local``, ``gradcheck`` of the plain path, the
+plain version of the backward's pairs and sort stages against numpy, and
+the gradient entries' limits.
 
 Tolerances are those of tests/test_kernels.py: f32 1e-5, bf16 3e-2."""
 import jax
@@ -26,7 +28,10 @@ from repro_torch.kernels.embedding_bag import (
     ops,
 )
 from repro_torch.models import embedding as temb
-from repro_torch.kernels.embedding_bag.ref import shift_feature_ids
+from repro_torch.kernels.embedding_bag.ref import (
+    grad_sorted_pairs_ref,
+    shift_feature_ids,
+)
 from repro_torch.models.dlrm import params_from_reference
 
 TOL = {"f32": 1e-5, "bf16": 3e-2}
@@ -300,3 +305,90 @@ def test_table_grad_after_serving_in_inference_mode():
     assert torch.equal(pooled.detach(), served)
     got, = torch.autograd.grad(pooled.sum(), t)
     assert got.shape == t.shape and got.any()
+
+
+def _pairs_numpy(ids, n_rows, off=None):
+    """The pairs K1's backward sums, by numpy: (rows, flat indices) of the
+    slots that read a row, in a stable argsort by row."""
+    rows = ids.astype(np.int64)
+    ok = ids >= 0
+    if off is not None:
+        o = off[None, :, None]
+        rows = rows + o
+        ok &= o >= 0
+    rows, ok = rows.reshape(-1), ok.reshape(-1) & (rows.reshape(-1) < n_rows)
+    flat = np.flatnonzero(ok)
+    order = np.argsort(rows[flat], kind="stable")
+    return rows[flat][order], flat[order]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("layout", ["features", "flat"])
+def test_grad_sorted_pairs_plain_matches_numpy(layout, seed):
+    """``grad_sorted_pairs_ref`` (the plain version of the backward's pairs
+    and sort stages) against numpy on ids with padding, an unrouted
+    feature, ids at H - 1 and ids past the table, in both entries' index
+    layouts (b * F * P + f * P + p, and b * P + p)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.array([50, 7, 300, 20])
+    B, F, P = 33, len(sizes), 9
+    ids = rng.integers(-1, sizes[None, :, None] + 3, (B, F, P)).astype(
+        np.int32)
+    ids[rng.random(ids.shape) < 0.2] = -1
+    ids[0, :, 0] = sizes - 1          # the last row of each feature
+    off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    off[1] = -1                       # an unrouted feature
+    H = int(sizes.sum())
+    if layout == "features":
+        got = grad_sorted_pairs_ref(torch.from_numpy(ids), H,
+                                    torch.from_numpy(off))
+        want = _pairs_numpy(ids, H, off)
+        assert H - 1 in want[0]       # the table's last row is read
+    else:
+        flat = ids.reshape(B * F, P)
+        got = grad_sorted_pairs_ref(torch.from_numpy(flat), 280)
+        want = _pairs_numpy(flat, 280)
+    assert all(g.dtype == torch.int32 for g in got)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
+def test_grad_entries_limits_raise():
+    """The gradient kernel's check refuses ids of 2**31 slots or more (its
+    pair index is 32-bit; the card's entries run it before any work, the
+    plain version has no such limit), and the entries refuse offsets of
+    the wrong shape, dtype or device (the ids here are views of one
+    element)."""
+    one = torch.zeros((1, 1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        ops._check_kernel_slots(one.expand(2**16, 2**10, 2**5))
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        ops._check_kernel_slots(one[0].expand(2**26, 2**5))
+    ops._check_kernel_slots(one.expand(1, 1, 2**31 - 1))
+    g, i = torch.zeros((2, 3, 4)), torch.zeros((2, 3, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="row_offsets"):
+        embedding_bag_features_grad(g, i, torch.zeros(2, dtype=torch.int64),
+                                    10)
+    with pytest.raises(ValueError, match="row_offsets"):
+        embedding_bag_features_grad(g, i, torch.zeros(3, dtype=torch.int32),
+                                    10)
+    with pytest.raises(ValueError, match="row_offsets"):
+        embedding_bag_features_grad(g, i, torch.zeros((3, 1),
+                                                      dtype=torch.int64), 10)
+    assert embedding_bag_features_grad(
+        g, i, torch.zeros(3, dtype=torch.int64), 10).shape == (10, 4)
+
+
+def test_grad_entries_bags_of_no_slot():
+    """Bags of P = 0 slots (and an empty batch) read no row: both gradient
+    entries give zeros of the table's shape, in the gradient's dtype."""
+    g = torch.ones((5, 3, 4), dtype=torch.bfloat16)
+    off = torch.zeros(3, dtype=torch.int64)
+    zeros = torch.zeros((10, 4), dtype=torch.bfloat16)
+    for got in (embedding_bag_features_grad(
+                    g, torch.zeros((5, 3, 0), dtype=torch.int32), off, 10),
+                embedding_bag_features_grad(
+                    g[:0], torch.zeros((0, 3, 2), dtype=torch.int32), off, 10),
+                hot_embedding_bag_grad(
+                    g[:, 0], torch.zeros((5, 0), dtype=torch.int32), 10)):
+        assert torch.equal(got, zeros)

@@ -32,10 +32,34 @@ launch; every setting's line is also written to ``--out``.
     python3 tools/k1_bench.py [--src DIR] [--sweep] [--out PATH]
     python3 tools/k1_bench.py --ab PARENT_SRC   # parent, change, change, parent
 
+``--grad`` times K1's backward instead, at the four shapes of the train
+phase: the dlrm-rm2 train launch (bf16, D = 64), dlrm-rmc1 prod (f32, D =
+32), wide-deep's deep launch (f32, D = 32, 80 M rows) and its wide one (D
+= 1), each with the cells' own ids (seed 21, as ``chip_smoke.py``'s train
+phase).  Its line holds ptxas's report of the backward's kernels
+(registers, spills, static shared memory, and the blocks an SM holds
+worked out from those at kWarps warps a block; the 1,024-thread scan and
+the 64 KB of dynamic shared memory of the cp.async sums, 3 blocks an SM,
+are not in that count), and for each shape the check against the plain
+version on the touched rows (``k1_grad_touched``), ``measure_k1_grad``'s
+times (kernel, plain, ``F.embedding_bag``'s autograd, bound, each after
+an idle wait and 3 untimed calls, the SM clock read beside the kernel;
+the kernel also right after the check, with no wait), the stage times
+(CUDA events around each stage; a tree without ``GradLaunch`` has none)
+and one call under torch.profiler (device time by kernel, which splits
+any tree's call into its kernels).
+``--grad --settle`` times the first ``SETTLE_CALLS`` calls at the rm2
+launch after its check one by one, each with the SM clock's readings
+over it and the device allocations it made: at once, after an idle
+wait, and after one call and the wait (``run_settle``).
+
 ``--ab`` runs the tool on PARENT_SRC and on this checkout's ``src`` in turn,
 each in its own process, on one card, and writes every line to ``--out``
 (default ``build/k1_bench.json``, git-ignored).  The timing helpers are
 ``chip_smoke.py``'s.
+
+    python3 tools/k1_bench.py --grad [--src DIR] [--settle]
+    python3 tools/k1_bench.py --grad --ab PARENT_SRC
 """
 from __future__ import annotations
 
@@ -44,6 +68,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -262,6 +287,168 @@ def run_one(src: Path) -> dict:
     return out
 
 
+GRAD_NAME = re.compile(r"(k1g?_[a-z_]+?)I(f|13__nv_bfloat16|4int4)((?:Li\d+E)*)E")
+
+
+def grad_instance(mangled: str) -> str:
+    m = GRAD_NAME.search(mangled)
+    if m is None:
+        m = re.search(r"k1g?_[a-z_]+", mangled)
+        return m.group(0) if m else mangled
+    name, t, ints = m.groups()
+    args = [{"f": "f32", "13__nv_bfloat16": "bf16", "4int4": "int4"}[t]]
+    args += re.findall(r"\d+", ints)
+    return f"{name}<{','.join(args)}>"
+
+
+def grad_ptxas(log: str, warps: int) -> dict:
+    """ptxas's report of the backward's kernels, by instance name."""
+    out = {}
+    for k, v in ptxas_summary(log, warps).items():
+        out[grad_instance(k)] = v
+    return out
+
+
+def grad_cases(dev):
+    """(name, ids [B, F, P] on ``dev``, embedding config, seed) of K1's
+    backward at the train phase's four shapes."""
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.configs.paper_models import rmc1
+    from repro_torch.data.clicklog import cell_batch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.widedeep import _wide_cfg
+
+    def cell_ids(arch_id):
+        cell = build_cell(arch_id, "train_batch", dev)
+        ids = cell_batch(cell.cfg, cell.batch_specs, seed=21)["sparse_ids"]
+        return cell.cfg, torch.from_numpy(ids).to(dev)
+
+    cfg, ids = cell_ids("dlrm-rm2")
+    yield "rm2_train_launch", ids, cfg.embedding, 5
+    del ids
+    cfg = rmc1(True)
+    yield ("rmc1_prod", torch.from_numpy(smoke.click_launches(cfg, [3])[0])
+           .to(dev), cfg.embedding, 6)
+    cfg, ids = cell_ids("wide-deep")
+    yield "wide_deep_deep", ids, cfg.embedding, 7
+    yield "wide_deep_wide", ids, _wide_cfg(cfg), 6
+
+
+def run_grad(src: Path) -> dict:
+    sys.path.insert(0, str(src.resolve()))
+    sys.path.insert(1, str(ROOT))
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import embedding_bag as launcher
+    from repro_torch.kernels.embedding_bag import ops
+
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_bench: no CUDA device")
+    srcs = {k: v for k, v in _build.sources().items()
+            if k.startswith("embedding_bag_grad")}
+    procs = {k: compile_k1(v, _build.BUILD_DIR / f"k1_bench_{k}.so")
+             for k, v in srcs.items()}
+    ptxas = {}
+    for k, proc in procs.items():
+        warps = int(WARPS.search(srcs[k].read_text()).group(1))
+        ptxas.update(grad_ptxas(finish(proc), warps))
+    out = {"src": str(src), "card": smoke.nvidia_smi(), "ptxas": ptxas,
+           "design": "radix" if hasattr(launcher, "GradLaunch") else
+                     "torch.sort"}
+    bw, f32_rate, _ = smoke.card_rates(torch.cuda.get_device_name(0))
+    dev = torch.device("cuda")
+    cases = {}
+    for name, ids3, emb, seed in grad_cases(dev):
+        line, g, off = smoke.k1_grad_touched(dev, name, ids3, emb, seed)
+        H = emb.total_rows
+        line.update(smoke.measure_k1_grad(g, ids3, off, H, bw, f32_rate))
+        if out["design"] == "radix":
+            line["stages"] = smoke.k1_grad_stages(g, ids3, off, H)
+        line["profile"] = smoke.profile_step(
+            lambda: ops.embedding_bag_features_grad(g, ids3, off, H),
+            top=24)
+        cases[name] = line
+        print(json.dumps({"case": name, "ms": line["ms"],
+                          "stages": line.get("stages")}), file=sys.stderr,
+              flush=True)
+        del g, ids3
+        torch.cuda.empty_cache()
+    out["cases"] = cases
+    return out
+
+
+SETTLE_CALLS = 30
+SETTLE_IDLE_S = 2.0
+
+
+def settle_calls(fn, n: int) -> list[dict]:
+    """``n`` calls of ``fn`` one by one, each timed alone (CUDA events, the
+    spin ahead), with the SM clock's [min, median, max] over it and the
+    device allocations the caching allocator made in it."""
+    import torch
+
+    import chip_smoke as smoke
+
+    calls = []
+    with smoke.SmClock() as clock:
+        for _ in range(n):
+            allocs = torch.cuda.memory_stats().get("num_device_alloc")
+            torch.cuda._sleep(smoke.SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            clock.t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            clock.t1 = time.perf_counter()
+            after = torch.cuda.memory_stats().get("num_device_alloc")
+            calls.append({"ms": start.elapsed_time(end),
+                          "sm_mhz": clock.window(),
+                          "device_allocs": None if allocs is None
+                          else after - allocs})
+    return calls
+
+
+def run_settle(src: Path) -> dict:
+    """K1's backward at the rm2 train launch right after its check, as
+    ``measure_k1_grad`` meets it, in three rounds, each after the check
+    anew: its first SETTLE_CALLS calls at once (``after_check``); the same
+    after SETTLE_IDLE_S seconds of an idle card (``after_idle``); one
+    call, then the idle wait, then the calls (``after_call_and_idle``)."""
+    sys.path.insert(0, str(src.resolve()))
+    sys.path.insert(1, str(ROOT))
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.kernels.embedding_bag import ops
+
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_bench: no CUDA device")
+    dev = torch.device("cuda")
+    name, ids3, emb, seed = next(grad_cases(dev))
+    H = emb.total_rows
+    out = {"src": str(src), "card": smoke.nvidia_smi(), "case": name}
+    for round_ in ("after_check", "after_idle", "after_call_and_idle"):
+        _, g, off = smoke.k1_grad_touched(dev, name, ids3, emb, seed)
+
+        def entry():
+            ops.embedding_bag_features_grad(g, ids3, off, H)
+
+        if round_ == "after_call_and_idle":
+            entry()
+        if round_ != "after_check":
+            torch.cuda.synchronize()
+            time.sleep(SETTLE_IDLE_S)
+        out[round_] = settle_calls(entry, SETTLE_CALLS)
+        del g
+    return out
+
+
 def variant_source(text: str, setting: dict) -> str:
     """``csrc/embedding_bag.cu``'s text with ``setting`` applied: each
     ``kWarps``/``kTeam``/``kRows`` given its value, ``l1: no_allocate``
@@ -343,6 +530,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--grad", action="store_true",
+                    help="time K1's backward (see above)")
+    ap.add_argument("--settle", action="store_true",
+                    help="with --grad: its first calls one by one")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "k1_bench.json",
                     help="where --ab and --sweep write all their lines")
     ap.add_argument("--ab", type=Path, default=None,
@@ -353,12 +544,14 @@ def main() -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(run_sweep(), indent=1))
         return 0
+    one = (run_settle if args.settle else run_grad) if args.grad else run_one
     if args.ab is None:
-        print(json.dumps(run_one(args.src)), flush=True)
+        print(json.dumps(one(args.src)), flush=True)
         return 0
     lines = []
     for src in (args.ab, ROOT / "src", ROOT / "src", args.ab):
-        proc = subprocess.run([sys.executable, __file__, "--src", str(src)],
+        proc = subprocess.run([sys.executable, __file__, "--src", str(src)]
+                              + ["--grad"] * args.grad,
                               capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
@@ -366,6 +559,14 @@ def main() -> int:
         lines.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(lines, indent=1))
+    if args.grad:
+        for line in lines:
+            print(json.dumps({"src": line["src"], "card": line["card"],
+                              **{n: {"ms": c["ms"], "bound_ms": c["bound_ms"],
+                                     "ms_first": c["ms_first"],
+                                     "stages": c.get("stages")}
+                                 for n, c in line["cases"].items()}}))
+        return 0
     keys = ("ms", "ms_cold_l2", "ms_cold_clean", "ms_stream", "library_ms",
             "bound_ms")
     for line in lines:
