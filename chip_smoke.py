@@ -64,7 +64,25 @@ Phases, one JSON line each:
                (d) the steps of (b) and (c) in f32, K3 held to its plain
                version at each call, their logits held to the same path
                with K3 replaced by its plain version;
-  8. recsys  - the rest of Hercules' paper models and the registry's
+  8. lm_configs, lm_train - (a) decode_32k of qwen2-7b (batch 64, cut
+               from 128), deepseek-67b (32 of its 95 layers, batch 8),
+               qwen2-moe-a2.7b (batch 8) and olmoe-1b-7b (batch 16) at FULL
+               width, random weights and a random int8 cache: K3's int8
+               entry at KV groups 7, 8, 1 and 1, n_layers launches a step
+               counted from 0, the step again with K3 held to its plain
+               version at every call (in blocks of 8 batch rows), step ms,
+               peak; then K3's int8 entry alone on the first layer's cache
+               beside its plain version and byte bound; (b) llama3.2-3b
+               train_4k at FULL width (bf16, chunked attention, remat,
+               AdamW), batch 4 (cut from 256), S = 4096: 3 steps on one
+               TokenStream batch, the loss falling from about ln(128256)
+               + 3072 x 0.02^2 / 2 (a 0.02-std init),
+               step, grad and update ms, peak, tokens/s and the model-FLOP
+               rate against 989 TFLOP/s, one gradient pass under
+               torch.profiler (device time by kernel); a 2-layer
+               FULL-width f32 copy's loss and every gradient held to the
+               CPU at 1e-4 of the leaf's largest entry;
+  9. recsys  - the rest of Hercules' paper models and the registry's
                recsys cells (``repro_torch.launch.serve_recsys``,
                ``repro_torch.launch.steps``), random weights from a seed:
                (a) mt-wnd prod (26 x 20,000,000 x 32 deep and a dim-1 wide
@@ -86,7 +104,7 @@ Phases, one JSON line each:
                retrieval on 4 blocks of candidates); last, one din and one
                dien launch under torch.profiler (device busy, idle share,
                device events);
-  9. train   - training through ``repro_torch.launch.steps``' train cells
+  10. train  - training through ``repro_torch.launch.steps``' train cells
                (random weights from a seed, 3 steps on one fixed batch, the
                loss at each step and after them, falling): (a) the recsys
                train_batch cells of dlrm-rm2 (16.64 GB bf16 table), wide-deep,
@@ -111,7 +129,20 @@ Phases, one JSON line each:
                CPU copy at vocabularies cut to 3,000 rows, then one AdaGrad
                step on each from the same gradients; each check with planted
                faults; step ms, peak memory, parameter and optimizer GB;
- 10. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
+               then ``repro_torch.launch.train_dlrm`` (dlrm-100m, batch
+               1024): its first step held to its plain versions (K1's
+               per-feature entry on the step's table and ids, K1's
+               backward on them against the whole dense plain gradient,
+               each timed beside its plain version, library call and
+               bound; the step's gradients and AdaGrad update against a
+               CPU copy, planted faults failing each check), then the
+               checkpointing Trainer in a temporary
+               directory: run A 60 steps with a commit every 20, run B
+               crashed before step 45 and resumed after step 40, ending on
+               A's loss and state (1e-6; bitwise reported), the step-60
+               commit restored bitwise, K1 and its backward launched once
+               a step;
+ 11. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
                day through ``repro_torch.serving.scenarios``: (a) K4 at
                benchmarks/bench_cluster.py's fleet shape (512 streams, k in
                {2, 4, 8, 16}, 199,444 jobs) and at a full-width day's
@@ -1038,13 +1069,26 @@ def nudged_plain_k3():
                    nudge(ref.flash_decode_int8_ref))
 
 
+# K3's int8 entry held to its plain version in blocks of this many batch
+# rows (each row attends alone), so the plain version's dequantised copy
+# of the cache is a block's
+CHECK_ROWS = 8
+
+
+def int8_faults(calls: int, batch: int) -> int:
+    """The planted faults ``k3_checked`` fails over ``calls`` int8 calls
+    at ``batch`` rows: ``k3_int8_controls``' four a block of CHECK_ROWS."""
+    return 4 * calls * -(-batch // CHECK_ROWS)
+
+
 @contextlib.contextmanager
 def k3_checked(errs: list):
     """K3 as on the path, held at every call to its plain version on the
     same inputs at the bf16 tolerance (the f32 tolerance for f32 q), with
     the planted faults of ``k3_controls`` / ``k3_int8_controls`` failing
     the same check; the kernel's output continues the path.  Each call's
-    max abs error goes to ``errs``."""
+    max abs error goes to ``errs``.  The int8 entry's call is held in
+    blocks of CHECK_ROWS batch rows."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops, ref
@@ -1062,10 +1106,14 @@ def k3_checked(errs: list):
 
     def both_int8(q, kq, ks, vq, vs, **kw):
         out = ops.flash_decode_int8(q, kq, ks, vq, vs, **kw)
-        want = ref.flash_decode_int8_ref(q, kq, ks, vq, vs, **kw)
         name = f"K3 int8 call {len(errs)}"
-        errs.append(check(name, out, want, tol(q)))
-        k3_int8_controls(name, want, q, kq, ks, vq, vs, tol(q), **kw)
+        err = 0.0
+        for b in range(0, q.shape[0], CHECK_ROWS):
+            args = [t[b:b + CHECK_ROWS] for t in (q, kq, ks, vq, vs)]
+            want = ref.flash_decode_int8_ref(*args, **kw)
+            err = max(err, check(name, out[b:b + CHECK_ROWS], want, tol(q)))
+            k3_int8_controls(name, want, *args, tol(q), **kw)
+        errs.append(err)
         return out
 
     with swap_k3(both, both_int8):
@@ -1283,7 +1331,8 @@ def phase_lm(dev) -> dict:
                         for t in cache.values()) / 1e9,
         "step_ms": step_ms, "k3_int8_launches": k3_step,
         "k3_vs_plain_max_abs_err_per_call": max(layer_errs),
-        "tolerance": BF16_TOL, "planted_faults_failed": 4 * len(layer_errs),
+        "tolerance": BF16_TOL,
+        "planted_faults_failed": int8_faults(len(layer_errs), B),
         "logits_max_abs_err_plain_path": drift(got, plain),
         "logits_mean_abs_err_plain_path": float((got.float() - plain.float())
                                                 .abs().mean()),
@@ -1346,7 +1395,8 @@ def phase_lm(dev) -> dict:
         "tokens_per_s": GEN_PROMPTS / step_med * 1e3,
         "k3_int8_launches": gen_launches, "k3_bf16_launches": gen_bf16,
         "k3_vs_plain_max_abs_err_per_call": max(layer_errs),
-        "tolerance": BF16_TOL, "planted_faults_failed": 4 * len(layer_errs),
+        "tolerance": BF16_TOL,
+        "planted_faults_failed": int8_faults(len(layer_errs), GEN_PROMPTS),
         "logits_max_abs_err_plain_path": max(e2e),
         "logits_max_abs_err_plain_path_first_step": e2e[0],
         "argmax_agreement_plain_path": agree / (GEN_PROMPTS * GEN_STEPS)}
@@ -1407,7 +1457,8 @@ def phase_lm(dev) -> dict:
         "tolerance": F32_PATH_TOL,
         "k3_vs_plain_max_abs_err_per_call": max(f32_calls),
         "k3_tolerance": ATTN_F32_TOL,
-        "planted_faults_failed": 4 * len(f32_calls),
+        "planted_faults_failed": int8_faults(cfg.n_layers, B)
+        + int8_faults(cfg.n_layers * GEN_STEPS, GEN_PROMPTS),
         "decode_32k_logits_max_abs_err": dec_err,
         "decode_32k_logits_std": dec_std,
         "generate_logits_max_abs_err": max(gen_errs),
@@ -1419,6 +1470,295 @@ def phase_lm(dev) -> dict:
                          torch.cuda.max_memory_allocated() / 1e9)
     del params32, gen_cache, prefilled, timed, plain
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the other LM families' decode, and LM training
+# ---------------------------------------------------------------------------
+
+# decode_32k of the other LM configs at FULL width: (batch, depth) cut
+# from 128 sequences (and deepseek-67b's 95 layers) only as far as one
+# 80 GB card forces: the bf16 weights and the int8 cache of 32,768 rows a
+# sequence (qwen2-7b 15.23 GB + 0.97 GB a sequence; qwen2-moe 30.29 +
+# 3.27; olmoe 13.84 + 2.18; deepseek 1.384 GB a layer + 0.069 a layer a
+# sequence, so 32 of its 95 layers at batch 8)
+LM_DECODE_CUTS = {"qwen2-7b": (64, None), "deepseek-67b": (8, 32),
+                  "qwen2-moe-a2.7b": (8, None), "olmoe-1b-7b": (16, None)}
+# llama3.2-3b train_4k: batch cut 256 -> LM_TRAIN_BATCH, the largest power
+# of two one card holds (38.55 GB of bf16 weights and gradients and f32
+# moments, then ~7 GB a sequence under the remat: 64.9 GB at batch 4 on
+# the H100, so batch 8 would need ~93)
+LM_TRAIN_BATCH = 4
+LM_TRAIN_STEPS = 3
+# the FULL-width f32 copy held to the CPU: 2 layers, one sequence of
+# LM_CHECK_SEQ tokens in chunks of LM_CHECK_CHUNK (two chunks)
+LM_CHECK_SEQ, LM_CHECK_CHUNK = 512, 256
+LM_CHECK_TOL = 1e-4
+
+
+def lm_config_decode(dev, bw: float, arch_id: str) -> dict:
+    """One decode_32k step of ``arch_id`` at FULL width on a random int8
+    cache, cut as LM_DECODE_CUTS says: K3's int8 launches counted from 0
+    (n_layers), the step again with K3 held to its plain version at every
+    call (bitwise the step alone), step ms and peak; then, the weights
+    freed, K3's int8 entry alone on the first layer's cache beside its
+    plain version and byte bound."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch.steps import build_cell
+
+    batch_cut, depth = LM_DECODE_CUTS[arch_id]
+    g = torch.Generator(dev).manual_seed(31)
+    torch.cuda.reset_peak_memory_stats()
+    dec = build_cell(arch_id, "decode_32k", dev, batch=batch_cut,
+                     n_layers=depth)
+    cfg = dec.cfg
+    if not (cfg.decode_impl == "flash" and cfg.kv_quant == "int8"):
+        raise AssertionError(f"{arch_id}: unexpected config {cfg}")
+    t0 = time.perf_counter()
+    params = dec.init_state(g)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{arch_id}: {n_params} parameters, expected "
+                             f"{cfg.param_count()}")
+    B, S = dec.batch, dec.seq_len
+    specs = dec.batch_specs["cache"]
+    cache = {name: torch.randint(-127, 128, specs[name].shape, generator=g,
+                                 device=dev, dtype=torch.int8)
+             for name in ("k", "v")}
+    for name in ("ks", "vs"):
+        cache[name] = torch.empty(specs[name].shape, device=dev).uniform_(
+            0.005, 0.02, generator=g)
+    token = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=dev,
+                          dtype=torch.int32)
+    batch = {"token": token, "cache": cache}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_k3(ops)
+    got = dec.run(params, batch)["logits"]
+    torch.cuda.synchronize()
+    launches = ops.launches["flash_decode_int8"]
+    if launches != cfg.n_layers or ops.launches["flash_decode"]:
+        raise AssertionError(f"{arch_id}: K3's int8 entry launched "
+                             f"{launches} times in a decode step (bf16 entry "
+                             f"{ops.launches['flash_decode']}), expected "
+                             f"{cfg.n_layers} (and 0)")
+    if tuple(got.shape) != (B, cfg.vocab) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{arch_id}: logits {tuple(got.shape)} not "
+                             "finite")
+    errs = []
+    with k3_checked(errs):
+        checked = dec.run(params, batch)["logits"]
+    if len(errs) != cfg.n_layers or not bool(torch.equal(checked, got)):
+        raise AssertionError(f"{arch_id}: {len(errs)} checked K3 calls; the "
+                             "checked step differs from the step alone")
+    step_ms = host_ms(lambda: dec.run(params, batch), reps=5)
+    line = {"arch": arch_id, "batch": B, "batch_cut_from":
+            dec.shape["global_batch"], "n_layers": cfg.n_layers,
+            "n_layers_cut_from": None if depth is None else
+            get_arch(arch_id).FULL.n_layers,
+            "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+            "group": cfg.n_heads // cfg.n_kv_heads, "head_dim": cfg.head_dim,
+            "moe": cfg.moe is not None, "params": n_params,
+            "weights_gb": n_params * 2 / 1e9,
+            "cache_gb": sum(t.numel() * t.element_size()
+                            for t in cache.values()) / 1e9,
+            "setup_s": setup_s, "step_ms": step_ms,
+            "k3_int8_launches": launches,
+            "k3_vs_plain_max_abs_err_per_call": max(errs),
+            "tolerance": BF16_TOL, "check_rows": CHECK_ROWS,
+            "planted_faults_failed": int8_faults(len(errs), B),
+            "logits_std": float(got.float().std()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # K3's int8 entry alone on the first layer's cache, kv_len = S (the
+    # weights and the other layers freed: the plain version's dequantised
+    # copy of the whole layer needs the room)
+    layer = [cache[n][0].clone() for n in ("k", "ks", "v", "vs")]
+    del params, got, checked, cache, batch
+    torch.cuda.empty_cache()
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(
+        torch.bfloat16) * PEAK
+    out = ops.flash_decode_int8(q, *layer, kv_len=S)
+    err = check(f"{arch_id} k3 int8 alone", out, torch.cat([
+        ref.flash_decode_int8_ref(*(t[b:b + CHECK_ROWS] for t in (q, *layer)),
+                                  kv_len=S)
+        for b in range(0, B, CHECK_ROWS)]), BF16_TOL)
+    n_bytes = attn_bytes(q, *layer, out)
+    t_bytes = n_bytes / bw * 1e3
+    t_ops = 4 * B * H * S * hd / BF16_PEAK * 1e3
+    line["k3_int8"] = {
+        "shape": f"q [{B}, 1, {H}, {hd}] bf16, k/v [{B}, {S}, {KVH}, {hd}] "
+                 f"int8, scales [{B}, {S}, {KVH}, 1] f32, kv_len {S}",
+        "max_abs_err": err, "tolerance": BF16_TOL,
+        "ms": time_ms(lambda: ops.flash_decode_int8(q, *layer, kv_len=S)),
+        "plain_ms": time_ms(lambda: ref.flash_decode_int8_ref(
+            q, *layer, kv_len=S), reps=5),
+        "library_ms": None,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": n_bytes}
+    line["k3_int8"]["share_of_bound"] = \
+        line["k3_int8"]["bound_ms"] / line["k3_int8"]["ms"]
+    del q, layer, out
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_lm_configs(dev, bw: float) -> dict:
+    """decode_32k of qwen2-7b, deepseek-67b, qwen2-moe-a2.7b and
+    olmoe-1b-7b at FULL width (K3's int8 entry at KV groups 7, 8, 1, 1)."""
+    t0 = time.perf_counter()
+    res = {"phase": "lm_configs", "cells": {}}
+    for arch_id in LM_DECODE_CUTS:
+        res["cells"][arch_id] = lm_config_decode(dev, bw, arch_id)
+        emit({"phase": "lm_configs", "stage": "decode_32k",
+              **res["cells"][arch_id]})
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def lm_train_check(dev) -> dict:
+    """A 2-layer copy of llama3.2-3b at FULL width in f32 (d 3072, 24/8
+    heads, d_ff 8192, vocab 128256), one TokenStream sequence of
+    LM_CHECK_SEQ tokens in LM_CHECK_CHUNK chunks: ``lm_loss`` and every
+    gradient leaf on the card (remat on, as the cell) against the CPU
+    (remat off: the same function) at LM_CHECK_TOL of the leaf's largest
+    entry; planted faults (zeros, the two layers' gradients swapped) must
+    fail the check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.configs import llama3_2_3b
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(llama3_2_3b.FULL, n_layers=2,
+                              dtype=torch.float32, attn_chunk=LM_CHECK_CHUNK)
+    params = tf.init(cfg, generator=torch.Generator(dev).manual_seed(5),
+                     device=dev)
+    tokens = torch.from_numpy(TokenStream(cfg.vocab, seed=6).batch(
+        1, LM_CHECK_SEQ)["tokens"])
+    out = {}
+    for where, remat in (("card", True), ("cpu", False)):
+        p = tree_map(lambda t: t.detach().to(
+            "cpu" if where == "cpu" else dev).requires_grad_(True), params)
+        t0 = time.perf_counter()
+        loss = tf.lm_loss(p, {"tokens": tokens.to(p["embed"].device)},
+                          dataclasses.replace(cfg, remat=remat))
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        out[where] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                      time.perf_counter() - t0)
+        del p, loss, grads
+    del params
+    torch.cuda.empty_cache()
+    (loss, grads, card_s), (want_loss, want, cpu_s) = out["card"], out["cpu"]
+    errs = [check("lm train check loss", loss, want_loss, LM_CHECK_TOL)]
+    for i, (g, w) in enumerate(zip(grads, want)):
+        name = f"lm train check gradient leaf {i}"
+        errs.append(check(name, g, w, LM_CHECK_TOL))
+        wrong = {"zeros": torch.zeros_like(w)}
+        if w.dim() >= 2 and w.shape[0] == 2:        # a stacked block leaf
+            wrong["layers swapped"] = w.flip(0)
+        for what, bad in wrong.items():
+            must_fail(f"{name}, {what}", bad, w, LM_CHECK_TOL)
+    return {"config": "llama3.2-3b FULL width, 2 layers, f32",
+            "batch": 1, "seq_len": LM_CHECK_SEQ, "attn_chunk": LM_CHECK_CHUNK,
+            "loss": float(loss), "loss_cpu": float(want_loss),
+            "leaves": len(grads), "max_abs_err_relative_to_leaf_max": max(
+                e / max(float(w.abs().max()), 1e-30)
+                for e, w in zip(errs[1:], want)),
+            "tolerance": LM_CHECK_TOL, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def phase_lm_train(dev) -> dict:
+    """llama3.2-3b train_4k at FULL width (bf16, chunked attention, remat,
+    adamw), batch LM_TRAIN_BATCH at S = 4096: LM_TRAIN_STEPS steps on one
+    TokenStream batch, the loss falling from about ln(vocab); step, grad
+    and update ms, peak memory, tokens/s, the model-FLOP rate; then the
+    2-layer FULL-width f32 copy held to the CPU."""
+    import math
+
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.steps import build_cell
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cell = build_cell(LM_ARCH, "train_4k", dev, batch=LM_TRAIN_BATCH)
+    cfg = cell.cfg
+    if not (cfg.remat and cfg.attn_impl == "chunked"
+            and cfg.dtype == torch.bfloat16):
+        raise AssertionError(f"unexpected train config {cfg}")
+    state = cell.init_state(torch.Generator(dev).manual_seed(3))
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, expected "
+                             f"{cfg.param_count()}")
+    B, S = cell.batch, cell.seq_len
+    tokens = torch.from_numpy(TokenStream(cfg.vocab, seed=0).batch(
+        B, S)["tokens"]).to(dev)
+    batch = {"tokens": tokens}
+    state_gb = tree_gb(state["params"]) + tree_gb(state["opt"])
+    losses, times = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, out = cell.run(state, batch)
+        losses.append(float(out["loss"]))
+        times.append((time.perf_counter() - t) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, grads = cell.value_and_grad(state, batch)
+    torch.cuda.synchronize()
+    grad_ms = (time.perf_counter() - t) * 1e3
+    del grads
+    # where the gradient pass goes: one more under torch.profiler (device
+    # time by kernel)
+    prof = profile_step(lambda: cell.value_and_grad(state, batch), top=12)
+    # from the 0.02-std init, the head's logits have variance d x 0.02^2
+    # (the final norm's output has unit RMS), so the first loss is about
+    # ln V + d x 0.02^2 / 2 (11.76 + 0.61 at d = 3072)
+    ln_v = math.log(cfg.vocab)
+    init_loss = ln_v + cfg.d_model * 0.02 ** 2 / 2
+    if not (all(math.isfinite(x) for x in losses)
+            and all(b < a for a, b in zip(losses, losses[1:]))
+            and abs(losses[0] - init_loss) < 0.5):
+        raise AssertionError(f"train_4k losses {losses}: not falling, or "
+                             f"the first not within 0.5 of ln V + d x "
+                             f"0.02^2 / 2 = {init_loss}")
+    step_ms = statistics.median(times)
+    flops = 6 * n_params * B * S
+    res = {"phase": "lm_train", "arch": LM_ARCH, "shape": "train_4k",
+           "batch": B, "batch_cut_from": cell.shape["global_batch"],
+           "seq_len": S, "params": n_params, "state_gb": state_gb,
+           "steps": LM_TRAIN_STEPS, "losses": losses,
+           "loss_after_steps": float(loss), "ln_vocab": ln_v,
+           "init_loss_expected": init_loss,
+           "step_ms": times, "median_step_ms": step_ms, "grad_ms": grad_ms,
+           "update_ms": step_ms - grad_ms, "peak_gb": peak_gb,
+           "grad_profile": prof,
+           "tokens_per_s": B * S / step_ms * 1e3,
+           "model_flops_per_step": flops,
+           "model_flop_rate_share": flops / (step_ms / 1e3) / BF16_PEAK,
+           "model_flop_rate_formula": "6 x params x B x S / step seconds / "
+                                      "989e12 (dense bf16 peak); attention's "
+                                      "score and value products and the "
+                                      "remat's second forward not counted"}
+    del state, batch, tokens, cell
+    torch.cuda.empty_cache()
+    res["cpu_check"] = lm_train_check(dev)
+    res["seconds"] = time.perf_counter() - t_phase
     return res
 
 
@@ -2188,35 +2528,24 @@ def k1_grad_whole(dev, name: str, ids3, emb, dtype):
             g, off)
 
 
-def recsys_grad_check(dev, arch_id: str) -> dict:
-    """A recsys train cell at FULL widths with vocabularies cut to 3,000
-    rows (``tests/torch_recsys_util.cut_vocab``), batch GRAD_BATCH: its
-    gradients on the card against a CPU copy of the same parameters on
-    the same batch (planted faults: zeros, another batch's), then one
-    rowwise AdaGrad step on each given the CPU's gradients: the parameters
-    at the model's tolerance (planted fault: the step at ten times the
-    learning rate) and the accumulators at F32_TOL (planted fault: zeros)."""
-    import dataclasses
-
+def grad_step_check(dev, name: str, cell, state, batch, other,
+                    lr: float) -> dict:
+    """A recsys train cell's gradients on the card (``state``) against a
+    CPU copy of the same parameters on the same batch (planted faults:
+    zeros, the gradients of ``other``), K1 and its backward launched once a
+    table, then one rowwise AdaGrad step (``lr``) on each given the CPU's
+    gradients: the parameters at the model's tolerance (planted fault: the
+    step at ten times ``lr``) and the accumulators at F32_TOL (planted
+    fault: zeros).  ``batch`` and ``other`` are on the host."""
     import torch
 
     from repro_torch.common.tree import tree_map
-    from repro_torch.data.clicklog import cell_batch
     from repro_torch.kernels.embedding_bag import ops
-    from repro_torch.launch.steps import build_cell
     from repro_torch.train import optimizer as opt_lib
 
-    sys.path.insert(0, str(ROOT / "tests"))
-    from torch_recsys_util import cut_vocab
-
-    cell = build_cell(arch_id, "train_batch", dev, batch=GRAD_BATCH)
-    cell = dataclasses.replace(cell, cfg=cut_vocab(cell.cfg))
     host = cpu_cell(cell)
-    state = cell.init_state(torch.Generator(dev).manual_seed(3))
     model = cpu_copy(state["model"])
     cpu_state = {"model": model, "opt": host.opt.init(model.tree())}
-    batch = {k: torch.from_numpy(v) for k, v in cell_batch(
-        cell.cfg, cell.batch_specs, seed=23).items()}
     launches = (ops.launches, ops.grad_launches)
     _, grads = cell.value_and_grad(state, {k: v.to(dev)
                                            for k, v in batch.items()})
@@ -2224,42 +2553,64 @@ def recsys_grad_check(dev, arch_id: str) -> dict:
     launches = (ops.launches - launches[0], ops.grad_launches - launches[1])
     tables = K1_TABLES[cell.cfg.interaction]
     if launches != (tables, tables):
-        raise AssertionError(f"{arch_id}: K1 launches {launches} in one "
+        raise AssertionError(f"{name}: K1 launches {launches} in one "
                              f"gradient, expected {(tables, tables)}")
     _, want = host.value_and_grad(cpu_state, batch)
     bf16 = cell.cfg.dtype == torch.bfloat16
     tol = BF16_TOL if bf16 else GRAD_TOL
-    name = f"{arch_id} gradients against the CPU copy"
-    err = check(name, flat(grads), flat(want), tol)
-    other = {k: torch.from_numpy(v) for k, v in cell_batch(
-        cell.cfg, cell.batch_specs, seed=24).items()}
-    grad_faults(name, flat(want), {"another batch": flat(host.value_and_grad(
-        cpu_state, other)[1])}, tol)
+    label = f"{name} gradients against the CPU copy"
+    err = check(label, flat(grads), flat(want), tol)
+    grad_faults(label, flat(want), {"another batch": flat(
+        host.value_and_grad(cpu_state, other)[1])}, tol)
     del grads
 
     wrong = type(model)(model.cfg, tree_map(lambda t: t.detach().clone(),
                                             model.tree()))
-    opt_lib.rowwise_adagrad(lr=0.1).update(
+    opt_lib.rowwise_adagrad(lr=10 * lr).update(
         wrong.tree(), want, opt_lib.rowwise_adagrad().init(wrong.tree()))
     cell.opt.update(state["model"].tree(), tree_map(lambda t: t.to(dev), want),
                     state["opt"])
     host.opt.update(model.tree(), want, cpu_state["opt"])
     p_tol = BF16_TOL if bf16 else F32_TOL
     p_want = flat(model.tree())
-    p_err = check(f"{arch_id} AdaGrad step", flat(state["model"].tree()),
+    p_err = check(f"{name} AdaGrad step", flat(state["model"].tree()),
                   p_want, p_tol)
-    must_fail(f"{arch_id} AdaGrad step, ten times the learning rate",
+    must_fail(f"{name} AdaGrad step, ten times the learning rate",
               flat(wrong.tree()), p_want, p_tol)
     a_want = flat(cpu_state["opt"])
-    a_err = check(f"{arch_id} AdaGrad accumulators", flat(state["opt"]),
+    a_err = check(f"{name} AdaGrad accumulators", flat(state["opt"]),
                   a_want, F32_TOL)
-    must_fail(f"{arch_id} AdaGrad accumulators, zeros",
+    must_fail(f"{name} AdaGrad accumulators, zeros",
               torch.zeros_like(a_want), a_want, F32_TOL)
+    return {"k1_launches": list(launches),
+            "grads_max_abs_err_vs_cpu": err, "grads_tolerance": tol,
+            "step_params_max_abs_err": p_err, "params_tolerance": p_tol,
+            "accumulators_max_abs_err": a_err}
+
+
+def recsys_grad_check(dev, arch_id: str) -> dict:
+    """``grad_step_check`` on a recsys train cell at FULL widths with
+    vocabularies cut to 3,000 rows (``tests/torch_recsys_util.cut_vocab``),
+    batch GRAD_BATCH, another click-log batch the planted fault."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.clicklog import cell_batch
+    from repro_torch.launch.steps import RECSYS_LR, build_cell
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_recsys_util import cut_vocab
+
+    cell = build_cell(arch_id, "train_batch", dev, batch=GRAD_BATCH)
+    cell = dataclasses.replace(cell, cfg=cut_vocab(cell.cfg))
+    state = cell.init_state(torch.Generator(dev).manual_seed(3))
+    batch, other = ({k: torch.from_numpy(v) for k, v in cell_batch(
+        cell.cfg, cell.batch_specs, seed=seed).items()} for seed in (23, 24))
     res = {"arch": arch_id, "config": cell.cfg.name + " (vocab cut to 3000)",
-           "batch": GRAD_BATCH, "k1_launches": list(launches),
-           "grads_max_abs_err_vs_cpu": err, "grads_tolerance": tol,
-           "step_params_max_abs_err": p_err, "params_tolerance": p_tol,
-           "accumulators_max_abs_err": a_err}
+           "batch": GRAD_BATCH,
+           **grad_step_check(dev, arch_id, cell, state, batch, other,
+                             RECSYS_LR)}
     del state
     torch.cuda.empty_cache()
     return res
@@ -2354,6 +2705,176 @@ def phase_train(dev, bw: float, f32_rate: float) -> dict:
               **res["grad_checks"][-1]})
     res["seconds"] = time.perf_counter() - t0
     return res
+
+
+# launch/train_dlrm through the checkpointing Trainer: run A uninterrupted,
+# run B crashed before step TRAINER_CRASH_AT and resumed
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_CRASH_AT = 60, 20, 45
+TRAINER_BATCH = 1024   # examples/train_dlrm.py's batch
+TRAINER_TOL = 1e-6
+
+
+def trainer_step_check(dev, bw: float, f32_rate: float) -> dict:
+    """The first step of ``launch.train_dlrm`` (dlrm-100m from the seed of
+    ``phase_trainer``'s runs, on step 0's batch), held part by part to its
+    plain versions: (a) K1's per-feature entry on the step's table and ids
+    (``k1_features_case``; planted faults: zeros, the next bag's rows),
+    timed with its bound on the shifted ids (``measure_k1``); (b) K1's
+    backward on the step's ids against its whole dense plain version
+    (``k1_grad_whole``), timed (``measure_k1_grad``); (c) the step's
+    gradients and its AdaGrad update against a CPU copy
+    (``grad_step_check``, step 1's batch the planted fault)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.launch import train_dlrm
+    from repro_torch.models.embedding import routed_offsets
+
+    cfg = train_dlrm.make_model()
+    emb = cfg.embedding
+    cell = train_dlrm.train_cell(cfg, TRAINER_BATCH, dev)
+    state = cell.init_state(torch.Generator(dev).manual_seed(0))
+    batches = train_dlrm.step_batches(cfg, TRAINER_BATCH, 0,
+                                      torch.device("cpu"))(0)
+    batch, other = next(batches), next(batches)
+
+    table = state["model"].table.detach()
+    ids3 = batch["sparse_ids"].to(dev)
+    off = routed_offsets(emb, dev)
+    flat_ids = torch.from_numpy(shifted_ids(batch["sparse_ids"].numpy(),
+                                            emb.row_offsets)).to(dev)
+    feat = k1_features_case(table, ids3, off,
+                            ops.hot_embedding_bag(table, flat_ids))
+    want = ref.embedding_bag_features_ref(table, ids3, off)
+    must_fail("K1 at the train_dlrm step, zeros", torch.zeros_like(want),
+              want, F32_TOL)
+    must_fail("K1 at the train_dlrm step, the next bag's rows",
+              want.roll(1, dims=0), want, F32_TOL)
+    del want
+    fwd = {"case": "train_dlrm_step", "table": list(table.shape),
+           "dtype": str(table.dtype), "ids": list(ids3.shape),
+           "bags": flat_ids.shape[0], "P": flat_ids.shape[1],
+           "max_abs_err": feat["max_abs_err"], "tolerance": F32_TOL,
+           "features_entry_ms": feat["ms"],
+           **measure_k1(table, flat_ids, bw, f32_rate)}
+    emit({"phase": "trainer", "stage": "k1", **fwd})
+    del flat_ids
+    grad, g, off = k1_grad_whole(dev, "train_dlrm_step", ids3, emb,
+                                 table.dtype)
+    grad.update(measure_k1_grad(g, ids3, off, emb.total_rows, bw, f32_rate))
+    emit({"phase": "trainer", "stage": "k1_grad", **grad})
+    del g, table
+    step = {"batch": TRAINER_BATCH,
+            **grad_step_check(dev, "train_dlrm", cell, state, batch, other,
+                              train_dlrm.LR)}
+    emit({"phase": "trainer", "stage": "step_check", **step})
+    del state
+    torch.cuda.empty_cache()
+    return {"k1": fwd, "k1_grad": grad, "step": step}
+
+
+def phase_trainer(dev, bw: float, f32_rate: float) -> dict:
+    """``repro_torch.launch.train_dlrm`` (dlrm-100m: 8 x 400,000 x 32 f32
+    tables, pooling 16; rowwise AdaGrad) with the checkpointing Trainer in
+    a temporary directory removed at the end: run A for TRAINER_STEPS
+    steps, a checkpoint every TRAINER_CKPT_EVERY; run B the same, crashed
+    before step TRAINER_CRASH_AT, then resumed from its last commit.  B
+    resumes after step 40 and ends at step 60 with A's loss and state
+    (within TRAINER_TOL, bitwise reported); a committed state restores
+    bitwise; the loss falls; K1 and its backward launched once a step.
+    First ``trainer_step_check`` holds the step and its kernels to their
+    plain versions (its launches are not counted)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.launch import train_dlrm
+
+    t0 = time.perf_counter()
+    step_check = trainer_step_check(dev, bw, f32_rate)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        def trainer(run):
+            return train_dlrm.make_trainer(
+                TRAINER_STEPS, TRAINER_BATCH, tmp / run, dev,
+                ckpt_every=TRAINER_CKPT_EVERY, log_every=1)
+
+        def gen():
+            return torch.Generator(dev).manual_seed(0)
+
+        ops.launches = ops.grad_launches = 0
+        t = time.perf_counter()
+        state_a, hist_a = trainer("a").run(gen())
+        run_a_s = time.perf_counter() - t
+        launches_a = (ops.launches, ops.grad_launches)
+        crashed = trainer("b")
+        try:
+            crashed.run(gen(), crash_at=TRAINER_CRASH_AT)
+        except RuntimeError as e:
+            if "injected crash" not in str(e):
+                raise
+        else:
+            raise AssertionError("run B did not crash")
+        committed = crashed.ckpt.all_steps()
+        resumed = trainer("b")
+        state_b, hist_b = resumed.run(gen())
+        launches = (ops.launches, ops.grad_launches)
+        want_launches = TRAINER_STEPS + TRAINER_CRASH_AT + TRAINER_STEPS - \
+            committed[-1]
+        if committed != [20, 40] or hist_b[0]["step"] != 41 or \
+                hist_b[-1]["step"] != TRAINER_STEPS or \
+                resumed.ckpt.all_steps() != [20, 40, 60]:
+            raise AssertionError(f"run B: committed {committed} at the crash, "
+                                 f"resumed at step {hist_b[0]['step']}, ended "
+                                 f"at {hist_b[-1]['step']}, commits "
+                                 f"{resumed.ckpt.all_steps()}")
+        if launches_a != (TRAINER_STEPS,) * 2 or \
+                launches != (want_launches,) * 2:
+            raise AssertionError(f"K1 launches {launches_a} in run A, "
+                                 f"{launches} in all, expected one a step")
+        loss_a, loss_b = hist_a[-1]["loss"], hist_b[-1]["loss"]
+        check("train_dlrm resumed loss", torch.tensor(loss_b),
+              torch.tensor(loss_a), TRAINER_TOL)
+        leaves_a = [t.detach() for t in tree_leaves(
+            [state_a["model"].tree(), state_a["opt"]])]
+        leaves_b = [t.detach() for t in tree_leaves(
+            [state_b["model"].tree(), state_b["opt"]])]
+        err = max(check(f"train_dlrm resumed state leaf {i}", b, a,
+                        TRAINER_TOL)
+                  for i, (a, b) in enumerate(zip(leaves_a, leaves_b)))
+        bitwise = all(bool(torch.equal(a, b))
+                      for a, b in zip(leaves_a, leaves_b))
+        fresh = resumed.init_state_fn(torch.Generator(dev).manual_seed(9))
+        resumed.ckpt.restore(TRAINER_STEPS, fresh)
+        restored = [t.detach() for t in tree_leaves(
+            [fresh["model"].tree(), fresh["opt"]])]
+        if not all(bool(torch.equal(a, b))
+                   for a, b in zip(restored, leaves_b)):
+            raise AssertionError("train_dlrm: the step-60 commit did not "
+                                 "restore bitwise")
+        first, last = hist_a[0]["loss"], loss_a
+        if not last < first:
+            raise AssertionError(f"train_dlrm: loss {first} -> {last}")
+        steps_ms = [h["step_time_s"] * 1e3 for h in hist_a]
+        ckpt_gb = sum(t.numel() * t.element_size() for t in leaves_a) / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "trainer", "config": "dlrm-100m (8 x 400000 x 32 f32, "
+            "pooling 16)", "batch": TRAINER_BATCH, "steps": TRAINER_STEPS,
+            "ckpt_every": TRAINER_CKPT_EVERY, "crash_at": TRAINER_CRASH_AT,
+            "committed_at_crash": committed,
+            "resumed_from": hist_b[0]["step"] - 1,
+            "losses_a": [h["loss"] for h in hist_a],
+            "loss_b_final": loss_b, "state_max_abs_err": err,
+            "tolerance": TRAINER_TOL, "bitwise_equal": bitwise,
+            "restore_bitwise": True, "checkpoint_gb": ckpt_gb,
+            "median_step_ms": statistics.median(steps_ms),
+            "run_a_s": run_a_s, "k1_launches": launches[0],
+            "k1_grad_launches": launches[1], "step_check": step_check,
+            "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -2780,8 +3301,8 @@ def phase_cluster(dev, bw: float, probes) -> dict:
 
 
 def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
-                   lm: dict, recsys: dict, train: dict,
-                   cluster: dict) -> list[dict]:
+                   lm: dict, lm_configs: dict, recsys: dict, train: dict,
+                   trainer: dict, cluster: dict) -> list[dict]:
     """The summary of every kernel: where it replaces a TPU kernel, its
     launches on the paths driven here, its error and its times."""
     import torch
@@ -2789,6 +3310,7 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     from repro_torch.kernels.flash_attention.flash_attention import variant
 
     m = k1["rmc1"]
+    tk = trainer["step_check"]["k1"]
     g = train["k1_grad"]["rm2"]
     i8 = k3["int8"]
     fb = cluster["a_fleet_bench"]
@@ -2840,6 +3362,15 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
             "launches_note": "the train phase's recsys cells, counted from "
                              "0: a launch a K1 table a forward (3 steps, the "
                              "loss after them, one gradient timed alone)"},
+        "trainer": {
+            "launches": trainer["k1_launches"],
+            "launches_note": "launch.train_dlrm through the Trainer, counted "
+                             "from 0: a launch a step (run A 60, run B 45 "
+                             "then 20 resumed)",
+            "shape": f"table {tk['table'][0]}x{tk['table'][1]} "
+                     f"{tk['dtype']}, {tk['bags']} bags x P={tk['P']}",
+            "features_entry_ms": tk["features_entry_ms"],
+            **{k: tk[k] for k in k1_keys if k != "ms_stream"}},
     }, {
         "name": "embedding_bag_grad",
         "route": "cuda",
@@ -2851,7 +3382,11 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
         "launches": train["k1_grad_launches"],
         "launches_note": "the train phase's recsys cells, counted from 0: "
                          "a launch a K1 table a backward (3 steps and one "
-                         "gradient timed alone: dlrm-rm2 4, wide-deep 8)",
+                         "gradient timed alone: dlrm-rm2 4, wide-deep 8); "
+                         "trainer_launches: launch.train_dlrm through the "
+                         "Trainer, a launch a step (other_shapes."
+                         "train_dlrm: its launch shape)",
+        "trainer_launches": trainer["k1_grad_launches"],
         **{k: g[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                              "bound_ms", "bound_by", "share_of_bound",
                              "algo_bytes_ms", "tolerance")},
@@ -2865,10 +3400,13 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                  f"{g['ids']} ({g['valid_pairs']} valid pairs, "
                  f"{g['touched_rows']} rows)",
         "stages": g["stages"],
-        "other_shapes": {c: {k: train["k1_grad"][c][k] for k in (
+        "other_shapes": {c: {k: line[k] for k in (
             "table", "ids", "ms", "max_abs_err", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "share_of_bound")}
-            for c in ("rmc1", "deep", "wide")},
+            for c, line in (*((c, train["k1_grad"][c])
+                              for c in ("rmc1", "deep", "wide")),
+                            ("train_dlrm",
+                             trainer["step_check"]["k1_grad"]))},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -2920,6 +3458,18 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
         "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "library_note": i8["library_note"],
         "shape": i8["shape"], "tolerance": i8["tolerance"],
+        "lm_configs": {
+            arch_id: {"launches": c["k3_int8_launches"],
+                      "launches_note": "one decode_32k step, counted from "
+                                       "0: n_layers",
+                      "group": c["group"],
+                      "k3_vs_plain_max_abs_err_per_call":
+                          c["k3_vs_plain_max_abs_err_per_call"],
+                      **{k: c["k3_int8"][k] for k in (
+                          "shape", "max_abs_err", "ms", "plain_ms",
+                          "library_ms", "bound_ms", "bound_by",
+                          "share_of_bound", "tolerance")}}
+            for arch_id, c in lm_configs["cells"].items()},
     }, {
         "name": "fleet_fifo",
         "route": "cuda",
@@ -3011,20 +3561,31 @@ def main() -> int:
     lm = phase_lm(dev)
     emit(lm)
 
-    # 8. the recsys slice (K1's count is reset inside, just before each path)
+    # 8. the other LM families' decode_32k (K3's count reset inside, just
+    # before each step), then llama3.2-3b's train_4k
+    lm_configs = phase_lm_configs(dev, bw)
+    emit(lm_configs)
+    lm_train = phase_lm_train(dev)
+    emit(lm_train)
+
+    # 9. the recsys slice (K1's count is reset inside, just before each path)
     recsys = phase_recsys(dev, bw, f32_rate)
     emit(recsys)
 
-    # 9. training (K1's counts are reset inside, just before the train cells)
+    # 10. training (K1's counts are reset inside, just before the train
+    # cells), then launch.train_dlrm through the checkpointing Trainer (K1's
+    # counts reset inside, just before run A)
     train = phase_train(dev, bw, f32_rate)
     emit(train)
+    trainer = phase_trainer(dev, bw, f32_rate)
+    emit(trainer)
 
-    # 10. the cluster day (K4's count is reset inside, just before each day)
+    # 11. the cluster day (K4's count is reset inside, just before each day)
     cluster = phase_cluster(dev, bw, probes)
     emit(cluster)
 
-    emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, recsys,
-                                    train, cluster),
+    emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, lm_configs,
+                                    recsys, train, trainer, cluster),
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

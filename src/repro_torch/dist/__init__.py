@@ -1,2 +1,3 @@
-"""Distributed layer of the port.  So far only the single-device branch
-of the decode attention; the ``torch.distributed`` paths come later."""
+"""Distributed layer of the port.  So far the single-device branches of
+the decode attention (``decode``), the cross entropy (``loss``) and the
+MoE dispatch (``moe``); the ``torch.distributed`` paths come later."""

@@ -1,7 +1,7 @@
-"""Dense building blocks: the recsys MLP and the LM blocks (norms, rotary
-embedding, GQA attention, SwiGLU).
+"""Building blocks: the recsys MLP and the LM blocks (norms, rotary
+embedding, GQA attention, SwiGLU, the mixture of experts).
 
-Counterpart of ``repro.models.layers`` (MoE waits for its slice).  Weights
+Counterpart of ``repro.models.layers``, MoE included.  Weights
 keep the reference's ``[in, out]`` layout and the forward computes
 ``x @ w + b``, so reference parameters load without a transpose.  Each
 function keeps the reference's dtype discipline: norms and rotary angles
@@ -207,7 +207,7 @@ def attention_output(params, attn_out: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU FFN
+# SwiGLU FFN + MoE
 # ---------------------------------------------------------------------------
 
 
@@ -224,3 +224,94 @@ def init_swiglu(d_model: int, d_ff: int, *, generator: torch.Generator,
 
 def apply_swiglu(params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                 # per-expert FFN width
+    n_experts: int
+    top_k: int
+    n_shared: int = 0         # shared (always-on) experts, qwen2-moe style
+    shared_d_ff: int = 0      # width of the fused shared expert (0 = d_ff * n_shared)
+    router_dtype: torch.dtype = torch.float32
+    capacity_factor: float = 1.25
+    # expert arrays are stored zero-padded to a multiple of this (the
+    # reference's even split over an expert-parallel axis); the router only
+    # ever routes to the first n_experts.
+    pad_to: int = 16
+
+    @property
+    def n_experts_padded(self) -> int:
+        return -(-self.n_experts // self.pad_to) * self.pad_to
+
+    @property
+    def shared_width(self) -> int:
+        return self.shared_d_ff or self.d_ff * self.n_shared
+
+
+def init_moe(cfg: MoEConfig, *, generator: torch.Generator,
+             device: torch.device, dtype: torch.dtype = torch.float32,
+             stack: tuple[int, ...] = ()) -> dict:
+    """The reference's ``init_moe`` leaves, each with the leading dims
+    ``stack`` (a transformer's ``(n_layers,)``): a float32 router
+    [d, n_experts] (normal, std 0.006), experts stacked [E_pad, ...] with
+    the rows from ``n_experts`` on zero, and the fused shared expert."""
+    E, d, f = cfg.n_experts_padded, cfg.d_model, cfg.d_ff
+    kw = dict(generator=generator, device=device, dtype=dtype)
+
+    def experts(shape):
+        w = normal_init((*stack, E, *shape), **kw)
+        w[..., cfg.n_experts:, :, :] = 0    # never routed to
+        return w
+
+    params = {
+        "router": normal_init((*stack, d, cfg.n_experts), stddev=0.006,
+                              generator=generator, device=device,
+                              dtype=torch.float32),
+        "experts": {"w_gate": experts((d, f)), "w_up": experts((d, f)),
+                    "w_down": experts((f, d))},
+    }
+    if cfg.n_shared:
+        sf = cfg.shared_width
+        params["shared"] = {"w_gate": normal_init((*stack, d, sf), **kw),
+                            "w_up": normal_init((*stack, d, sf), **kw),
+                            "w_down": normal_init((*stack, sf, d), **kw)}
+    return params
+
+
+def moe_router(params, x: torch.Tensor, cfg: MoEConfig):
+    """x [N, d] -> (topk_idx [N, k], topk_weight [N, k] in x's dtype, the
+    Switch load-balance aux loss): router in ``router_dtype``, the top-k
+    probabilities renormalised."""
+    logits = x.to(cfg.router_dtype) @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    topk_w, topk_idx = torch.topk(probs, cfg.top_k, dim=-1)
+    topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    E = cfg.n_experts
+    me = probs.mean(dim=0)                                   # mean router prob
+    flat = topk_idx.reshape(-1)
+    ce = torch.zeros((E,), dtype=probs.dtype, device=x.device).index_add_(
+        0, flat, torch.full(flat.shape, 1.0 / flat.numel(), dtype=probs.dtype,
+                            device=x.device))              # token fraction
+    aux = E * (me * ce).sum()
+    return topk_idx, topk_w.to(x.dtype), aux
+
+
+def apply_moe_dense(params, x: torch.Tensor, cfg: MoEConfig):
+    """Dense-dispatch MoE: every expert runs on every token, mixed by the
+    routing weights (O(E·N·d·f); the oracle of the grouped dispatch in
+    ``repro_torch.dist.moe``).  x: [N, d] -> ([N, d], aux_loss)."""
+    topk_idx, topk_w, aux = moe_router(params, x, cfg)
+    E = cfg.n_experts
+    # combine[n, e] = weight of expert e for token n (0 if not routed)
+    combine = torch.zeros((x.shape[0], E), dtype=x.dtype,
+                          device=x.device).scatter_add(1, topk_idx, topk_w)
+    ex = {k: v[:E] for k, v in params["experts"].items()}
+    h = F.silu(torch.einsum("nd,edf->enf", x, ex["w_gate"])) * torch.einsum(
+        "nd,edf->enf", x, ex["w_up"])
+    y_e = torch.einsum("enf,efd->end", h, ex["w_down"])      # [E, N, d]
+    y = torch.einsum("end,ne->nd", y_e, combine)
+    if cfg.n_shared:
+        y = y + apply_swiglu(params["shared"], x)
+    return y, aux

@@ -1,16 +1,18 @@
-"""Dense decoder-only LM (llama3 / qwen2 family): forward, KV cache,
-prefill and one-token decode.
+"""Decoder-only LM family, dense (llama3 / qwen2 / deepseek) and MoE
+(qwen2-moe, olmoe): forward, the training loss, KV cache, prefill and
+one-token decode.
 
-Counterpart of ``repro.models.transformer`` for dense models (MoE waits for
-its slice; ``lm_loss`` for training).  Parameters keep the reference's
-pytree: ``{"embed": [V, d], "blocks": {...}, "final_norm": {...}}`` with
-every block leaf stacked on a leading layer axis ``[L, ...]`` and weights
-``[in, out]``, so ``params_from_reference`` carries reference weights
-across unchanged.  The reference's ``lax.scan`` over layers is a Python
-loop over views ``t[i]``; its remat, unrolling and sharding annotations
-have no counterpart on one device.
+Counterpart of ``repro.models.transformer``.  Parameters keep the
+reference's pytree: ``{"embed": [V, d], "blocks": {...}, "final_norm":
+{...}}`` with every block leaf stacked on a leading layer axis ``[L, ...]``
+and weights ``[in, out]``, so ``params_from_reference`` carries reference
+weights across unchanged.  The reference's ``lax.scan`` over layers is a
+Python loop over views ``t[i]``; with ``remat`` (as the reference's
+``jax.checkpoint``) each block of a training forward runs under
+``torch.utils.checkpoint``, so only its input is kept for the backward.
+Unrolling and sharding annotations have no counterpart on one device.
 
-Two deliberate differences, both for memory on the card:
+Three deliberate differences, all for memory on the card:
 
 - the KV cache is written in place (the reference returns a new cache from
   ``dynamic_update_slice``); the functions still return the cache so the
@@ -18,7 +20,10 @@ Two deliberate differences, both for memory on the card:
   ``dynamic_update_slice`` would clamp the start;
 - ``prefill`` and ``decode_step`` apply the final norm and the head to the
   last position only, since they return only ``logits[:, -1]``: at
-  prefill_32k that saves the [B, 32768, 128256] logits of ``forward``.
+  prefill_32k that saves the [B, 32768, 128256] logits of ``forward``;
+- ``_attention_chunked`` runs its elementwise steps in place where grad is
+  off (prefill), and out of place, with the same arithmetic, under
+  autograd.
 
 Decode attention with ``decode_impl="flash"`` goes through
 ``repro_torch.dist.decode.decode_attention``, i.e. kernel K3 on the card;
@@ -31,17 +36,22 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.convert import tree_from_numpy
 from repro_torch.common.init import normal_init
 from repro_torch.common.types import TensorSpec
 from repro_torch.dist.decode import decode_attention, decode_attention_int8
+from repro_torch.dist.loss import cast_grad, ce_loss
+from repro_torch.dist.moe import moe_apply
 from repro_torch.models.layers import (
     AttentionConfig,
+    MoEConfig,
     apply_rmsnorm,
     apply_rope,
     apply_swiglu,
     attention_output,
+    init_moe,
     init_rmsnorm,
     qkv_projection,
     rope_angles,
@@ -63,7 +73,9 @@ class LMConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
-    moe: object | None = None  # MoE is not ported yet: must stay None
+    moe: MoEConfig | None = None
+    # recompute each block in the backward of a training forward
+    remat: bool = True
     # attention schedule for Tq > 1: "naive" materializes [Tq, Tk] scores;
     # "chunked" is the online-softmax loop over KV chunks
     attn_impl: str = "naive"
@@ -82,28 +94,36 @@ class LMConfig:
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta)
 
     def param_count(self) -> int:
-        """Total parameters, from the shapes ``init`` makes."""
-        _dense_only(self)
+        """Total parameters, from the shapes ``init`` makes (MoE experts
+        counted at their padded number, as the reference counts them)."""
         d, hd = self.d_model, self.head_dim
         q_dim, kv_dim = self.n_heads * hd, self.n_kv_heads * hd
         block = (2 * d                                   # ln1, ln2
-                 + d * q_dim + 2 * d * kv_dim + q_dim * d  # wq, wk, wv, wo
-                 + 3 * d * self.d_ff)                    # swiglu
+                 + d * q_dim + 2 * d * kv_dim + q_dim * d)  # wq, wk, wv, wo
         if self.qkv_bias:
             block += q_dim + 2 * kv_dim
+        m = self.moe
+        if m is None:
+            block += 3 * d * self.d_ff                   # swiglu
+        else:
+            block += d * m.n_experts + 3 * m.n_experts_padded * d * m.d_ff
+            if m.n_shared:
+                block += 3 * d * m.shared_width
         total = self.vocab * d + self.n_layers * block + d
         if not self.tie_embeddings:
             total += d * self.vocab
         return total
 
     def active_param_count(self) -> int:
-        """Active params per token: all of them for a dense model."""
-        return self.param_count()
-
-
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
+        """Active params per token (MoE: the routed top-k and the shared
+        expert only), by the reference's formula."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        inactive = (m.n_experts - m.top_k) * 3 * self.d_model * m.d_ff \
+            * self.n_layers
+        return total - inactive
 
 
 def init(cfg: LMConfig, *, generator: torch.Generator,
@@ -111,7 +131,6 @@ def init(cfg: LMConfig, *, generator: torch.Generator,
     """Random parameters on ``device`` with the reference's scales (normal
     0.02 weights, unit norms), drawn from ``generator``; block leaves are
     stacked [L, ...]."""
-    _dense_only(cfg)
     L = cfg.n_layers
     kw = dict(generator=generator, device=device, dtype=cfg.dtype)
 
@@ -128,12 +147,13 @@ def init(cfg: LMConfig, *, generator: torch.Generator,
             "wv": normal_init((L, d, kv_dim), **kw),
             "wo": normal_init((L, q_dim, d), **kw),
         },
-        "ffn": {
-            "w_gate": normal_init((L, d, cfg.d_ff), **kw),
-            "w_up": normal_init((L, d, cfg.d_ff), **kw),
-            "w_down": normal_init((L, cfg.d_ff, d), **kw),
-        },
     }
+    if cfg.moe is None:
+        blocks["ffn"] = {"w_gate": normal_init((L, d, cfg.d_ff), **kw),
+                         "w_up": normal_init((L, d, cfg.d_ff), **kw),
+                         "w_down": normal_init((L, cfg.d_ff, d), **kw)}
+    else:
+        blocks["ffn"] = init_moe(cfg.moe, stack=(L,), **kw)
     if cfg.qkv_bias:
         for name, n in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
             blocks["attn"][name] = torch.zeros((L, n), dtype=cfg.dtype,
@@ -166,14 +186,15 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
     """One transformer block. cache_l: {"k","v"(,"ks","vs")} [B, S, KVH, *]
     views, written in place at ``pos``, or None.
 
-    Returns (x, cache_l); a dense block has no aux loss."""
+    Returns (x, cache_l, aux): aux is the MoE router's load-balance loss,
+    None for a dense block."""
     B, T, _ = x.shape
     h = apply_rmsnorm(params_l["ln1"], x)
     q, k, v = qkv_projection(params_l["attn"], h, cfg.attn)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    # chunked attention serves Tq > 1 (prefill); decode is one block
+    # chunked attention serves Tq > 1 (train, prefill); decode is one block
     attn_fn = _attention_chunked if cfg.attn_impl == "chunked" and T > 1 \
         else _attention
     if cache_l is not None:
@@ -208,8 +229,11 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
         attn = attn_fn(q, k, v, q_offset=0, chunk=cfg.attn_chunk)
     x = x + attention_output(params_l["attn"], attn)
     h2 = apply_rmsnorm(params_l["ln2"], x)
-    x = x + apply_swiglu(params_l["ffn"], h2)
-    return x, cache_l
+    if cfg.moe is None:
+        return x + apply_swiglu(params_l["ffn"], h2), cache_l, None
+    out, aux = moe_apply(params_l["ffn"], h2.reshape(B * T, cfg.d_model),
+                         cfg.moe)
+    return x + out.reshape(B, T, cfg.d_model), cache_l, aux
 
 
 def _attention(q, k, v, *, q_offset, chunk=None):
@@ -235,8 +259,10 @@ def _attention_chunked(q, k, v, *, q_offset, chunk=1024):
     """Online-softmax attention as a loop over KV chunks (the reference's
     ``lax.scan``): never materializes the [Tq, Tk] scores, only
     [B, KVH, g, Tq, chunk] per step.  Scores and the running max and sum
-    are f32; the accumulator stays in q's dtype, as in the reference.  The
-    elementwise steps run in place on the step's score tensor."""
+    are f32; the accumulator stays in q's dtype, as in the reference.
+    Where grad is off, the elementwise steps run in place on the step's
+    score tensor; under autograd (whose saved scores they would overwrite)
+    out of place, with the same arithmetic."""
     B, Tq, H, hd = q.shape
     Tk, KVH = k.shape[1], k.shape[2]
     chunk = min(chunk, Tk)
@@ -246,6 +272,7 @@ def _attention_chunked(q, k, v, *, q_offset, chunk=1024):
     qg = q.reshape(B, Tq, KVH, group, hd)
     scale = 1.0 / math.sqrt(hd)
     qpos = (q_offset + torch.arange(Tq, device=q.device))[:, None]  # [Tq, 1]
+    in_place = not torch.is_grad_enabled()
 
     m = torch.full((B, KVH, group, Tq), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -254,12 +281,15 @@ def _attention_chunked(q, k, v, *, q_offset, chunk=1024):
     for i in range(Tk // chunk):
         k_i = k[:, i * chunk:(i + 1) * chunk]
         v_i = v[:, i * chunk:(i + 1) * chunk]
-        s = torch.einsum("btkgh,bskh->bkgts", qg, k_i).float().mul_(scale)
+        s = torch.einsum("btkgh,bskh->bkgts", qg, k_i).float()
         kpos = i * chunk + torch.arange(chunk, device=q.device)[None, :]
-        s.masked_fill_(~(kpos <= qpos), NEG_INF)
+        masked = ~(kpos <= qpos)
+        s = s.mul_(scale).masked_fill_(masked, NEG_INF) if in_place \
+            else (s * scale).masked_fill(masked, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
-        p = s.sub_(m_new[..., None]).exp_()
+        p = s.sub_(m_new[..., None]).exp_() if in_place \
+            else (s - m_new[..., None]).exp()
         l = l * alpha + p.sum(dim=-1)
         pv = torch.einsum("bkgts,bskh->bkgth", p.to(q.dtype), v_i)
         acc = acc * alpha[..., None].to(acc.dtype) + pv
@@ -280,8 +310,8 @@ def _lm_logits(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 
 def _hidden(params, tokens: torch.Tensor, cfg: LMConfig, cache, pos):
-    """Embedding and every block: tokens [B, T] -> x [B, T, d]."""
-    _dense_only(cfg)
+    """Embedding and every block: tokens [B, T] -> (x [B, T, d], the sum
+    of the blocks' aux losses, f32)."""
     B, T = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
     pos0 = 0 if pos is None else pos
@@ -289,28 +319,49 @@ def _hidden(params, tokens: torch.Tensor, cfg: LMConfig, cache, pos):
     cos, sin = rope_angles(positions[None, :], cfg.head_dim, cfg.rope_theta)
     half = cfg.head_dim // 2
     cos, sin = cos.expand(B, T, half), sin.expand(B, T, half)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_layers):
-        cache_l = None if cache is None else _layer(cache, i)
-        x, _ = _block_apply(_layer(params["blocks"], i), x, cos, sin, cfg,
-                            cache_l=cache_l, pos=pos0)
-    return x
+        params_l = _layer(params["blocks"], i)
+        if remat:
+            x, _, aux_l = checkpoint(_block_apply, params_l, x, cos, sin, cfg,
+                                     use_reentrant=False)
+        else:
+            cache_l = None if cache is None else _layer(cache, i)
+            x, _, aux_l = _block_apply(params_l, x, cos, sin, cfg,
+                                       cache_l=cache_l, pos=pos0)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return x, aux
 
 
 def forward(params, tokens: torch.Tensor, cfg: LMConfig, *, cache=None,
             pos: int | None = None):
-    """tokens [B, T] -> (logits [B, T, V], cache, aux_loss); the aux loss
-    of a dense model is 0.
+    """tokens [B, T] -> (logits [B, T, V], cache, aux_loss): aux_loss is
+    the f32 sum of the MoE blocks' load-balance losses (0 for a dense
+    model).
 
     cache: stacked {"k","v"} [L, B, S, KVH, hd] (+ "ks","vs" for int8),
     written in place from position ``pos``, or None."""
-    x = apply_rmsnorm(params["final_norm"],
-                      _hidden(params, tokens, cfg, cache, pos))
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x, aux = _hidden(params, tokens, cfg, cache, pos)
+    x = apply_rmsnorm(params["final_norm"], x)
     return _lm_logits(params, x, cfg), cache, aux
 
 
+def lm_loss(params, batch, cfg: LMConfig) -> torch.Tensor:
+    """Next-token cross entropy. batch: {"tokens": [B, T]} (shifted here).
+
+    Loss over positions 0..T-2 predicting 1..T-1, mean per token, in f32
+    with the gradient back in the logits' dtype; the MoE aux loss added
+    with weight 0.01."""
+    tokens = batch["tokens"]
+    logits, _, aux = forward(params, tokens, cfg)
+    ce = ce_loss(cast_grad(logits[:, :-1]), tokens[:, 1:])
+    return ce + 0.01 * aux
+
+
 def _last_logits(params, tokens, cache, pos, cfg):
-    x = _hidden(params, tokens, cfg, cache, pos)
+    x, _ = _hidden(params, tokens, cfg, cache, pos)
     x = apply_rmsnorm(params["final_norm"], x[:, -1])
     return _lm_logits(params, x, cfg)
 
@@ -354,3 +405,7 @@ def decode_step(params, token: torch.Tensor, cache, pos: int, cfg: LMConfig):
     """One decode step. token [B, 1]; pos: write position (a Python int)."""
     return _last_logits(params, token, cache, pos, cfg), cache
 
+
+
+def input_specs(cfg: LMConfig, batch: int, seq: int) -> dict[str, TensorSpec]:
+    return {"tokens": TensorSpec((batch, seq), torch.int32)}

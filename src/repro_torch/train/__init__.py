@@ -1,2 +1,2 @@
-"""Training substrate: optimizers (checkpointing and the trainer come
-with a later slice)."""
+"""Training substrate: optimizers, checkpoints and the fault-tolerant
+training loop."""

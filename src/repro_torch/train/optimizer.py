@@ -21,11 +21,13 @@ reference returns new arrays, ``update`` writes the new values into the
 parameter and state tensors in place (a multi-GB table has no room for a
 second copy) and returns the same trees.
 
-``rowwise_adagrad`` updates a table in chunks of rows
-(``CHUNK_ELEMENTS`` elements each) with the same arithmetic, so its
-float32 temporaries stay near 256 MB: dlrm-rm2's 16.6 GB bf16 table would
-need 33 GB for one whole-table float32 copy.  A row whose gradient is zero
-comes out bitwise unchanged (``a + 0``; ``p - 0`` rounds back to p).
+``rowwise_adagrad`` updates a table, and ``adamw`` every leaf, in chunks
+of rows along the first dimension (``CHUNK_ELEMENTS`` elements each) with
+the same elementwise arithmetic, so the float32 temporaries stay near
+256 MB each: dlrm-rm2's 16.6 GB bf16 table would need 33 GB for one
+whole-table float32 copy, llama3.2-3b's stacked [28, 3072, 8192] weights
+2.8 GB.  A row whose gradient is zero comes out of ``rowwise_adagrad``
+bitwise unchanged (``a + 0``; ``p - 0`` rounds back to p).
 """
 from __future__ import annotations
 
@@ -50,6 +52,17 @@ class Optimizer:
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _row_chunks(p: torch.Tensor):
+    """Slices of ``p``'s first dimension of about CHUNK_ELEMENTS each (one
+    slice over a 0-d tensor)."""
+    if p.dim() == 0:
+        yield ...  # the whole of a 0-d tensor
+        return
+    rows = max(1, CHUNK_ELEMENTS // max(p[0].numel(), 1))
+    for s in range(0, p.shape[0], rows):
+        yield slice(s, s + rows)
 
 
 def sgd(lr: float = 0.01, momentum: float = 0.0) -> Optimizer:
@@ -97,7 +110,11 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
                 u = u + weight_decay * p.float()
             p.copy_((p.float() - lr * u).to(p.dtype))
 
-        tree_map(upd, params, state["m"], state["v"], grads)
+        def upd_chunked(p, m, v, g):
+            for rows in _row_chunks(p):
+                upd(p[rows], m[rows], v[rows], g[rows])
+
+        tree_map(upd_chunked, params, state["m"], state["v"], grads)
         state["step"] = step
         return params, state
 
@@ -134,9 +151,8 @@ def rowwise_adagrad(lr: float = 0.01, eps: float = 1e-8,
             if not is_table(path, p):
                 step(p, g, a, False)
                 return
-            rows = max(1, CHUNK_ELEMENTS // max(p.shape[1], 1))
-            for s in range(0, p.shape[0], rows):
-                step(p[s:s + rows], g[s:s + rows], a[s:s + rows], True)
+            for rows in _row_chunks(p):
+                step(p[rows], g[rows], a[rows], True)
 
         tree_map_with_path(upd, params, grads, state["acc"])
         return params, state

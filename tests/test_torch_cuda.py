@@ -23,12 +23,14 @@ batch and bags of no slot (zeros), ids of 2**31 slots refused, dirty memory
 under the output (every row written), the 2-D entry and autograd through
 both entries;
 one recsys (wide-deep) and one GNN (full_graph_sm) train step against a
-CPU copy.
+CPU copy; one LM train step (a small f32 LM, dense with the chunked
+attention and MoE) against a CPU copy; a ``CheckpointManager`` roundtrip
+of CUDA tensors, bf16 included.
 
 The redesigned attention kernels: K3's int8 entry (within the bf16/f32 tolerance of its plain
 version, and bitwise equal to the entry in q's dtype on the cache
-dequantised eagerly), K3's bf16 entry at the head sizes its CUDA-core
-variant takes, and K2's tensor-core variant at ragged Tq/Tk, with
+dequantised eagerly), both K3 entries at the LM configs' KV groups 1, 7
+and 8, K3's bf16 entry at the head sizes its CUDA-core variant takes, and K2's tensor-core variant at ragged Tq/Tk, with
 q_offset, at head sizes 64 and 128.
 
 K4 (the fleet FIFO solver) bitwise against its plain version and against
@@ -754,6 +756,101 @@ def test_gnn_train_step_on_card(cuda_device):
         cell, cell.cfg, cell_batch(cell.cfg, cell.dims, seed=2), cell.dims)
     assert launches == (0, 0)
     _check_train(card, cpu, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("H,KVH", [(16, 16), (28, 4), (64, 8)])
+def test_decode_lm_group_sizes(cuda_device, dtype, H, KVH):
+    """K3's entries at the KV-group sizes of the other LM configs (1:
+    qwen2-moe-a2.7b and olmoe-1b-7b; 7: qwen2-7b; 8: deepseek-67b), head
+    size 128, a kv_len inside a split: the entry in q's dtype and the int8
+    entry against their plain versions, the int8 entry bitwise the other
+    on the cache dequantised eagerly."""
+    tdt = TDT[dtype]
+    B, S, hd, kv_len = 2, 1100, 128, 1037
+    qn, kn, vn = _normal(H, (B, 1, H, hd), (B, S, KVH, hd), (B, S, KVH, hd))
+    q = (torch.from_numpy(qn) * 8).to(cuda_device, tdt)
+    k, v = (torch.from_numpy(a).to(cuda_device, tdt) for a in (kn, vn))
+    torch.testing.assert_close(
+        flash_decode(q, k, v, kv_len=kv_len).float(),
+        flash_decode_ref(q, k, v, kv_len=kv_len).float(), rtol=TOL[dtype],
+        atol=TOL[dtype])
+    kq, ks, vq, vs = _int8_cache(KVH, B, S, KVH, hd, cuda_device)
+    got = flash_decode_int8(q, kq, ks, vq, vs, kv_len=kv_len)
+    want = flash_decode_int8_ref(q, kq, ks, vq, vs, kv_len=kv_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert torch.equal(got, flash_decode(q, dequantize_kv(kq, ks, tdt),
+                                         dequantize_kv(vq, vs, tdt),
+                                         kv_len=kv_len))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch_id", ["llama3.2-3b", "olmoe-1b-7b"])
+def test_lm_train_step_on_card(cuda_device, arch_id):
+    """The train_4k cell's step of a small f32 LM (the arch's SMOKE config,
+    llama's with the chunked attention, olmoe's MoE blocks; B 4, S 32) on
+    the card against its CPU copy: the loss and every gradient within 1e-4
+    (scaled by the largest), then one AdamW step on each from the CPU's
+    gradients, the parameters and moments within 1e-5."""
+    import dataclasses
+
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.transformer import lm_loss
+
+    cpu_cell = build_cell(arch_id, "train_4k", "cpu")
+    if arch_id == "llama3.2-3b":
+        cfg = dataclasses.replace(cpu_cell.cfg, attn_impl="chunked",
+                                  attn_chunk=8)
+        cpu_cell = dataclasses.replace(
+            cpu_cell, cfg=cfg, loss_fn=lambda p, b: lm_loss(p, b, cfg))
+    cell = dataclasses.replace(cpu_cell, device=cuda_device)
+    state = cell.init_state(torch.Generator(cuda_device).manual_seed(0))
+    params = tree_map(lambda t: t.detach().cpu().requires_grad_(True),
+                      state["params"])
+    cpu_state = {"params": params, "opt": cpu_cell.opt.init(params)}
+    tokens = torch.from_numpy(TokenStream(cell.cfg.vocab, seed=3).batch(
+        4, 32)["tokens"])
+    loss, grads = cell.value_and_grad(state, {"tokens": tokens.to(
+        cuda_device)})
+    want_loss, want = cpu_cell.value_and_grad(cpu_state, {"tokens": tokens})
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-4, atol=1e-4)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        assert g.device.type == cuda_device.type and g.shape == w.shape
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * max(float(w.abs().max()),
+                                                   1e-30))
+    cell.opt.update(state["params"], _on(want, cuda_device), state["opt"])
+    cpu_cell.opt.update(cpu_state["params"], want, cpu_state["opt"])
+    for a, b in zip(tree_leaves(state), tree_leaves(cpu_state)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_checkpoint_roundtrip_on_card(cuda_device, tmp_path):
+    """CUDA tensors (f32, bf16, an int32 step) saved, the state then
+    changed in place, restored bitwise onto the card in their dtypes."""
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    g = torch.Generator(cuda_device).manual_seed(1)
+    state = {"w": torch.randn((300, 70), generator=g, device=cuda_device),
+             "h": torch.randn((5, 9), generator=g, device=cuda_device).to(
+                 torch.bfloat16),
+             "opt": {"step": torch.tensor(7, dtype=torch.int32,
+                                          device=cuda_device)}}
+    want = tree_map(torch.clone, state)
+    mgr = CheckpointManager(str(tmp_path))
+    fut = mgr.save(3, state)
+    for t in tree_leaves(state):
+        t.add_(1)
+    fut.result()
+    out = mgr.restore(3, state)
+    for a, b in zip(tree_leaves(out), tree_leaves(want)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -136,6 +136,33 @@ def test_rowwise_adagrad_chunked_bitwise_and_zero_rows(dtype, monkeypatch):
         assert not torch.equal(got[[4]], want[[4]])
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_adamw_chunked_bitwise(dtype, monkeypatch):
+    """adamw in chunks of rows (3-D and 2-D leaves cut mid-way, a vector,
+    a 0-d leaf) gives the unchunked update bitwise, over two steps."""
+    rng = np.random.default_rng(10)
+    params = {**_tree(rng, dtype),
+              "stack": rng.standard_normal((5, 3, 4)).astype(np.float32)
+              .astype(NP_DT[dtype]),
+              "scalar": np.asarray(0.5, np.float32).astype(NP_DT[dtype])}
+    grads = [_to_torch(jax.tree.map(lambda a: (rng.standard_normal(
+        a.shape) * 0.3).astype(np.float32).astype(a.dtype), params))
+        for _ in range(2)]
+    opt = t_opt.adamw(lr=1e-2, weight_decay=0.1)
+    out = []
+    for chunk in (None, 2 * 12):           # 2 rows of the [5, 3, 4] leaf
+        if chunk:
+            monkeypatch.setattr(t_opt, "CHUNK_ELEMENTS", chunk)
+        p = _to_torch(params)
+        state = opt.init(p)
+        for g in grads:
+            opt.update(p, g, state)
+        out.append((p, state))
+    (p0, s0), (p1, s1) = out
+    for a, b in zip(tree_leaves((p0, s0)), tree_leaves((p1, s1))):
+        assert torch.equal(a, b)
+
+
 def test_tree_helpers():
     tree = {"a": [torch.ones(2), torch.zeros(1)], "b": {"c": torch.ones(3)}}
     assert [tuple(t.shape) for t in tree_leaves(tree)] == [(2,), (1,), (3,)]

@@ -1,8 +1,10 @@
-"""The port's dense LM against the reference's ``repro.models.transformer``
+"""The port's LM against the reference's ``repro.models.transformer``
 on carried-across parameters and the same numpy tokens: the LM layers,
 ``forward``, ``prefill`` and ``decode_step`` (with ``decode_impl="flash"``,
 so the reference runs kernel K3 in interpret mode and the port its plain
-version), ``_quantize_kv``, and the ``launch.steps`` LM cells against the
+version) for llama3.2-3b and the SMOKE configs of qwen2-7b, deepseek-67b,
+qwen2-moe-a2.7b and olmoe-1b-7b, the configs field for field,
+``_quantize_kv``, and the ``launch.steps`` LM cells against the
 reference's ``build_cell(..., mesh=None)``.
 
 Tolerances: f32 1e-4 (XLA-CPU and torch sum the products in other orders,
@@ -17,12 +19,13 @@ import pytest
 import torch
 
 from repro.configs import llama3_2_3b as j_llama
+from repro.configs.registry import get_arch as j_get_arch
 from repro.launch.steps import build_cell as j_build_cell
 from repro.models import layers as j_layers
 from repro.models import transformer as j_tf
 from repro_torch.common.convert import tensor_from_numpy
 from repro_torch.configs import llama3_2_3b as t_llama
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import get_arch, list_archs
 from repro_torch.launch.steps import build_cell as t_build_cell
 from repro_torch.models import layers as t_layers
 from repro_torch.models import transformer as t_tf
@@ -62,6 +65,14 @@ CASES = {
                        t_tf.LMConfig(**TINY_FULL, dtype=torch.bfloat16),
                        BF16_TOL),
 }
+# the other LM archs' SMOKE configs (qwen2: QKV bias; the MoE two: their
+# blocks' routed and shared experts), decoding through K3
+NEW_ARCHS = ("qwen2-7b", "deepseek-67b", "qwen2-moe-a2.7b", "olmoe-1b-7b")
+for _arch in NEW_ARCHS:
+    CASES[_arch] = (
+        dataclasses.replace(j_get_arch(_arch).SMOKE, decode_impl="flash"),
+        dataclasses.replace(get_arch(_arch).SMOKE, decode_impl="flash"),
+        F32_TOL)
 
 
 def test_configs_match_reference():
@@ -73,10 +84,36 @@ def test_configs_match_reference():
         assert tc.active_param_count() == jc.active_param_count()
     assert t_llama.FULL.param_count() == 3_212_749_824
     assert get_arch("llama3.2-3b") is t_llama
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch("qwen2-7b")
+    for arch_id in list_archs():      # every reference id resolves
+        assert get_arch(arch_id).ARCH_ID == arch_id
     with pytest.raises(KeyError, match="unknown"):
         get_arch("gpt-5")
+
+
+@pytest.mark.parametrize("arch_id", NEW_ARCHS)
+def test_new_lm_configs_match_reference(arch_id):
+    """FULL and SMOKE field for field (the MoE config's too), and the
+    reference's parameter counts."""
+    jarch, tarch = j_get_arch(arch_id), get_arch(arch_id)
+    assert (tarch.ARCH_ID, tarch.KIND.value) == (jarch.ARCH_ID,
+                                                 jarch.KIND.value)
+    assert [s.name for s in tarch.SHAPES] == [s.name for s in jarch.SHAPES]
+    for jc, tc in ((jarch.FULL, tarch.FULL), (jarch.SMOKE, tarch.SMOKE)):
+        assert {f.name for f in dataclasses.fields(tc)} == \
+            {f.name for f in dataclasses.fields(jc)} - {"seq_shard",
+                                                        "unroll_layers"}
+        for f in dataclasses.fields(tc):
+            if f.name in ("dtype", "moe"):
+                continue
+            assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+        assert (tc.moe is None) == (jc.moe is None)
+        if tc.moe is not None:
+            for f in dataclasses.fields(tc.moe):
+                if f.name != "router_dtype":
+                    assert getattr(tc.moe, f.name) == getattr(jc.moe, f.name)
+        assert str(tc.dtype).split(".")[-1] == jnp.dtype(jc.dtype).name
+        assert tc.param_count() == jc.param_count()
+        assert tc.active_param_count() == jc.active_param_count()
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -240,9 +277,6 @@ def test_cache_write_outside_raises():
     with pytest.raises(ValueError, match="outside"):
         t_tf.decode_step(params, torch.zeros((1, 1), dtype=torch.int32),
                          cache, 4, cfg)
-    with pytest.raises(NotImplementedError):
-        t_tf.init(dataclasses.replace(cfg, moe=object()),
-                  generator=torch.Generator(), device=CPU)
 
 
 def test_init_shapes_match_reference():
@@ -296,8 +330,14 @@ def test_cell_device_and_batch():
     cell = t_build_cell("llama3.2-3b", "decode_32k", device="cpu", batch=2)
     assert cell.batch == 2 and cell.cfg.decode_impl == "naive"
     assert cell.batch_specs["cache"]["k"].shape == (2, 2, 32, 2, 32)
-    with pytest.raises(NotImplementedError):
-        t_build_cell("llama3.2-3b", "train_4k", device="cpu")
-    # the recsys serve and train cells are ported (the LM train cell waits)
+    # every LM shape is ported; an LM's depth cut is stated with n_layers
+    train = t_build_cell("llama3.2-3b", "train_4k", device="cpu")
+    assert (train.batch, train.seq_len, train.opt.name) == (
+        4, 32, "adamw(lr=0.0003)")
+    cut = t_build_cell("deepseek-67b", "decode_32k", device="cpu", n_layers=2)
+    assert cut.cfg.n_layers == 2 and cut.batch_specs["cache"]["k"].shape[0] == 2
+    with pytest.raises(ValueError, match="n_layers"):
+        t_build_cell("dlrm-rm2", "serve_p99", device="cpu", n_layers=2)
+    # the recsys serve and train cells are ported
     assert t_build_cell("dlrm-rm2", "serve_p99", device="cpu").batch == 16
     assert t_build_cell("dlrm-rm2", "train_batch", device="cpu").batch == 16
