@@ -142,7 +142,41 @@ Phases, one JSON line each:
                A's loss and state (1e-6; bitwise reported), the step-60
                commit restored bitwise, K1 and its backward launched once
                a step;
- 11. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
+ 11. dist    - the distributed layer (``repro_torch.dist``, ``launch.mesh``)
+               on 2 rank processes sharing the card over gloo (NCCL refuses
+               two ranks on one device, so every collective crosses the
+               host: none of its times is a multi-card NCCL time).  The
+               single-device references run first in this process, each
+               freed before the next: (a) dlrm-rm2 FULL's serve_p99 cell
+               (batch 512) with its bf16 table (130,000,384 x 64, 16.64 GB)
+               row-sharded over (data 1, model 2): each rank builds only
+               its 65,000,192 rows (drawn in chunks, each from its own
+               seed: bitwise those rows of the whole table), K1's row
+               window held to its plain version (planted faults: the
+               neighbouring shard's rows, a dropped id) and timed beside
+               its plain version, ``F.embedding_bag`` and its byte bound,
+               the f32 partial's all-reduce, the sharded pool against the
+               single-device K1 within one bf16 ulp of its largest value,
+               the logits at the bf16 tolerance and, fed the single-device
+               pool, at 1e-4; (b) llama3.2-3b FULL's long_500k (B 1, S
+               524,288, a random int8 cache of 31 GB) sequence-sharded over
+               ("data", "model"): a rank holds 262,144 rows and the
+               replicated weights; one step with K3's int8 partials counted
+               from 0 (28 a rank), again with every partials call held to
+               its plain version (planted faults: the next row's scales, a
+               wrong kv_offset), the new token's K/V row on exactly one
+               rank and no other row moved, K3's partials and the
+               all-gather timed, then the step in f32 at 2 of 28 layers
+               (FULL width; a cut) against one device's at 1e-3; (c) the
+               olmoe MoE layer (FULL, f32, 4,096 tokens, experts split
+               32/32), the vocab-parallel loss on logits [2, 4096, 128256]
+               split in halves, GraphSAGE full_graph_sm (edges over both
+               ranks) and molecule (graphs over a (2, 1) mesh), each
+               against its single-device function (f32 1e-5, 2e-4 for sums
+               of reordered partials); (d) one rank over NCCL: (a)'s
+               dataflow at train_dlrm's table (3.2 M x 32 f32) bitwise one
+               device's, and the int8 decode's merge;
+ 12. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
                day through ``repro_torch.serving.scenarios``: (a) K4 at
                benchmarks/bench_cluster.py's fleet shape (512 streams, k in
                {2, 4, 8, 16}, 199,444 jobs) and at a full-width day's
@@ -167,8 +201,9 @@ half the keys, the wrong KV head, the causal mask flipped, and for the int8
 entry each row read with the next row's scales); the kernel phases feed
 peaked queries so that attention outputs are O(1) against the bf16
 tolerance.
-Then the kernel summary line (K1, K1's backward, K2, K3, K3's int8 entry
-and K4) with the whole script's seconds, the nvidia-smi line, and last
+Then the kernel summary line (K1, K1's backward, K2, K3, K3's int8 entry,
+K1's row window, K3's int8 partials and K4) with the whole script's
+seconds, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits 2 before any phase.
@@ -2878,6 +2913,843 @@ def phase_trainer(dev, bw: float, f32_rate: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the distributed layer: ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+# One card holds every rank: NCCL refuses two ranks on one device, so the
+# ranks talk over gloo with CUDA tensors (each collective passes through
+# the host; these are not multi-card NCCL times).
+DIST_RANKS = 2
+DIST_BACKEND = "gloo"
+NCCL_BACKEND = "nccl"   # (d): one rank, so that the wrappers' NCCL path runs
+RM2_SEED, LONG_SEED, MODULES_SEED, NCCL_SEED = 31, 32, 33, 34
+CACHE_CHUNK = 1 << 16   # rows of one draw of the random long_500k cache
+MOE_TOKENS = 4096       # the olmoe MoE layer's tokens
+CE_SHAPE = (2, 4096)    # the vocab-parallel loss's batch and sequence
+SUM_TOL = 2e-4          # f32 sums over reordered partials
+
+
+def dist_line(stage: str, **kw) -> dict:
+    return {"phase": "dist", "stage": stage, "ranks": DIST_RANKS,
+            "backend": DIST_BACKEND, "one_card": True, **kw}
+
+
+def long_cache(cfg, batch: int, S: int, lo: int, hi: int, seed: int, dev
+               ) -> dict:
+    """Rows [lo, hi) of a random S-row int8 KV cache (scales in [0.005,
+    0.02]), each CACHE_CHUNK-row chunk of each layer and leaf drawn from a
+    generator of its own: a rank's slice is bitwise those rows of the whole
+    cache made from the same seed."""
+    import torch
+
+    L, KVH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    n_chunks = -(-S // CACHE_CHUNK)
+    out = {}
+    g = torch.Generator(dev)
+    for i, name in enumerate(("k", "v", "ks", "vs")):
+        last = 1 if name in ("ks", "vs") else hd
+        dtype = torch.float32 if last == 1 else torch.int8
+        t = torch.empty((L, batch, hi - lo, KVH, last), dtype=dtype,
+                        device=dev)
+        for layer in range(L):
+            for c in range(lo // CACHE_CHUNK, -(-hi // CACHE_CHUNK)):
+                c0, c1 = c * CACHE_CHUNK, min((c + 1) * CACHE_CHUNK, S)
+                g.manual_seed(seed + (i * 4096 + layer) * n_chunks + c)
+                shape = (batch, c1 - c0, KVH, last)
+                if last == 1:
+                    chunk = torch.empty(shape, device=dev).uniform_(
+                        0.005, 0.02, generator=g)
+                else:
+                    chunk = torch.randint(-127, 128, shape, generator=g,
+                                          device=dev, dtype=torch.int8)
+                a, b = max(c0, lo), min(c1, hi)
+                t[layer, :, a - lo:b - lo] = chunk[:, a - c0:b - c0]
+        out[name] = t
+    return out
+
+
+def check_partials(name, got, want, tol) -> float:
+    """K3's partials (m, l, o) against their plain version: the running max
+    m and the sum l each by ``check``, and o as the attention it carries,
+    o / l (o is a sum of up to a slice's rows, whose rounding grows with
+    them; the merge divides it by l).  The largest error."""
+    (gm, gl, go), (wm, wl, wo) = got, want
+    return max(check(f"{name} m", gm, wm, tol),
+               check(f"{name} l", gl, wl, tol),
+               check(f"{name} o / l", go / gl.clamp_min(1e-30),
+                     wo / wl.clamp_min(1e-30), tol))
+
+
+def partials_must_fail(name, wrong, want, tol) -> None:
+    try:
+        check_partials(name, wrong, want, tol)
+    except AssertionError:
+        return
+    raise AssertionError(f"{name}: a planted fault passed the check")
+
+
+@contextlib.contextmanager
+def checked_int8_partials(errs: list, tol: float):
+    """Every call of K3's int8 partials on the sharded decode path held to
+    its plain version (``errs`` gets each call's largest error); the first
+    call's check also fed two planted faults that must fail it: each row
+    read with the next row's scales, and a wrong ``kv_offset`` (the slice
+    placed so that half of it lies past kv_len)."""
+    from repro_torch.dist import decode as dd
+    from repro_torch.kernels.flash_attention import ref
+
+    saved = dd.flash_decode_int8_partials
+
+    def wrapped(q, kq, ks, vq, vs, *, kv_len, kv_offset=0, bk=512):
+        got = saved(q, kq, ks, vq, vs, kv_len=kv_len, kv_offset=kv_offset,
+                    bk=bk)
+        want = ref.flash_decode_int8_partials_ref(
+            q, kq, ks, vq, vs, kv_len=kv_len, kv_offset=kv_offset)
+        name = f"k3 int8 partials call {len(errs)}"
+        errs.append(check_partials(name, got, want, tol))
+        if len(errs) == 1:
+            partials_must_fail(f"{name}, next row's scales",
+                               ref.flash_decode_int8_partials_ref(
+                                   q, kq, ks.roll(-1, dims=1), vq,
+                                   vs.roll(-1, dims=1), kv_len=kv_len,
+                                   kv_offset=kv_offset), want, tol)
+            partials_must_fail(f"{name}, wrong kv_offset",
+                               ref.flash_decode_int8_partials_ref(
+                                   q, kq, ks, vq, vs, kv_len=kv_len,
+                                   kv_offset=kv_len - kq.shape[1] // 2),
+                               want, tol)
+        return got
+
+    dd.flash_decode_int8_partials = wrapped
+    try:
+        yield
+    finally:
+        dd.flash_decode_int8_partials = saved
+
+
+def solo(rank: int, fn):
+    """``fn()`` run by one rank at a time, the others waiting at a barrier,
+    so that a rank's kernel times see the card alone; every rank's result
+    in rank order (each rank gets its own, the others None)."""
+    import torch
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        dist.barrier()
+        if r == rank:
+            out = fn()
+            torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+# --- (a) rm2 FULL, row-sharded -------------------------------------------
+
+
+def rm2_reference(dev) -> dict:
+    """dlrm-rm2 FULL's serve_p99 cell on one device (the whole 16.64 GB
+    table): the pooled SparseNet output (K1) and the logits, on the host."""
+    import torch
+
+    from repro_torch.data.clicklog import cell_batch
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell("dlrm-rm2", "serve_p99", dev)
+    model = cell.init_fn(cell.cfg, device=dev,
+                         generator=torch.Generator(dev).manual_seed(RM2_SEED))
+    batch_np = cell_batch(cell.cfg, cell.batch_specs, seed=RM2_SEED)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    with torch.inference_mode():
+        pooled = model.apply_sparse(batch)
+    logits = cell.run(model, batch)["scores"]
+    out = {"batch": batch_np, "pooled": pooled.cpu(), "logits": logits.cpu(),
+           "table_gb": params_gb(model),
+           "step_ms": host_ms(lambda: cell.run(model, batch), reps=5)}
+    del model, batch, pooled, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def rm2_rank(rank: int, mesh, dev, bw: float, f32_rate: float,
+             ref: dict) -> dict:
+    """(a) on one rank: its 65,000,192 rows of rm2's table, K1's row window
+    against its plain version (planted faults: the neighbouring shard's
+    rows, a dropped id) and timed, then the serve cell on the mesh against
+    the single-device reference."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.dist import collectives, logical
+    from repro_torch.dist.sharded_embedding import row_window
+    from repro_torch.kernels.embedding_bag import ops, ref as k1_ref
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.embedding import routed_offsets
+
+    t0 = time.perf_counter()
+    cell = build_cell("dlrm-rm2", "serve_p99", dev, mesh=mesh)
+    model = cell.init_state(torch.Generator(dev).manual_seed(RM2_SEED))
+    batch = cell.local_batch({k: torch.from_numpy(v).to(dev)
+                              for k, v in ref["batch"].items()})
+    emb = cell.cfg.embedding
+    table = model.table.detach()
+    ids = batch["sparse_ids"].contiguous()
+    off = routed_offsets(emb, dev)
+    with logical.axis_rules(mesh, cell.rules):
+        lo, hi = row_window(table)
+    build_s = time.perf_counter() - t0
+    # K1's row window at this launch, against its plain version
+    got = ops.embedding_bag_features(table, ids, off, row_window=(lo, hi),
+                                     out_dtype=torch.float32)
+    want = k1_ref.embedding_bag_window_ref(table, ids, off, (lo, hi),
+                                           torch.float32)
+    err = check("k1 row window", got, want, F32_TOL)
+    R = hi - lo
+    other = (lo + R, hi + R) if lo == 0 else (lo - R, hi - R)
+    must_fail("k1 row window, the neighbouring shard's rows",
+              k1_ref.embedding_bag_window_ref(table, ids, off, other,
+                                              torch.float32), want, F32_TOL)
+    g = ids.long() + off[None, :, None]
+    live = (ids >= 0) & (off[None, :, None] >= 0) & (g >= lo) & (g < hi)
+    first = torch.nonzero(live)[0]
+    dropped = ids.clone()
+    dropped[tuple(first.tolist())] = -1
+    must_fail("k1 row window, a dropped id",
+              k1_ref.embedding_bag_window_ref(table, dropped, off, (lo, hi),
+                                              torch.float32), want, F32_TOL)
+    # the main path: the serve cell on the mesh, counts from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.window_launches = 0
+    collectives.reset()
+    scores = cell.run(model, batch)["scores"]
+    torch.cuda.synchronize()
+    launches = ops.window_launches
+    all_reduces = collectives.calls["all_reduce"]
+    if launches < 1:
+        raise AssertionError("the sharded rm2 cell launched no K1 window")
+    with torch.inference_mode(), logical.axis_rules(mesh, cell.rules):
+        pooled = model.apply_sparse(batch)
+    pooled_err = drift(pooled, ref["pooled"].to(dev))
+    ulp = bf16_ulp(float(ref["pooled"].float().abs().max()))
+    if not pooled_err <= ulp:
+        raise AssertionError(f"sharded rm2 pool off by {pooled_err} > one "
+                             f"bf16 ulp {ulp}")
+    flips = int((pooled != ref["pooled"].to(dev)).sum())
+    logits_err = check("rm2 sharded logits", scores, ref["logits"].to(dev),
+                       LOGIT_TOL)
+    # times: K1's window alone (one rank at a time), its plain version,
+    # F.embedding_bag on the window's ids remapped to local rows, the
+    # all-reduce of the f32 partial (every rank), the sharded SparseNet and
+    # the cell's step on the host clock
+    flat = (g[live] - lo)
+    offsets = torch.zeros(live.numel() // live.shape[-1], dtype=torch.long,
+                          device=dev)
+    offsets[1:] = live.reshape(-1, live.shape[-1]).sum(1).cumsum(0)[:-1]
+    distinct = int(torch.unique(flat).numel())
+    n_bytes = (distinct * table.shape[1] * table.element_size()
+               + ids.numel() * 4 + got.numel() * 4)
+    t_bytes = n_bytes / bw * 1e3
+    t_ops = int(live.sum()) * table.shape[1] / f32_rate * 1e3
+    scrub = torch.empty(100 * 2**20 // 4, device=dev)
+
+    def window():
+        return ops.embedding_bag_features(table, ids, off,
+                                          row_window=(lo, hi),
+                                          out_dtype=torch.float32)
+
+    times = solo(rank, lambda: {
+        "ms": time_ms(window),
+        "ms_cold_l2": time_ms(window, before=scrub.zero_),
+        "plain_ms": time_ms(lambda: k1_ref.embedding_bag_window_ref(
+            table, ids, off, (lo, hi), torch.float32), reps=5),
+        "library_ms": time_ms(lambda: F.embedding_bag(
+            flat, table, offsets, mode="sum"))})
+    part = window()
+    all_reduce_ms = host_ms(lambda: collectives.all_reduce(
+        part, mesh.group("model")))
+    with torch.inference_mode(), logical.axis_rules(mesh, cell.rules):
+        sparse_ms = host_ms(lambda: model.apply_sparse(batch))
+    step_ms = host_ms(lambda: cell.run(model, batch))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {"rank": rank, "coords": mesh.coords, "rows": [lo, hi],
+           "table_gb": table.numel() * table.element_size() / 1e9,
+           "build_s": build_s, "window_max_abs_err": err,
+           "window_tolerance": F32_TOL, "launches": launches,
+           "all_reduces": all_reduces, "pooled_max_abs_err": pooled_err,
+           "pooled_tolerance_one_bf16_ulp": ulp,
+           "pooled_elements_differing": flips,
+           "logits_max_abs_err": logits_err, "logits_tolerance": LOGIT_TOL,
+           **times, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": n_bytes, "distinct_rows": distinct,
+           "live_ids": int(live.sum()), "all_reduce_ms": all_reduce_ms,
+           "all_reduce_bytes": part.numel() * 4, "sparse_ms": sparse_ms,
+           "step_ms": step_ms, "peak_gb": peak}
+    del model, table, batch, part, scrub
+    torch.cuda.empty_cache()
+    return res
+
+
+# --- (b) llama3.2-3b FULL, long_500k, sequence-sharded --------------------
+
+
+def long_reference(dev) -> dict:
+    """long_500k on one device (the whole 31 GB int8 cache): the step's
+    logits, the new token's K/V rows, the step's host time; then the f32
+    witness (all 28 layers at FULL width) and its logits and rows."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as tf_lib
+
+    cell = build_cell(LM_ARCH, "long_500k", dev, batch=1)
+    cfg, S = cell.cfg, cell.seq_len
+    params = cell.init_state(torch.Generator(dev).manual_seed(LONG_SEED))
+    cache = long_cache(cfg, 1, S, 0, S, LONG_SEED, dev)
+    token = torch.randint(0, cfg.vocab, (1, 1), device=dev, dtype=torch.int32,
+                          generator=torch.Generator(dev).manual_seed(
+                              LONG_SEED + 1))
+    batch = {"token": token, "cache": cache}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits = cell.run(params, batch)["logits"]
+    torch.cuda.synchronize()
+    pos = S - 1
+    out = {"token": token.cpu(), "logits": logits.cpu(),
+           "new_row": {k: v[:, :, pos].cpu() for k, v in cache.items()},
+           "cache_gb": sum(t.numel() * t.element_size()
+                           for t in cache.values()) / 1e9,
+           "params_gb": sum(t.numel() * t.element_size()
+                            for t in tree_leaves(params)) / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "step_ms": host_ms(lambda: cell.run(params, batch), reps=3)}
+    del params, cache, batch, logits
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tf_lib.init(cfg32, device=dev,
+                         generator=torch.Generator(dev).manual_seed(LONG_SEED))
+    cache = long_cache(cfg32, 1, S, 0, S, LONG_SEED, dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out["logits_f32"] = tf_lib.decode_step(params, token, cache, pos,
+                                               cfg32)[0].cpu()
+    out["peak_gb_f32"] = torch.cuda.max_memory_allocated() / 1e9
+    out["new_row_f32"] = {k: v[:, :, pos].cpu() for k, v in cache.items()}
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice_sums(cache: dict, skip: int | None) -> list:
+    """A checksum of every leaf of a cache slice, leaving out local row
+    ``skip``: equal before and after a step iff no other row changed."""
+    import torch
+
+    out = []
+    for t in cache.values():
+        total = 0
+        for layer in t.view(torch.int32):   # a layer at a time: int64 sums
+            total += int(layer.sum(dtype=torch.int64))
+            if skip is not None:
+                total -= int(layer[:, skip].sum(dtype=torch.int64))
+        out.append(total)
+    return out
+
+
+def long_rank(rank: int, mesh, dev, bw: float, ref: dict) -> dict:
+    """(b) on one rank: its 262,144 rows of the 524,288-row int8 cache and
+    the replicated weights; the long_500k step on the mesh (K3's int8
+    partials counted from 0), again with every partials call held to its
+    plain version, the new row against the single-device one, the step's
+    time, K3's partials alone and the all-gather; then the f32 witness."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.dist import collectives, logical
+    from repro_torch.dist.decode import seq_shard_index
+    from repro_torch.kernels.flash_attention import ops, ref as k3_ref
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as tf_lib
+
+    t0 = time.perf_counter()
+    cell = build_cell(LM_ARCH, "long_500k", dev, batch=1, mesh=mesh)
+    cfg, S = cell.cfg, cell.seq_len
+    s_loc = cell.batch_specs["cache"]["k"].shape[2]
+    off = seq_shard_index(mesh, cell.rules["kv_seq"]) * s_loc
+    params = cell.init_state(torch.Generator(dev).manual_seed(LONG_SEED))
+    cache = long_cache(cfg, 1, S, off, off + s_loc, LONG_SEED, dev)
+    token = ref["token"].to(dev)
+    batch = {"token": token, "cache": cache}
+    pos = S - 1
+    owner = off <= pos < off + s_loc
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    before = slice_sums(cache, pos - off if owner else None)
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    # the main path: one step, counts from 0
+    ops.launches["flash_decode_int8_partials"] = 0
+    collectives.reset()
+    logits = cell.run(params, batch)["logits"]
+    torch.cuda.synchronize()
+    launches = ops.launches["flash_decode_int8_partials"]
+    gathers = collectives.calls["all_gather"]
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != cfg.n_layers or gathers != cfg.n_layers:
+        raise AssertionError(f"long_500k step: {launches} K3 partials and "
+                             f"{gathers} all-gathers for {cfg.n_layers} "
+                             "layers")
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("long_500k: non-finite logits")
+    # again, every partials call held to its plain version
+    errs = []
+    with checked_int8_partials(errs, BF16_TOL):
+        again = cell.run(params, batch)["logits"]
+    if not bool(torch.equal(again, logits)):
+        raise AssertionError("long_500k: the checked step differs")
+    # the cache: the new row on the rank that holds pos, nothing else moved;
+    # layer 0's row bitwise one device's (the same input), the deeper
+    # layers' reported (the bf16 residual stream drifts with the merge's
+    # rounding; the f32 witness below holds them)
+    after = slice_sums(cache, pos - off if owner else None)
+    if after != before:
+        raise AssertionError("long_500k: a row other than pos changed")
+    row_err = None
+    if owner:
+        # copies: a view would keep the whole slice alive after the cache
+        row = {k: v[:, :, pos - off].clone() for k, v in cache.items()}
+        want = {k: v.to(dev) for k, v in ref["new_row"].items()}
+        for k in ("k", "v", "ks", "vs"):
+            if not bool(torch.equal(row[k][0], want[k][0])):
+                raise AssertionError(f"long_500k: layer 0's new {k} row "
+                                     "differs from one device's")
+        row_err = {k: drift(row[k], want[k]) for k in row}
+    # times: the step (every rank), K3's partials on layer 0's slice alone
+    # and its plain version (one rank at a time), the all-gather
+    step_ms = host_ms(lambda: cell.run(params, batch), reps=5)
+    lay = {k: v[0] for k, v in cache.items()}
+    q = (torch.randn((1, 1, cfg.n_heads, cfg.head_dim), device=dev,
+                     generator=torch.Generator(dev).manual_seed(5)) *
+         PEAK).to(cfg.dtype)
+
+    def partials():
+        return ops.flash_decode_int8_partials(
+            q, lay["k"], lay["ks"], lay["v"], lay["vs"], kv_len=S,
+            kv_offset=off)
+
+    times = solo(rank, lambda: {
+        "partials_ms": time_ms(partials),
+        "partials_plain_ms": time_ms(lambda: k3_ref.
+                                     flash_decode_int8_partials_ref(
+                                         q, lay["k"], lay["ks"], lay["v"],
+                                         lay["vs"], kv_len=S,
+                                         kv_offset=off), reps=3)})
+    pm, pl, po = partials()
+    partial_err = check_partials("k3 int8 partials, timed layer", (pm, pl, po),
+                                 k3_ref.flash_decode_int8_partials_ref(
+                                     q, lay["k"], lay["ks"], lay["v"],
+                                     lay["vs"], kv_len=S, kv_offset=off),
+                                 BF16_TOL)
+    packed = torch.cat([pm, pl, po], dim=-1)
+    seq_group = mesh.group(cell.rules["kv_seq"])
+    gather_ms = host_ms(lambda: collectives.all_gather(packed, seq_group))
+    n_bytes = attn_bytes(q, *lay.values(), pm, pl, po)
+    t_bytes = n_bytes / bw * 1e3
+    t_ops = 4 * cfg.n_heads * s_loc * cfg.head_dim / BF16_PEAK * 1e3
+    res = {"rank": rank, "coords": mesh.coords, "rows": [off, off + s_loc],
+           "cache_gb": sum(t.numel() * t.element_size()
+                           for t in cache.values()) / 1e9,
+           "build_s": build_s, "launches": launches, "all_gathers": gathers,
+           "k3_vs_plain_max_abs_err_per_call": max(errs),
+           "k3_checked_calls": len(errs), "tolerance": BF16_TOL,
+           "logits_drift_from_one_device": drift(logits, ref["logits"].to(
+               dev)),
+           "new_row_owner": owner, "new_row_drift": row_err,
+           "step_ms": step_ms, "base_gb": base_gb,
+           "step_peak_gb": step_peak_gb, **times,
+           "partials_max_abs_err": partial_err,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": n_bytes, "all_gather_ms": gather_ms,
+           "all_gather_bytes": packed.numel() * 4}
+    del params, cache, batch, lay, packed
+    torch.cuda.empty_cache()
+    # the f32 witness: all layers at FULL width, K3 held per call at the
+    # f32 tolerance, every layer's new row and the logits held to one
+    # device's
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tf_lib.init(cfg32, device=dev,
+                         generator=torch.Generator(dev).manual_seed(LONG_SEED))
+    cache = long_cache(cfg32, 1, S, off, off + s_loc, LONG_SEED, dev)
+    errs32 = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), logical.axis_rules(mesh, cell.rules), \
+            checked_int8_partials(errs32, ATTN_F32_TOL):
+        logits32 = tf_lib.decode_step(params, token, cache, pos, cfg32)[0]
+    peak32_gb = torch.cuda.max_memory_allocated() / 1e9
+    row32_err = None
+    if owner:
+        # every layer's new row: int8 codes within one step of one
+        # device's (a code flips where the value sits on a rounding
+        # boundary), scales at the f32 path's tolerance
+        # copies: a view would keep the whole slice alive after the cache
+        row = {k: v[:, :, pos - off].clone() for k, v in cache.items()}
+        want = {k: v.to(dev) for k, v in ref["new_row_f32"].items()}
+        row32_err = {k: drift(row[k], want[k]) for k in row}
+        if row32_err["k"] > 1 or row32_err["v"] > 1:
+            raise AssertionError(f"long_500k f32: new int8 rows off by "
+                                 f"{row32_err}")
+        check("long_500k f32 new row scales",
+              torch.stack([row["ks"], row["vs"]]),
+              torch.stack([want["ks"], want["vs"]]), F32_PATH_TOL)
+    res["f32"] = {"layers": cfg32.n_layers, "new_row_drift": row32_err,
+                  "peak_gb": peak32_gb,
+                  "k3_vs_plain_max_abs_err_per_call": max(errs32),
+                  "tolerance_per_call": ATTN_F32_TOL,
+                  "logits_max_abs_err": check(
+                      "long_500k f32 sharded logits", logits32,
+                      ref["logits_f32"].to(dev), F32_PATH_TOL),
+                  "logits_tolerance": F32_PATH_TOL}
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+# --- (c) the other dataflows ---------------------------------------------
+
+
+def moe_inputs(dev):
+    """olmoe's MoE layer at FULL width in f32, and MOE_TOKENS tokens."""
+    import torch
+
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.models.layers import init_moe
+
+    cfg = olmoe_1b_7b.FULL.moe
+    g = torch.Generator(dev).manual_seed(MODULES_SEED)
+    params = init_moe(cfg, generator=g, device=dev, dtype=torch.float32)
+    x = torch.randn((MOE_TOKENS, cfg.d_model), generator=g, device=dev)
+    return cfg, params, x
+
+
+def ce_inputs(dev):
+    import torch
+
+    from repro_torch.configs import llama3_2_3b
+
+    V = llama3_2_3b.FULL.vocab
+    g = torch.Generator(dev).manual_seed(MODULES_SEED + 1)
+    logits = torch.randn((*CE_SHAPE, V), generator=g, device=dev)
+    targets = torch.randint(0, V, CE_SHAPE, generator=g, device=dev)
+    return logits, targets
+
+
+def gnn_inputs(dev, shape: str):
+    import torch
+
+    from repro_torch.data.graph import cell_batch
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell("graphsage-reddit", shape, dev)
+    model = cell.init_state(torch.Generator(dev).manual_seed(
+        MODULES_SEED + 2))["model"]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             cell_batch(cell.cfg, cell.dims, MODULES_SEED).items()}
+    return cell, model.tree(), batch
+
+
+def modules_reference(dev) -> dict:
+    """(c) on one device: the olmoe MoE layer, the loss at llama's
+    vocabulary, GraphSAGE's full_graph_sm loss and molecule logits."""
+    import torch
+
+    from repro_torch.dist.loss import ce_loss
+    from repro_torch.dist.moe import moe_apply
+    from repro_torch.models import gnn as gnn_lib
+
+    out = {}
+    with torch.inference_mode():
+        cfg, params, x = moe_inputs(dev)
+        out["moe"] = moe_apply(params, x, cfg)[0].cpu()
+        del params, x
+        logits, targets = ce_inputs(dev)
+        out["ce"] = float(ce_loss(logits, targets))
+        del logits, targets
+        cell, params, batch = gnn_inputs(dev, "full_graph_sm")
+        out["full_graph_sm"] = float(gnn_lib.softmax_ce(
+            gnn_lib.apply_full(params, batch["feats"], batch["edges"],
+                               cell.cfg),
+            batch["labels"], batch["label_mask"]))
+        cell, params, batch = gnn_inputs(dev, "molecule")
+        out["molecule"] = gnn_lib.apply_batched(
+            params, batch["feats"], batch["edges"], batch["node_mask"],
+            batch["graph_ids"], batch["labels"].shape[0], cell.cfg).cpu()
+    torch.cuda.empty_cache()
+    return out
+
+
+def modules_rank(rank: int, mesh, dev, ref: dict) -> dict:
+    """(c) on one rank, each against the single-device function: the
+    olmoe MoE layer with its 64 experts split 32/32, the vocab-parallel
+    loss on logits [2, 4096, 128256] split in halves, GraphSAGE's
+    full_graph_sm (the edge list over both ranks) and molecule (its 128
+    graphs over a (2, 1) mesh's data axis)."""
+    import torch
+
+    from repro_torch.dist import collectives, logical
+    from repro_torch.dist.gnn import (
+        apply_batched_sharded,
+        apply_full_sharded,
+        edge_block,
+        graph_block,
+    )
+    from repro_torch.dist.loss import ce_loss
+    from repro_torch.dist.moe import expert_parallel_specs, moe_apply
+    from repro_torch.dist.sharding import P, local_shard
+    from repro_torch.launch.mesh import Mesh
+
+    res = {"rank": rank}
+    collectives.reset()
+    with torch.inference_mode():
+        cfg, params, x = moe_inputs(dev)
+        local = local_shard(params, expert_parallel_specs(params), mesh)
+        del params
+        torch.cuda.empty_cache()
+        with logical.axis_rules(mesh, {"batch": "data", "model": "model"}):
+            y = moe_apply(local, x, cfg)[0]
+            t_ms = host_ms(lambda: moe_apply(local, x, cfg), reps=5)
+        res["moe"] = {"experts_held": local["experts"]["w_gate"].shape[0],
+                      "tokens": MOE_TOKENS,
+                      "max_abs_err": check("olmoe MoE expert-parallel", y,
+                                           ref["moe"].to(dev), SUM_TOL),
+                      "tolerance": SUM_TOL, "ms": t_ms}
+        del local, x, y
+        logits, targets = ce_inputs(dev)
+        half = local_shard(logits, P(None, None, "model"), mesh)
+        del logits
+        torch.cuda.empty_cache()
+        with logical.axis_rules(mesh, {"batch": "data", "model": "model",
+                                       "vocab": "model"}):
+            loss = ce_loss(half, targets)
+            t_ms = host_ms(lambda: ce_loss(half, targets), reps=5)
+        res["ce"] = {"vocab_held": half.shape[-1],
+                     "loss": float(loss), "reference": ref["ce"],
+                     "max_abs_err": check("vocab-parallel CE",
+                                          loss.reshape(1),
+                                          torch.tensor([ref["ce"]],
+                                                       device=dev), F32_TOL),
+                     "tolerance": F32_TOL, "ms": t_ms}
+        del half, targets
+        cell, params, batch = gnn_inputs(dev, "full_graph_sm")
+        edges = edge_block(batch["edges"], mesh)
+        loss = apply_full_sharded(params, batch["feats"], edges,
+                                  batch["labels"], batch["label_mask"],
+                                  cell.cfg, mesh, batch["feats"].shape[0])
+        res["full_graph_sm"] = {
+            "edges_held": edges.shape[1], "loss": float(loss),
+            "max_abs_err": check("full_graph_sm sharded loss",
+                                 loss.reshape(1),
+                                 torch.tensor([ref["full_graph_sm"]],
+                                              device=dev), SUM_TOL),
+            "tolerance": SUM_TOL}
+        cell, params, batch = gnn_inputs(dev, "molecule")
+        by_graph = Mesh((DIST_RANKS, 1), ("data", "model"),
+                        device_type=dev.type)
+        G = batch["labels"].shape[0]
+        n, e = cell.dims["n_nodes"], cell.dims["n_edges"]
+        block = graph_block(batch, by_graph, ("data",), G, n, e)
+        logits, _ = apply_batched_sharded(params, block, cell.cfg, by_graph,
+                                          ("data",), G, n, e)
+        g = G // DIST_RANKS
+        i = by_graph.axis_index("data")
+        res["molecule"] = {
+            "graphs_held": logits.shape[0],
+            "max_abs_err": check("molecule sharded logits", logits,
+                                 ref["molecule"][i * g:(i + 1) * g].to(dev),
+                                 SUM_TOL),
+            "tolerance": SUM_TOL}
+    res["collectives"] = dict(collectives.calls)
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_rank(rank: int, dev_type: str, bw: float, f32_rate: float,
+              refs: dict) -> dict:
+    """One rank of the dist phase: (a), (b) and (c) on a (1, DIST_RANKS)
+    ("data", "model") mesh over the card."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    dev = torch.device(dev_type)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_debug_mesh(1, DIST_RANKS, device_type=dev_type)
+    out = {}
+    t0 = time.perf_counter()
+    out["rm2"] = rm2_rank(rank, mesh, dev, bw, f32_rate, refs["rm2"])
+    out["rm2"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["long"] = long_rank(rank, mesh, dev, bw, refs["long"])
+    out["long"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["modules"] = modules_rank(rank, mesh, dev, refs["modules"])
+    out["modules"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# --- (d) NCCL, one rank --------------------------------------------------
+
+
+def nccl_rank(rank: int, dev_type: str) -> dict:
+    """(d) world size 1 over NCCL: (a)'s dataflow at train_dlrm's table
+    (3.2 M x 32 f32) bitwise one device's, and the sequence-sharded int8
+    decode's merge against K3's int8 entry: the NCCL path of the
+    all-reduce and the all-gather."""
+    import torch
+
+    from repro_torch.data.clicklog import ClickLogGenerator
+    from repro_torch.dist import collectives, logical
+    from repro_torch.dist.decode import flash_decode_sharded_int8
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train_dlrm import make_model
+    from repro_torch.models.embedding import (
+        embedding_bag,
+        embedding_bag_local,
+        init_embedding,
+    )
+    import torch.distributed as dist
+
+    dev = torch.device(dev_type)
+    mesh = make_debug_mesh(1, 1, device_type=dev_type)
+    cfg = make_model()
+    emb = cfg.embedding
+    params = init_embedding(emb, device=dev, generator=torch.Generator(
+        dev).manual_seed(NCCL_SEED))
+    ids = torch.from_numpy(ClickLogGenerator(cfg, seed=NCCL_SEED).sparse_ids(
+        TRAINER_BATCH)).to(dev)
+    collectives.reset()
+    ops.window_launches = 0
+    with torch.inference_mode():
+        with logical.axis_rules(mesh, {"batch": "data", "model": "model"}):
+            sharded = embedding_bag(params, ids, emb)
+        local = embedding_bag_local(params, ids, emb)
+        if not bool(torch.equal(sharded, local)):
+            raise AssertionError("NCCL world 1: the sharded pool differs "
+                                 "from one device's")
+        g = torch.Generator(dev).manual_seed(NCCL_SEED + 1)
+        B, S, H, KVH, hd = 2, 4096, 24, 8, 128
+        q = torch.randn((B, 1, H, hd), generator=g, device=dev) * PEAK
+        kq, vq = (torch.randint(-127, 128, (B, S, KVH, hd), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.empty((B, S, KVH, 1), device=dev).uniform_(
+            0.005, 0.02, generator=g) for _ in range(2))
+        got = flash_decode_sharded_int8(q, kq, ks, vq, vs, kv_len=S - 100,
+                                        mesh=mesh,
+                                        seq_axes=("data", "model"))
+        err = check("NCCL world 1 int8 decode", got, k3_ops.flash_decode_int8(
+            q, kq, ks, vq, vs, kv_len=S - 100), ATTN_F32_TOL)
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "table": [emb.total_rows, emb.dim], "ids": list(ids.shape),
+            "pool_bitwise_one_device": True, "window_launches":
+            ops.window_launches, "decode_max_abs_err": err,
+            "decode_tolerance": ATTN_F32_TOL,
+            "collectives": dict(collectives.calls)}
+
+
+def phase_dist(dev, bw: float, f32_rate: float) -> dict:
+    """The distributed layer on the card: the single-device references
+    first (each freed before the next), then DIST_RANKS rank processes on
+    the card over gloo run (a) rm2 FULL row-sharded, (b) llama3.2-3b FULL
+    long_500k sequence-sharded and (c) the MoE, loss and GNN dataflows;
+    then (d) one rank over NCCL.  A rank that fails fails the phase."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    emit(dist_line("memory", free_gb=free / 1e9, total_gb=total / 1e9))
+    refs = {}
+    t = time.perf_counter()
+    refs["rm2"] = rm2_reference(dev)
+    t_ref = {"rm2": time.perf_counter() - t}
+    t = time.perf_counter()
+    refs["long"] = long_reference(dev)
+    t_ref["long"] = time.perf_counter() - t
+    t = time.perf_counter()
+    refs["modules"] = modules_reference(dev)
+    t_ref["modules"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        ranks = spawn(dist_rank, DIST_RANKS, backend=DIST_BACKEND,
+                      init_file=Path(tmp) / "init", device=dev.type,
+                      args=(dev.type, bw, f32_rate, refs))
+        ranks_s = time.perf_counter() - t
+        t = time.perf_counter()
+        nccl = spawn(nccl_rank, 1, backend=NCCL_BACKEND,
+                     init_file=Path(tmp) / "init-nccl", device=dev.type,
+                     args=(dev.type,))[0]
+        nccl_s = time.perf_counter() - t
+    rm2 = [r["rm2"] for r in ranks]
+    long = [r["long"] for r in ranks]
+    mods = [r["modules"] for r in ranks]
+    res = {"phase": "dist", "ranks": DIST_RANKS, "backend": DIST_BACKEND,
+           "one_card": True,
+           "rm2": {"config": "dlrm-rm2 FULL, serve_p99 (batch 512), bf16 "
+                             "table 130,000,384 x 64 over (data 1, model 2)",
+                   "reference_table_gb": refs["rm2"]["table_gb"],
+                   "reference_step_ms": refs["rm2"]["step_ms"],
+                   "reference_s": t_ref["rm2"], "per_rank": rm2,
+                   "launches": sum(r["launches"] for r in rm2)},
+           "long_500k": {"config": "llama3.2-3b FULL, long_500k (B 1, S "
+                                   "524,288, int8 cache) over (data 1, "
+                                   "model 2): kv_seq = (data, model)",
+                         "reference_cache_gb": refs["long"]["cache_gb"],
+                         "reference_params_gb": refs["long"]["params_gb"],
+                         "reference_peak_gb": refs["long"]["peak_gb"],
+                         "reference_peak_gb_f32": refs["long"]["peak_gb_f32"],
+                         "reference_step_ms": refs["long"]["step_ms"],
+                         "reference_s": t_ref["long"], "per_rank": long,
+                         "launches": sum(r["launches"] for r in long),
+                         "new_row_owners": sum(r["new_row_owner"]
+                                               for r in long)},
+           "modules": {"per_rank": mods, "reference_s": t_ref["modules"]},
+           "nccl_world1": nccl, "ranks_s": ranks_s, "nccl_s": nccl_s}
+    if res["long_500k"]["new_row_owners"] != 1:
+        raise AssertionError("long_500k: the new row is not in exactly one "
+                             "rank's shard")
+    emit(dist_line("sharded_embedding", **res["rm2"]))
+    emit(dist_line("seq_sharded_decode", **res["long_500k"]))
+    emit(dist_line("dist_modules", **res["modules"]))
+    emit({"phase": "dist", "stage": "nccl_world1", "ranks": 1,
+          "one_card": True, **nccl})
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the cluster day (K4)
 # ---------------------------------------------------------------------------
 
@@ -3302,7 +4174,7 @@ def phase_cluster(dev, bw: float, probes) -> dict:
 
 def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                    lm: dict, lm_configs: dict, recsys: dict, train: dict,
-                   trainer: dict, cluster: dict) -> list[dict]:
+                   trainer: dict, dist: dict, cluster: dict) -> list[dict]:
     """The summary of every kernel: where it replaces a TPU kernel, its
     launches on the paths driven here, its error and its times."""
     import torch
@@ -3314,6 +4186,8 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     g = train["k1_grad"]["rm2"]
     i8 = k3["int8"]
     fb = cluster["a_fleet_bench"]
+    w = dist["rm2"]["per_rank"]
+    lg = dist["long_500k"]["per_rank"]
     day = cluster["a_day_shape"]
     decode_src = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
     k1_keys = ("ms", "ms_cold_l2", "ms_cold_clean", "ms_stream", "plain_ms",
@@ -3471,6 +4345,50 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                           "share_of_bound", "tolerance")}}
             for arch_id, c in lm_configs["cells"].items()},
     }, {
+        "name": "hot_embedding_bag.row_window",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:43 "
+                    "(the row-sharded lookup of "
+                    "src/repro/dist/sharded_embedding.py:47)",
+        "launches": dist["rm2"]["launches"],
+        "launches_note": "the sharded rm2 serve_p99 cell, both ranks, "
+                         "counted from 0: one launch a rank (its rows of "
+                         "the table, f32 partials)",
+        "max_abs_err": max(r["window_max_abs_err"] for r in w),
+        **{k: w[0][k] for k in ("ms", "ms_cold_l2", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by")},
+        "per_rank_ms": [r["ms"] for r in w],
+        "library_of": "F.embedding_bag(mode='sum') on the window's ids "
+                      "remapped to local rows",
+        "shape": f"table shard {w[0]['rows'][1] - w[0]['rows'][0]}x64 bf16 "
+                 f"(rows {w[0]['rows']}), ids [512, 26, 64] -> f32",
+        "tolerance": F32_TOL,
+        "ranks": DIST_RANKS, "backend": DIST_BACKEND, "one_card": True,
+    }, {
+        "name": "flash_decode_int8.partials",
+        "route": "cuda",
+        "source": decode_src,
+        "replaces": "src/repro/kernels/flash_attention/flash_decode.py:76 "
+                    "(flash_decode_partials on a shard of the "
+                    "sequence-sharded cache, src/repro/dist/decode.py:66)",
+        "launches": dist["long_500k"]["launches"],
+        "launches_note": "the long_500k step on the mesh, both ranks, "
+                         "counted from 0: one launch a layer a rank",
+        "max_abs_err": max(r["k3_vs_plain_max_abs_err_per_call"]
+                           for r in lg),
+        "ms": lg[0]["partials_ms"], "plain_ms": lg[0]["partials_plain_ms"],
+        "bound_ms": lg[0]["bound_ms"], "bound_by": lg[0]["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call attends over an int8 cache "
+                        "with per-row scales",
+        "per_rank_ms": [r["partials_ms"] for r in lg],
+        "shape": f"q [1, 1, {HEADS}, {HEAD_DIM}] bf16, k/v slice [1, "
+                 f"{lg[0]['rows'][1] - lg[0]['rows'][0]}, {KV_HEADS}, "
+                 f"{HEAD_DIM}] int8 of 524288 rows",
+        "tolerance": BF16_TOL,
+        "ranks": DIST_RANKS, "backend": DIST_BACKEND, "one_card": True,
+    }, {
         "name": "fleet_fifo",
         "route": "cuda",
         "source": "src/repro_torch/kernels/fleet_fifo/csrc/fleet_fifo.cu",
@@ -3532,7 +4450,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     probes = start_k4_probes()
-    built = _build.build_all()
+    with _build.build_lock():
+        built = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"seconds": v["seconds"], "built": v["built"],
                           "ptxas": [ln for ln in v["log"].splitlines()
@@ -3580,12 +4499,18 @@ def main() -> int:
     trainer = phase_trainer(dev, bw, f32_rate)
     emit(trainer)
 
-    # 11. the cluster day (K4's count is reset inside, just before each day)
+    # 11. the distributed layer: rank processes on the card (each rank's
+    # counts are reset inside, just before its main path)
+    dist = phase_dist(dev, bw, f32_rate)
+    emit({k: dist[k] for k in ("phase", "ranks", "backend", "one_card",
+                               "ranks_s", "nccl_s", "seconds")})
+
+    # 12. the cluster day (K4's count is reset inside, just before each day)
     cluster = phase_cluster(dev, bw, probes)
     emit(cluster)
 
     emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, lm_configs,
-                                    recsys, train, trainer, cluster),
+                                    recsys, train, trainer, dist, cluster),
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,15 +1,25 @@
-"""Mixture-of-experts dispatch into capacity buffers (Switch-style),
-single device.
+"""Mixture-of-experts dispatch into capacity buffers (Switch-style), on
+one device and expert-parallel.
 
 Counterpart of ``repro.dist.moe``.  Each token's top-k assignments are
 routed into fixed-size per-expert buffers (the grouped-GEMM layout
 ``[E, capacity, d]``), so expert compute is O(N·k) rather than the dense
-oracle's O(E·N) (``repro_torch.models.layers.apply_moe_dense``).  The
-reference annotates the buffers expert-sharded so that a mesh turns the
-gather and scatter into all-to-alls; on one device there is nothing to
-annotate, and the expert-parallel form waits for the ``torch.distributed``
-layer.  ``e_start``/``e_count`` keep the reference's expert window:
-partial outputs over disjoint windows sum to the full one.
+oracle's O(E·N) (``repro_torch.models.layers.apply_moe_dense``).
+``e_start``/``e_count`` keep the reference's expert window: partial
+outputs over disjoint windows sum to the full one.
+
+That invariant is the expert-parallel dataflow: with a "model" mesh axis
+bound, ``moe_apply`` runs on a rank whose expert stacks are its window
+[r * E_pad / W, (r + 1) * E_pad / W) (``param_spec_tree``'s rule, [L, E,
+...] sharded on E); the rank routes every token of its batch block over
+all experts, as the reference computes the ranks, computes its window's
+partial, and one ``all_reduce`` over "model" sums the partials.  The
+shared expert is added once, after the sum.  The reference's GSPMD lowers
+the same function to all-to-alls of the capacity buffers; the window-and-
+sum form is the one its invariant pins (``test_expert_partials_sum_to_
+full``).  Routing and capacity are per batch block: they equal the whole
+batch's where no assignment drops (capacity_factor >= the largest
+expert's share).
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives, logical
 from repro_torch.models.layers import MoEConfig, apply_swiglu, moe_router
 
 
@@ -76,13 +87,14 @@ def dispatch_indices(topk: torch.Tensor, n_experts: int, capacity: int,
 
 def moe_apply_grouped(params, x: torch.Tensor, cfg: MoEConfig, *,
                       e_start: int = 0, e_count: int | None = None,
-                      capacity: int | None = None):
+                      capacity: int | None = None, expert_base: int = 0):
     """Routed-expert output via the capacity-buffer dispatch.
 
     x: [N, d].  Computes only experts ``[e_start, e_start + e_count)``
     (the whole padded range by default) and does NOT add the shared expert
-    (see :func:`moe_apply`).  Returns ([N, d], aux_loss); a dropped
-    assignment contributes zero."""
+    (see :func:`moe_apply`).  ``expert_base``: the expert that row 0 of
+    the expert stacks holds (a rank's window starts past 0).  Returns
+    ([N, d], aux_loss); a dropped assignment contributes zero."""
     e_pad = cfg.n_experts_padded
     if e_count is None:
         e_count = e_pad
@@ -98,7 +110,12 @@ def moe_apply_grouped(params, x: torch.Tensor, cfg: MoEConfig, *,
     xb = x[buf_token.long()] * buf_valid[:, None].to(x.dtype)
     xb = xb.reshape(e_count, capacity, d)
     ex = params["experts"]
-    wg, wu, wd = (ex[name][e_start:e_start + e_count]
+    e0, held = e_start - expert_base, ex["w_gate"].shape[0]
+    if e0 < 0 or e0 + e_count > held:
+        raise ValueError(f"experts [{e_start}, {e_start + e_count}) are not "
+                         f"in the stacks' [{expert_base}, "
+                         f"{expert_base + held})")
+    wg, wu, wd = (ex[name][e0:e0 + e_count]
                   for name in ("w_gate", "w_up", "w_down"))
     h = F.silu(torch.einsum("ecd,edf->ecf", xb, wg)) * torch.einsum(
         "ecd,edf->ecf", xb, wu)
@@ -113,9 +130,39 @@ def moe_apply_grouped(params, x: torch.Tensor, cfg: MoEConfig, *,
 
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
     """The MoE layer: routed experts (grouped dispatch over the whole
-    padded expert range) plus the always-on shared expert.
-    x: [N, d] -> ([N, d], aux_loss)."""
-    out, aux = moe_apply_grouped(params, x, cfg)
+    padded expert range, expert-parallel when a "model" axis is bound, the
+    expert stacks then this rank's window) plus the always-on shared
+    expert.  x: [N, d] -> ([N, d], aux_loss)."""
+    axis = logical.model_axis_name()
+    if axis is None:
+        out, aux = moe_apply_grouped(params, x, cfg)
+    else:
+        mesh = logical.current_mesh()
+        w = logical.shards(axis, mesh)
+        e_pad = cfg.n_experts_padded
+        held = params["experts"]["w_gate"].shape[0]
+        if e_pad % w or held != e_pad // w:
+            raise ValueError(f"expert stacks of {held} experts are not a "
+                             f"window of {e_pad} over {w} ranks")
+        e_count = e_pad // w
+        e_start = logical.shard_index(mesh, axis) * e_count
+        out, aux = moe_apply_grouped(params, x, cfg, e_start=e_start,
+                                     e_count=e_count, expert_base=e_start)
+        out = collectives.all_reduce(out.contiguous(), logical.group(axis))
     if cfg.n_shared:
         out = out + apply_swiglu(params["shared"], x)
     return out, aux
+
+
+def expert_parallel_specs(params):
+    """The spec tree of an MoE layer's parameters under expert
+    parallelism: the expert stacks [..., E, ...] sharded on E over "model"
+    (``param_spec_tree``'s rule, ``stack`` leading dims left whole), the
+    router and the shared expert replicated."""
+    from repro_torch.dist.sharding import Spec, replicated_specs
+
+    specs = replicated_specs(params)
+    e_dim = {k: w.dim() - 3 for k, w in params["experts"].items()}
+    specs["experts"] = {k: Spec((None,) * d + ("model", None, None))
+                        for k, d in e_dim.items()}
+    return specs

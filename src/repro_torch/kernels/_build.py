@@ -7,13 +7,23 @@ sources that are not built yet compile in parallel, one ``nvcc`` each.
 The digest covers the source and the flags, so an edited source rebuilds
 and an unchanged one is reused.
 
+Processes that reach first use together (the rank processes of a
+sharded run) build once: ``load`` holds a ``threading.Lock`` against the
+other threads of its process and ``build_lock``, an exclusive
+``fcntl.flock`` on a file in the build directory, against other processes;
+the second process to take it finds the libraries built.  The kernel holds
+the lock only while its process lives, so a build cut off leaves no lock
+behind.
+
 Nothing here runs at import time: a machine without ``nvcc`` (the CPU test
 environment) imports every kernel module and only fails if it asks for a
 CUDA launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -94,12 +104,28 @@ def build_all() -> dict[str, dict]:
     return out
 
 
+@contextlib.contextmanager
+def build_lock(path: Path | None = None):
+    """Hold an exclusive ``flock`` on ``path`` (``BUILD_DIR / "build.lock"``
+    by default) for the ``with`` block: one process at a time builds."""
+    path = BUILD_DIR / "build.lock" if path is None else Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building sources on first use."""
+    """The loaded library of kernel ``name``, building sources on first use
+    (under ``build_lock``, so that processes starting together build once)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            built = build_all()
+            with build_lock():
+                built = build_all()
             if name not in built:
                 raise KeyError(f"no CUDA source for kernel {name!r}")
             lib = ctypes.CDLL(str(built[name]["path"]))

@@ -6,13 +6,19 @@
 // per grid step.  On an H100 a table does not fit in shared memory (227 KB a
 // block), so it stays in HBM; its hot rows live in the 50 MB L2.
 //
-// Function: out[bag, :] = sum_{p : id >= 0} table[id + row_offsets[f], :]
-//   with id = ids[bag, p] and f = bag % F;
+// Function: out[bag, :] = sum_{p : live} table[id + row_offsets[f] - lo, :]
+//   with id = ids[bag, p], f = bag % F, and the slot live iff id >= 0 and
+//   lo <= id + row_offsets[f] < hi;
 //   table [H, D] f32 or bf16, ids [n_bags, P] int32 padded with -1 anywhere
 //   in a bag, row_offsets [F] int64 (null: F = 1 and offset 0; a negative
 //   offset pools its feature's bags to exactly zero), out [n_bags, D] in the
-//   table's dtype, summed in fp32.  The 2-D entry is F = 1 with no offsets;
-//   the 3-D entry is ids [B, F, P] seen as B*F bags.
+//   table's dtype or in f32 (the accumulator unrounded), summed in fp32.
+//   The 2-D entry is F = 1 with no offsets; the 3-D entry is ids [B, F, P]
+//   seen as B*F bags.  The row window [lo, hi) is how a rank of a row-sharded
+//   table pools its own rows: the table is its shard of rows [lo, hi) of the
+//   combined table, every other row counts as padding, and the f32 partial
+//   is summed across ranks before its one rounding (repro_torch.dist.
+//   sharded_embedding).  Without a window lo = 0 and hi = 2^63 - 1.
 //
 // What bounds it: bytes, reached only with enough rows in flight.  Each valid
 // id gathers one D-row from HBM (or L2, or L1 for the hottest rows) for D
@@ -45,7 +51,13 @@
 //     group, a fixed butterfly across groups) with no atomics: two launches
 //     on the same inputs are bitwise equal, and the 3-D entry equals the 2-D
 //     entry on the shifted ids.
-// Row addressing is 64-bit (id + offset, times the row's vector count).
+//   - The window costs two 64-bit compares an id, in the compaction that
+//     drops padding anyway: an id outside it is dropped there and loads
+//     nothing; the kept ids are read at id + (offset - lo).  It is a
+//     template flag: a launch without a window (and a table-dtype store)
+//     runs an instance without the compares, which cost the rm2 bf16
+//     launch 66% when they ran in every instance (tools/k1_bench.py --ab).
+// Row addressing is 64-bit (id + offset - lo, times the row's vector count).
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -138,18 +150,23 @@ __device__ __forceinline__ void load_ids(int32_t (&dst)[K],
   }
 }
 
+// T: the table's type; O: the output's (T, or float for the f32 partial);
+// kWindow: ids outside the row window [lo, hi) count as padding.
 // L lanes a row, C vectors of V elements a lane; a team of S lane groups
 // (L * S lanes) pools one bag, each group U of its rows at a time, so a team
 // has S * U rows in flight.  kFit: L * C vectors cover each column block of
 // the row exactly.  Grid: x = blocks of teams (at most what is resident),
 // y = column blocks of L * C vectors (one unless a row is wider than 32 * 4
 // vectors).  Bag indices are int: the host checks n_bags < 2^30.
-template <typename T, int V, int L, int C, int S, int U, bool kFit>
+template <typename T, typename O, bool kWindow, int V, int L, int C, int S,
+          int U, bool kFit>
 __global__ void __launch_bounds__(kThreads)
     k1_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ ids,
-                  const int64_t* __restrict__ row_offsets, T* __restrict__ out,
-                  int n_bags, int P, int F, int n_vec, int vec_ids) {
+                  const int64_t* __restrict__ row_offsets, O* __restrict__ out,
+                  int n_bags, int P, int F, int n_vec, int vec_ids, int64_t lo,
+                  int64_t hi) {
   using VecT = Vec<T, V>;
+  using VecO = Vec<O, V>;
   constexpr int TL = L * S;              // lanes of a team
   constexpr int G = 32 / TL;             // bags a warp holds at once
   constexpr int K = ids_per_lane<TL>();  // ids a lane reads per chunk
@@ -178,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int col0 = blockIdx.y * (L * C) + l;
   const VecT* rows = reinterpret_cast<const VecT*>(table) + col0;
-  VecT* dst = reinterpret_cast<VecT*>(out) + col0;
+  VecO* dst = reinterpret_cast<VecO*>(out) + col0;
   bool col_ok[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) col_ok[c] = kFit || col0 + c * L < n_vec;
@@ -219,12 +236,21 @@ __global__ void __launch_bounds__(kThreads)
       load_ids<K>(nxt, ids + static_cast<int64_t>(bag) * P,
                   chunk * CH + K * t, P, live, vec_ids);
 
-    // compact this chunk's valid ids into my_ids[0, nv) in slot order
+    // compact this chunk's live ids (valid, in the row window) into
+    // my_ids[0, nv) in slot order
     unsigned m = 0;
     if (cur_off >= 0) {
 #pragma unroll
-      for (int j = 0; j < K; ++j) m |= (cur[j] >= 0 ? 1u : 0u) << j;
+      for (int j = 0; j < K; ++j) {
+        if constexpr (kWindow) {
+          const int64_t g = static_cast<int64_t>(cur[j]) + cur_off;
+          m |= (cur[j] >= 0 && g >= lo && g < hi ? 1u : 0u) << j;
+        } else {
+          m |= (cur[j] >= 0 ? 1u : 0u) << j;
+        }
+      }
     }
+    const int64_t base = kWindow ? cur_off - lo : cur_off;  // row = id + base
     const int cnt = __popc(m);
     int incl = cnt;
 #pragma unroll
@@ -251,7 +277,7 @@ __global__ void __launch_bounds__(kThreads)
         const int j = k + sub + S * u;
         if (j < nv) {
           const VecT* src =
-              rows + (static_cast<int64_t>(my_ids[j]) + cur_off) * n_vec;
+              rows + (static_cast<int64_t>(my_ids[j]) + base) * n_vec;
 #pragma unroll
           for (int c = 0; c < C; ++c)
             if (col_ok[c]) r[u][c] = load_vec(src + c * L);
@@ -280,13 +306,13 @@ __global__ void __launch_bounds__(kThreads)
           for (int e = 0; e < V; ++e)
             acc[c][e] += __shfl_xor_sync(kFullMask, acc[c][e], o);
       if (cur_live && sub == 0) {
-        VecT* o = dst + static_cast<int64_t>(cur_bag) * n_vec;
+        VecO* o = dst + static_cast<int64_t>(cur_bag) * n_vec;
 #pragma unroll
         for (int c = 0; c < C; ++c)
           if (col_ok[c]) {
-            VecT w;
+            VecO w;
 #pragma unroll
-            for (int e = 0; e < V; ++e) w.v[e] = from_f32<T>(acc[c][e]);
+            for (int e = 0; e < V; ++e) w.v[e] = from_f32<O>(acc[c][e]);
             o[c * L] = w;
           }
       }
@@ -323,16 +349,18 @@ struct Args {
   int n_vec, device;
   bool vec_ids;
   cudaStream_t stream;
+  int64_t lo, hi;  // the row window
 };
 
 // Launches the instance of one row geometry: a team of up to kTeam lane
 // groups a bag (one group of 32 lanes at wider rows), a grid of at most the
 // blocks the card holds at once.
-template <typename T, int V, int L, int C, bool kFit>
+template <typename T, typename O, bool kWindow, int V, int L, int C,
+          bool kFit>
 int launch_geometry(const Args& a) {
   constexpr int S = C == 1 ? (L * kTeam <= 32 ? kTeam : 32 / L) : 1;
   constexpr int U = kRows;
-  auto kernel = k1_bag_kernel<T, V, L, C, S, U, kFit>;
+  auto kernel = k1_bag_kernel<T, O, kWindow, V, L, C, S, U, kFit>;
   static int per_sm = 0;  // blocks of this instance an SM holds at once
   if (per_sm == 0) {
     int n = 0;
@@ -354,67 +382,69 @@ int launch_geometry(const Args& a) {
   const dim3 grid(static_cast<unsigned>(need < resident ? need : resident),
                   static_cast<unsigned>(col_blocks));
   kernel<<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.table), a.ids, a.offsets, static_cast<T*>(a.out),
+      static_cast<const T*>(a.table), a.ids, a.offsets, static_cast<O*>(a.out),
       static_cast<int>(a.n_bags), static_cast<int>(a.P),
-      static_cast<int>(a.F), a.n_vec, a.vec_ids ? 1 : 0);
+      static_cast<int>(a.F), a.n_vec, a.vec_ids ? 1 : 0, a.lo, a.hi);
   return static_cast<int>(cudaGetLastError());
 }
 
 // 16-byte vectors: a group as wide as the row where it has at most 32
 // vectors, else 32 lanes of 2 or 4 vectors (column blocks past 128).
-template <typename T, int V>
+template <typename T, typename O, bool W, int V>
 int launch_vector(const Args& a) {
   const int n = a.n_vec;
   switch (n) {
-    case 1: return launch_geometry<T, V, 1, 1, true>(a);
-    case 2: return launch_geometry<T, V, 2, 1, true>(a);
-    case 4: return launch_geometry<T, V, 4, 1, true>(a);
-    case 8: return launch_geometry<T, V, 8, 1, true>(a);
-    case 16: return launch_geometry<T, V, 16, 1, true>(a);
-    case 32: return launch_geometry<T, V, 32, 1, true>(a);
-    case 64: return launch_geometry<T, V, 32, 2, true>(a);
+    case 1: return launch_geometry<T, O, W, V, 1, 1, true>(a);
+    case 2: return launch_geometry<T, O, W, V, 2, 1, true>(a);
+    case 4: return launch_geometry<T, O, W, V, 4, 1, true>(a);
+    case 8: return launch_geometry<T, O, W, V, 8, 1, true>(a);
+    case 16: return launch_geometry<T, O, W, V, 16, 1, true>(a);
+    case 32: return launch_geometry<T, O, W, V, 32, 1, true>(a);
+    case 64: return launch_geometry<T, O, W, V, 32, 2, true>(a);
     default: break;
   }
-  if (n < 8) return launch_geometry<T, V, 8, 1, false>(a);
-  if (n < 16) return launch_geometry<T, V, 16, 1, false>(a);
-  if (n < 32) return launch_geometry<T, V, 32, 1, false>(a);
-  if (n < 64) return launch_geometry<T, V, 32, 2, false>(a);
-  if (n % 128 == 0) return launch_geometry<T, V, 32, 4, true>(a);
-  return launch_geometry<T, V, 32, 4, false>(a);
+  if (n < 8) return launch_geometry<T, O, W, V, 8, 1, false>(a);
+  if (n < 16) return launch_geometry<T, O, W, V, 16, 1, false>(a);
+  if (n < 32) return launch_geometry<T, O, W, V, 32, 1, false>(a);
+  if (n < 64) return launch_geometry<T, O, W, V, 32, 2, false>(a);
+  if (n % 128 == 0) return launch_geometry<T, O, W, V, 32, 4, true>(a);
+  return launch_geometry<T, O, W, V, 32, 4, false>(a);
 }
 
 // Scalar path (one element a lane): 32 lanes of 1, 2 or 4 elements.
-template <typename T>
+template <typename T, typename O, bool W>
 int launch_scalar(const Args& a) {
   const int n = a.n_vec;
-  if (n == 32) return launch_geometry<T, 1, 32, 1, true>(a);
-  if (n < 32) return launch_geometry<T, 1, 32, 1, false>(a);
-  if (n == 64) return launch_geometry<T, 1, 32, 2, true>(a);
-  if (n < 64) return launch_geometry<T, 1, 32, 2, false>(a);
-  if (n % 128 == 0) return launch_geometry<T, 1, 32, 4, true>(a);
-  return launch_geometry<T, 1, 32, 4, false>(a);
+  if (n == 32) return launch_geometry<T, O, W, 1, 32, 1, true>(a);
+  if (n < 32) return launch_geometry<T, O, W, 1, 32, 1, false>(a);
+  if (n == 64) return launch_geometry<T, O, W, 1, 32, 2, true>(a);
+  if (n < 64) return launch_geometry<T, O, W, 1, 32, 2, false>(a);
+  if (n % 128 == 0) return launch_geometry<T, O, W, 1, 32, 4, true>(a);
+  return launch_geometry<T, O, W, 1, 32, 4, false>(a);
 }
 
-template <typename T>
+template <typename T, typename O, bool W>
 int launch(Args a, int64_t D) {
   constexpr int kVec = 16 / sizeof(T);  // 16-byte loads
-  const bool vec_ok = D % kVec == 0 &&
-                      reinterpret_cast<uintptr_t>(a.table) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
+  const bool vec_ok =
+      D % kVec == 0 && reinterpret_cast<uintptr_t>(a.table) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(a.out) % (sizeof(O) * kVec) == 0;
   a.vec_ids = a.P % 4 == 0 && reinterpret_cast<uintptr_t>(a.ids) % 16 == 0;
   if (vec_ok) {
     a.n_vec = static_cast<int>(D / kVec);
-    return launch_vector<T, kVec>(a);
+    return launch_vector<T, O, W, kVec>(a);
   }
   a.n_vec = static_cast<int>(D);
-  return launch_scalar<T>(a);
+  return launch_scalar<T, O, W>(a);
 }
 
 int dispatch(const void* table, const void* ids, const void* row_offsets,
              void* out, int64_t n_bags, int64_t P, int64_t F, int64_t D,
-             int64_t dtype, int64_t device, void* stream) {
+             int64_t dtype, int64_t out_dtype, int64_t lo, int64_t hi,
+             int64_t device, void* stream) {
   if (n_bags <= 0 || P <= 0 || F <= 0 || D <= 0 || n_bags >= (1 << 30) ||
-      P >= (1 << 30) || F >= (1 << 30) || D >= (int64_t{1} << 31))
+      P >= (1 << 30) || F >= (1 << 30) || D >= (int64_t{1} << 31) ||
+      lo < 0 || hi < lo)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(static_cast<int>(device));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -428,9 +458,19 @@ int dispatch(const void* table, const void* ids, const void* row_offsets,
          0,
          static_cast<int>(device),
          false,
-         static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return launch<float>(a, D);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, D);
+         static_cast<cudaStream_t>(stream),
+         lo,
+         hi};
+  using bf16 = __nv_bfloat16;
+  const bool window = lo != 0 || hi != INT64_MAX;
+  if (dtype == 0 && out_dtype == 0)
+    return window ? launch<float, float, true>(a, D)
+                  : launch<float, float, false>(a, D);
+  if (dtype == 1 && out_dtype == 1)
+    return window ? launch<bf16, bf16, true>(a, D)
+                  : launch<bf16, bf16, false>(a, D);
+  // the f32 store of a bf16 table: the sharded lookup's partial
+  if (dtype == 1 && out_dtype == 0) return launch<bf16, float, true>(a, D);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -438,15 +478,19 @@ int dispatch(const void* table, const void* ids, const void* row_offsets,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  ids [n_bags, P] int32; row_offsets
-// [F] int64 or null (then F must be 1).  Requires 0 < n_bags, P, F < 2^30,
-// 0 < D < 2^31, contiguous row-major tensors on `device`.
+// dtype (the table's) and out_dtype: 0 = float32, 1 = bfloat16; out_dtype
+// is dtype, or float32 for a bf16 table.  ids [n_bags, P] int32;
+// row_offsets [F] int64 or null (then F must be 1).  The table holds rows
+// [lo, hi) of the combined table (lo = 0, hi = 2^63 - 1: the whole table).
+// Requires 0 < n_bags, P, F < 2^30, 0 < D < 2^31, 0 <= lo <= hi,
+// contiguous row-major tensors on `device`.
 int repro_embedding_bag(const void* table, const void* ids,
                         const void* row_offsets, void* out, int64_t n_bags,
                         int64_t P, int64_t F, int64_t D, int64_t dtype,
+                        int64_t out_dtype, int64_t lo, int64_t hi,
                         int64_t device, void* stream) {
   return dispatch(table, ids, row_offsets, out, n_bags, P, F, D, dtype,
-                  device, stream);
+                  out_dtype, lo, hi, device, stream);
 }
 
 const char* repro_cuda_error_string(int error) {

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+NO_WINDOW = (0, 2**63 - 1)  # the whole table
 _fn = None
 
 
@@ -24,10 +25,8 @@ def _kernel():
     if _fn is None:
         lib = _build.load("embedding_bag")
         fn = lib.repro_embedding_bag
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 9 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -36,23 +35,30 @@ def _kernel():
 
 
 def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
-                       row_offsets: torch.Tensor | None = None
+                       row_offsets: torch.Tensor | None = None, *,
+                       row_window: tuple[int, int] = NO_WINDOW,
+                       out_dtype: torch.dtype | None = None
                        ) -> torch.Tensor:
     """table [H, D] f32/bf16; ids [..., P] int32 whose leading dims are the
     bags (the last leading dim is the feature when ``row_offsets`` [F] int64
     is given); all contiguous on one CUDA device, with bags, P and D > 0
-    -> pooled [..., D] in the table's dtype."""
+    -> pooled [..., D] in ``out_dtype`` (the table's by default; float32
+    stores the accumulator unrounded).  ``row_window`` (lo, hi): the table
+    holds rows [lo, hi) of the combined table; other rows count as
+    padding."""
     fn, err_str = _kernel()
     P = ids.shape[-1]
-    out = torch.empty((*ids.shape[:-1], table.shape[1]), dtype=table.dtype,
+    out_dtype = table.dtype if out_dtype is None else out_dtype
+    out = torch.empty((*ids.shape[:-1], table.shape[1]), dtype=out_dtype,
                       device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
+    lo, hi = row_window
     err = fn(table.data_ptr(), ids.data_ptr(),
              None if row_offsets is None else row_offsets.data_ptr(),
              out.data_ptr(), ids.numel() // P, P,
              1 if row_offsets is None else row_offsets.shape[0],
-             table.shape[1], _DTYPE_CODE[table.dtype], table.device.index,
-             stream)
+             table.shape[1], _DTYPE_CODE[table.dtype], _DTYPE_CODE[out_dtype],
+             lo, hi, table.device.index, stream)
     if err != 0:
         raise RuntimeError(
             f"embedding_bag kernel launch failed: {err_str(err).decode()} "

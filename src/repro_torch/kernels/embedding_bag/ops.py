@@ -16,7 +16,12 @@ order in fp32, and sizes the grid to one wave of resident warps.
 
 Two entries share the kernel: ``hot_embedding_bag`` (ids [B, P] into the
 table) and ``embedding_bag_features`` (ids [B, F, P] per feature, shifted
-by ``row_offsets[f]`` inside the kernel in 64 bits).
+by ``row_offsets[f]`` inside the kernel in 64 bits).  The latter also takes
+a row window, ``row_window=(lo, hi)``: the table is then one rank's shard,
+rows [lo, hi) of the combined table, and every id outside it counts as
+padding; with ``out_dtype=torch.float32`` the kernel stores its float32
+sums unrounded, the partial that ``repro_torch.dist.sharded_embedding``
+sums across ranks before it rounds once.
 
 Both entries carry autograd when the table requires grad (outside
 ``torch.inference_mode``): the backward is K1's gradient kernel
@@ -38,19 +43,23 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.embedding_bag.embedding_bag import (
+    NO_WINDOW,
     embedding_bag_cuda,
     embedding_bag_grad_cuda,
 )
 from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_features_grad_ref,
     embedding_bag_features_ref,
+    embedding_bag_window_ref,
     hot_embedding_bag_grad_ref,
     hot_embedding_bag_ref,
 )
 
 # Kernel launches since the last reset (set it to 0 to start a count): the
-# forward kernel's, and the gradient kernel's (one a backward call).
+# forward kernel's, the forward kernel's through a row window, and the
+# gradient kernel's (one a backward call).
 launches = 0
+window_launches = 0
 grad_launches = 0
 
 _MAX_ROWS = 2**31  # ids are int32
@@ -133,14 +142,21 @@ def hot_embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def embedding_bag_features(table: torch.Tensor, ids: torch.Tensor,
-                           row_offsets: torch.Tensor) -> torch.Tensor:
+                           row_offsets: torch.Tensor, *,
+                           row_window: tuple[int, int] | None = None,
+                           out_dtype: torch.dtype | None = None
+                           ) -> torch.Tensor:
     """Per-feature SLS: table [H, D], ids [B, F, P] int32 (-1 padded),
     row_offsets [F] int64 on the same device -> pooled [B, F, D] in the
-    table's dtype, accumulated in float32.
+    table's dtype (or ``out_dtype``: float32 keeps the accumulator
+    unrounded), accumulated in float32.
 
     Feature f's ids address rows ``ids + row_offsets[f]`` (added in 64
     bits); a negative offset leaves feature f unrouted: it pools to exactly
-    zero.  One launch for all B * F bags."""
+    zero.  With ``row_window=(lo, hi)`` the table is the shard [hi - lo, D]
+    holding rows [lo, hi) of the combined table: an id is live iff it is
+    >= 0 and lo <= id + row_offsets[f] < hi, and it reads local row id +
+    row_offsets[f] - lo.  One launch for all B * F bags."""
     if table.dim() != 2 or ids.dim() != 3:
         raise ValueError(f"expected table [H, D] and ids [B, F, P], got "
                          f"{tuple(table.shape)} and {tuple(ids.shape)}")
@@ -148,9 +164,47 @@ def embedding_bag_features(table: torch.Tensor, ids: torch.Tensor,
     _check_offsets(ids, row_offsets)
     if table.device.type == "cuda" and not row_offsets.is_contiguous():
         raise ValueError("kernel takes contiguous row_offsets")
+    if row_window is not None or out_dtype is not None:
+        return _features_window(table, ids, row_offsets, row_window,
+                                out_dtype)
     if _wants_grad(table):
         return _FeaturesBag.apply(table, ids, row_offsets)
     return _features_forward(table, ids, row_offsets)
+
+
+def _features_window(table, ids, row_offsets, row_window, out_dtype
+                     ) -> torch.Tensor:
+    """``embedding_bag_features`` through a row window or into
+    ``out_dtype``: forward only (no gradient through a window yet)."""
+    global launches, window_launches
+    if _wants_grad(table):
+        raise NotImplementedError(
+            "embedding_bag_features: no gradient through a row window or an "
+            "out_dtype yet; it comes with the sharded train cells")
+    if row_window is not None:
+        lo, hi = (int(x) for x in row_window)
+        if not 0 <= lo <= hi or hi - lo != table.shape[0]:
+            raise ValueError(f"row_window ({lo}, {hi}) does not hold the "
+                             f"table's {table.shape[0]} rows")
+    out_dtype = table.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (table.dtype, torch.float32):
+        raise TypeError(f"out_dtype must be the table's {table.dtype} or "
+                        f"float32, got {out_dtype}")
+    window = NO_WINDOW if row_window is None else (lo, hi)
+    if table.device.type == "cpu":
+        return embedding_bag_window_ref(table, ids, row_offsets, window,
+                                        out_dtype)
+    B, F, _ = ids.shape
+    if ids.numel() == 0 or table.shape[1] == 0 or table.shape[0] == 0:
+        return torch.zeros((B, F, table.shape[1]), dtype=out_dtype,
+                           device=table.device)
+    out = embedding_bag_cuda(table, ids, row_offsets, row_window=window,
+                             out_dtype=out_dtype)
+    if row_window is None:
+        launches += 1
+    else:
+        window_launches += 1
+    return out
 
 
 def _features_forward(table, ids, row_offsets) -> torch.Tensor:

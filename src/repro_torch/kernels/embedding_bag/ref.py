@@ -46,6 +46,31 @@ def embedding_bag_features_ref(table: torch.Tensor, ids: torch.Tensor,
     return hot_embedding_bag_ref(table, shifted).reshape(B, F, table.shape[1])
 
 
+def embedding_bag_window_ref(table: torch.Tensor, ids: torch.Tensor,
+                             row_offsets: torch.Tensor, row_window,
+                             out_dtype: torch.dtype | None = None
+                             ) -> torch.Tensor:
+    """The row-window form of ``embedding_bag_features_ref``: ``table``
+    [hi - lo, D] holds rows [lo, hi) of the combined table; id p of feature
+    f is live iff p >= 0, ``row_offsets[f]`` >= 0 and lo <= p +
+    row_offsets[f] < hi, and reads local row p + row_offsets[f] - lo.  ->
+    pooled [B, F, D] in ``out_dtype`` (the table's by default), summed in
+    float32."""
+    lo, hi = row_window
+    B, F, P = ids.shape
+    out_dtype = table.dtype if out_dtype is None else out_dtype
+    if table.shape[0] == 0:  # a shard of no rows: nothing is live
+        return torch.zeros((B, F, table.shape[1]), dtype=out_dtype,
+                           device=table.device)
+    g = shift_feature_ids(ids, row_offsets)
+    local = torch.where((g >= lo) & (g < hi), g - lo, -1).reshape(B * F, P)
+    acc = _acc_dtype(table.dtype)
+    mask = local >= 0
+    rows = table[local.clamp_min(0)].to(acc)
+    pooled = (rows * mask[..., None].to(acc)).sum(dim=1)
+    return pooled.to(out_dtype).reshape(B, F, table.shape[1])
+
+
 def hot_embedding_bag_grad_ref(grad: torch.Tensor, ids: torch.Tensor,
                                n_rows: int) -> torch.Tensor:
     """The table gradient of ``hot_embedding_bag_ref`` (no weights): grad

@@ -109,6 +109,24 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_decode_int8_partials_cuda(q: torch.Tensor, kq: torch.Tensor,
+                                    ks: torch.Tensor, vq: torch.Tensor,
+                                    vs: torch.Tensor, *, kv_len: int,
+                                    kv_offset: int):
+    """Checked q [B, 1, H, hd], int8 kq/vq [B, S, KVH, hd] and f32 scales
+    ks/vs [B, S, KVH, 1] on one CUDA device -> f32 (m, l [B, KVH, G, 1],
+    o [B, KVH, G, hd]) merged over the splits."""
+    B, _, H, hd = q.shape
+    KVH = kq.shape[2]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.empty((B, KVH, H // KVH, 1), **f32)
+    l = torch.empty_like(m)
+    o = torch.empty((B, KVH, H // KVH, hd), **f32)
+    _launch(q, kq, vq, kv_len=kv_len, kv_offset=kv_offset, out=None,
+            partials=(m, l, o), scales=(ks, vs))
+    return m, l, o
+
+
 def flash_decode_int8_cuda(q: torch.Tensor, kq: torch.Tensor,
                            ks: torch.Tensor, vq: torch.Tensor,
                            vs: torch.Tensor, *, kv_len: int,

@@ -32,11 +32,13 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 from repro_torch.kernels.flash_attention.flash_decode import (
     flash_decode_cuda,
     flash_decode_int8_cuda,
+    flash_decode_int8_partials_cuda,
     flash_decode_partials_cuda,
 )
 
 # Kernel launches since the last reset (set an entry to 0 to start a count).
-launches = {"flash_attention": 0, "flash_decode": 0, "flash_decode_int8": 0}
+launches = {"flash_attention": 0, "flash_decode": 0, "flash_decode_int8": 0,
+            "flash_decode_int8_partials": 0}
 
 _MAX_GROUP = 8
 # K3's tensor-core variant (bf16 q); other bf16 head sizes from a bf16
@@ -156,16 +158,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def flash_decode_int8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
-                      vq: torch.Tensor, vs: torch.Tensor, *, kv_len: int,
-                      kv_offset: int = 0, bk: int = 512) -> torch.Tensor:
-    """Split-KV decode from the int8 cache: q [B, 1, H, hd] against int8
-    kq/vq [B, S, KVH, hd] with f32 scales ks/vs [B, S, KVH, 1] (the layout
-    of ``models.transformer._quantize_kv``) -> [B, 1, H, hd] in q's dtype.
-
-    The same function as ``flash_decode(q, kq.to(q.dtype) * ks.to(q.dtype),
-    vq.to(q.dtype) * vs.to(q.dtype), ...)``, rounded as that eager
-    dequantisation rounds, without the dequantised copy."""
+def _check_int8(q, kq, ks, vq, vs, kv_len, kv_offset, bk) -> bool:
+    """Validate the int8 entries' inputs; True when the kernel is to run."""
     if kq.dtype != torch.int8 or vq.dtype != torch.int8:
         raise TypeError(f"flash_decode_int8: k/v must be int8, got "
                         f"{kq.dtype}, {vq.dtype}")
@@ -182,12 +176,46 @@ def flash_decode_int8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                              f"on {q.device}")
     on_card = _check_decode(q, kq, vq, kv_len, kv_offset, bk,
                             kv_dtype=torch.int8)
-    if not on_card:
+    if on_card and not (ks.is_contiguous() and vs.is_contiguous()):
+        raise ValueError("flash_decode_int8: kernel takes contiguous scales")
+    return on_card
+
+
+def flash_decode_int8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                      vq: torch.Tensor, vs: torch.Tensor, *, kv_len: int,
+                      kv_offset: int = 0, bk: int = 512) -> torch.Tensor:
+    """Split-KV decode from the int8 cache: q [B, 1, H, hd] against int8
+    kq/vq [B, S, KVH, hd] with f32 scales ks/vs [B, S, KVH, 1] (the layout
+    of ``models.transformer._quantize_kv``) -> [B, 1, H, hd] in q's dtype.
+
+    The same function as ``flash_decode(q, kq.to(q.dtype) * ks.to(q.dtype),
+    vq.to(q.dtype) * vs.to(q.dtype), ...)``, rounded as that eager
+    dequantisation rounds, without the dequantised copy."""
+    if not _check_int8(q, kq, ks, vq, vs, kv_len, kv_offset, bk):
         return ref.flash_decode_int8_ref(q, kq, ks, vq, vs, kv_len=kv_len,
                                          kv_offset=kv_offset, bk=bk)
-    if not (ks.is_contiguous() and vs.is_contiguous()):
-        raise ValueError("flash_decode_int8: kernel takes contiguous scales")
     out = flash_decode_int8_cuda(q, kq, ks, vq, vs, kv_len=int(kv_len),
                                  kv_offset=int(kv_offset))
     launches["flash_decode_int8"] += 1
+    return out
+
+
+def flash_decode_int8_partials(q: torch.Tensor, kq: torch.Tensor,
+                               ks: torch.Tensor, vq: torch.Tensor,
+                               vs: torch.Tensor, *, kv_len: int,
+                               kv_offset: int = 0, bk: int = 512):
+    """``flash_decode_partials`` over the int8 cache: q [B, 1, H, hd]
+    against int8 kq/vq [B, S, KVH, hd] with f32 scales ks/vs [B, S, KVH, 1]
+    holding global positions [kv_offset, kv_offset + S); kv_len masks
+    against global position.  Returns float32 (m, l [B, KVH, group, 1],
+    o [B, KVH, group, hd]) merged over the local splits, the partials one
+    shard of a sequence-sharded cache contributes; a slice with no live
+    row gives exactly m = -1e30, l = 0, o = 0."""
+    if not _check_int8(q, kq, ks, vq, vs, kv_len, kv_offset, bk):
+        return ref.flash_decode_int8_partials_ref(
+            q, kq, ks, vq, vs, kv_len=kv_len, kv_offset=kv_offset, bk=bk)
+    out = flash_decode_int8_partials_cuda(q, kq, ks, vq, vs,
+                                          kv_len=int(kv_len),
+                                          kv_offset=int(kv_offset))
+    launches["flash_decode_int8_partials"] += 1
     return out

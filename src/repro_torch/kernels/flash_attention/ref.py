@@ -101,6 +101,20 @@ def dequantize_kv(xq: torch.Tensor, xs: torch.Tensor, dtype: torch.dtype
     return xq.to(dtype) * xs.to(dtype)
 
 
+def flash_decode_int8_partials_ref(q: torch.Tensor, kq: torch.Tensor,
+                                   ks: torch.Tensor, vq: torch.Tensor,
+                                   vs: torch.Tensor, *, kv_len: int,
+                                   kv_offset: int = 0, bk: int = 512):
+    """The split-KV partials of the int8 cache kq/vq [B, S, KVH, hd] with
+    f32 scales ks/vs [B, S, KVH, 1], holding global positions [kv_offset,
+    kv_offset + S): the cache dequantised in q's dtype, then
+    ``flash_decode_partials_ref``.  Returns float32 (m, l [B, KVH, group,
+    1], o [B, KVH, group, hd])."""
+    return flash_decode_partials_ref(
+        q, dequantize_kv(kq, ks, q.dtype), dequantize_kv(vq, vs, q.dtype),
+        kv_len=kv_len, kv_offset=kv_offset, bk=bk)
+
+
 def flash_decode_int8_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                           vq: torch.Tensor, vs: torch.Tensor, *, kv_len: int,
                           kv_offset: int = 0, bk: int = 512) -> torch.Tensor:

@@ -36,9 +36,30 @@ grad enabled (the recsys tables' gradient through K1's backward on a
 card), updates the state in place and returns ``(state, {"loss"})``, the
 loss before the update, as the reference's step does.  ``value_and_grad``
 gives the loss and the gradient tree without the update.
+
+``mesh`` (a ``repro_torch.launch.mesh.Mesh`` over the ranks that run the
+cell; ``device`` is then each rank's device) places a decode or a recsys
+serve cell on the distributed layer, as the reference's mesh cells:
+
+- a decode cell (``decode_32k``, ``long_500k``) binds ``kv_seq`` to
+  ``kv_seq_axes(B)`` and, below batch 16, "batch" to None; its batch specs
+  hold only this rank's cache slice (``kv_cache_spec``) and token block.
+  The LM's weights stay replicated in this slice: its tensor-parallel
+  names ("model", "heads", "kv_heads", "ffn", "vocab", "expert") are bound
+  to None, and column- and row-parallel execution of those placements
+  comes with the sharded train cells;
+- a recsys serve cell binds "model" (and "batch" over the data axes); its
+  state holds only this rank's rows of each embedding table
+  (``row_shard``), its batch specs this rank's batch block.
+
+``batch_spec_tree`` gives each batch leaf's ``Spec``; ``local_batch``
+cuts a whole batch to this rank's block, and ``run`` enters the cell's
+binding (``logical.axis_rules``).  Train, prefill and GNN cells take no
+mesh yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -47,6 +68,14 @@ import torch
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.common.types import ArchKind, ShapeSpec, TensorSpec, resolve_device
 from repro_torch.configs.registry import get_arch
+from repro_torch.dist import logical
+from repro_torch.dist.sharding import (
+    P,
+    kv_cache_spec,
+    kv_seq_axes,
+    local_shard,
+    logical_rules,
+)
 from repro_torch.models import RECSYS_MODELS
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import transformer as tf_lib
@@ -78,11 +107,20 @@ class CellProgram:
     opt: opt_lib.Optimizer | None = None  # train cells
     loss_fn: Callable | None = None       # train: loss(model, batch)
     dims: dict | None = None  # GNN cells: sizes for data.graph.cell_batch
+    mesh: Any = None          # the ranks' Mesh, or None on one device
+    rules: dict | None = None             # the logical binding of a mesh
+    batch_spec_tree: dict | None = None   # Spec of each batch leaf
 
     def init_state(self, generator: torch.Generator):
         """Random parameters on the cell's device (``generator`` lives
         there): the LM's parameter tree, the recsys or GNN model, or for a
         train cell ``{"model", "opt"}`` (an LM's ``{"params", "opt"}``)."""
+        if self.mesh is not None and self.kind == ArchKind.RECSYS:
+            model_axis = self.rules["model"]
+            row_shard = (logical.shard_index(self.mesh, model_axis),
+                         logical.shards(model_axis, self.mesh))
+            return self.init_fn(self.cfg, generator=generator,
+                                device=self.device, row_shard=row_shard)
         model = self.init_fn(self.cfg, generator=generator, device=self.device)
         if self.opt is None:
             return model
@@ -115,15 +153,34 @@ class CellProgram:
         self.opt.update(self.params(state), grads, state["opt"])
         return state, {"loss": loss}
 
+    def local_batch(self, batch):
+        """This rank's block of a whole batch (the batch itself without a
+        mesh)."""
+        if self.mesh is None:
+            return batch
+        return local_shard(batch, self.batch_spec_tree, self.mesh)
+
     def run(self, state, batch):
         if self.opt is not None:
             return self.train_step(state, batch)
-        with torch.inference_mode():
+        binding = contextlib.nullcontext() if self.mesh is None else \
+            logical.axis_rules(self.mesh, self.rules)
+        with torch.inference_mode(), binding:
             return self.step_fn(state, batch)
 
 
+# the LM's tensor-parallel logical names, unbound while its weights stay
+# replicated (see the module docstring)
+_LM_TP_NAMES = ("model", "heads", "kv_heads", "ffn", "vocab", "expert")
+
+
+def _dp_axes(multi_pod: bool) -> tuple[str, ...]:
+    return ("pod", "data") if multi_pod else ("data",)
+
+
 def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
-             batch: int | None, n_layers: int | None) -> CellProgram:
+             batch: int | None, n_layers: int | None, mesh,
+             multi_pod: bool) -> CellProgram:
     on_card = device.type == "cuda"
     cfg = arch.FULL if on_card else arch.SMOKE
     B = shape["global_batch"] if on_card else SMOKE_BATCH
@@ -150,7 +207,7 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
             return {"logits": last, "cache": new_cache}
 
     else:  # decode (decode_32k / long_500k): one token against an S cache
-        if on_card:
+        if on_card or mesh is not None:
             cfg = dataclasses.replace(cfg, decode_impl="flash")
         batch_specs = {"token": TensorSpec((B, 1), torch.int32),
                        "cache": tf_lib.kv_cache_specs(cfg, B, S)}
@@ -161,10 +218,26 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
                 params, batch["token"], batch["cache"], pos, cfg)
             return {"logits": logits, "cache": new_cache}
 
+    rules = spec_tree = None
+    if mesh is not None:
+        if shape.step != "decode":
+            raise NotImplementedError(f"{shape.name}: only the decode cells "
+                                      "of an LM take a mesh yet")
+        rules = logical_rules(arch.KIND, multi_pod)
+        rules.update({name: None for name in _LM_TP_NAMES})
+        rules["kv_seq"] = kv_seq_axes(B, multi_pod)
+        if B < 16:
+            rules["batch"] = None  # batch 1: token replicated, KV seq-sharded
+        spec = kv_cache_spec(B, multi_pod)
+        spec_tree = {"token": P(_dp_axes(multi_pod), None) if B >= 16
+                     else P(None, None),
+                     "cache": {k: spec for k in batch_specs["cache"]}}
+        batch_specs = local_shard(batch_specs, spec_tree, mesh)
     return CellProgram(arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND,
                        cfg=cfg, device=device, batch=B, seq_len=S,
                        step_fn=step, batch_specs=batch_specs,
-                       init_fn=tf_lib.init, opt=opt, loss_fn=loss_fn)
+                       init_fn=tf_lib.init, opt=opt, loss_fn=loss_fn,
+                       mesh=mesh, rules=rules, batch_spec_tree=spec_tree)
 
 
 def recsys_train_cell(cfg, batch: int, device: torch.device, *, lr: float,
@@ -182,10 +255,14 @@ def recsys_train_cell(cfg, batch: int, device: torch.device, *, lr: float,
 
 
 def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
-                 batch: int | None) -> CellProgram:
+                 batch: int | None, mesh, multi_pod: bool) -> CellProgram:
     on_card = device.type == "cuda"
     cfg = arch.FULL if on_card else arch.SMOKE
     B = shape["batch"] if on_card else SMOKE_RECSYS_BATCH
+    if mesh is not None and shape.step == "train":
+        raise NotImplementedError("a recsys train cell takes no mesh yet: "
+                                  "its gradients through the row-sharded "
+                                  "table come with the sharded train cells")
     if shape.step == "train":
         return recsys_train_cell(cfg, B if batch is None else batch, device,
                                  lr=RECSYS_LR, arch_id=arch.ARCH_ID,
@@ -214,11 +291,23 @@ def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
         def step(model, batch):
             return {"scores": model(batch)}
 
+    batch_specs = {k: TensorSpec(*v) for k, v in specs.items()}
+    rules = spec_tree = None
+    if mesh is not None:
+        rules = logical_rules(arch.KIND, multi_pod)
+        dp = _dp_axes(multi_pod)
+        # the reference's recsys batch layout: a leading dimension over one
+        # shards over the data axes
+        spec_tree = {k: P(dp if len(v.shape) and v.shape[0] > 1 else None,
+                          *[None] * (len(v.shape) - 1))
+                     for k, v in batch_specs.items()}
+        batch_specs = local_shard(batch_specs, spec_tree, mesh)
     return CellProgram(
         arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND, cfg=cfg,
         device=device, batch=B, seq_len=cfg.seq_len, step_fn=step,
-        batch_specs={k: TensorSpec(*v) for k, v in specs.items()},
-        init_fn=RECSYS_MODELS[cfg.interaction].init)
+        batch_specs=batch_specs,
+        init_fn=RECSYS_MODELS[cfg.interaction].init, mesh=mesh,
+        rules=rules, batch_spec_tree=spec_tree)
 
 
 def _gnn_cell(arch, shape: ShapeSpec, device: torch.device,
@@ -258,11 +347,13 @@ def _gnn_cell(arch, shape: ShapeSpec, device: torch.device,
 
 
 def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda",
-               *, batch: int | None = None, n_layers: int | None = None
-               ) -> CellProgram:
+               *, batch: int | None = None, n_layers: int | None = None,
+               mesh=None, multi_pod: bool = False) -> CellProgram:
     """The cell ``shape_name`` of ``arch_id`` on ``device``; ``batch``
     replaces the cell's batch and ``n_layers`` an LM's depth (the cuts a
-    card needs)."""
+    card needs).  ``mesh``: this rank's ``Mesh`` for a decode or recsys
+    serve cell on the distributed layer (``multi_pod``: the ("pod",
+    "data", "model") rules)."""
     dev = resolve_device(device)
     arch = get_arch(arch_id)
     shape = next(s for s in arch.SHAPES if s.name == shape_name)
@@ -270,7 +361,10 @@ def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda
                                                   ArchKind.LM_MOE):
         raise ValueError(f"{arch_id}: n_layers cuts an LM's depth only")
     if arch.KIND == ArchKind.RECSYS:
-        return _recsys_cell(arch, shape, dev, batch)
+        return _recsys_cell(arch, shape, dev, batch, mesh, multi_pod)
     if arch.KIND == ArchKind.GNN:
+        if mesh is not None:
+            raise NotImplementedError("a GNN cell takes no mesh yet; the "
+                                      "sharded GNN train cells come next")
         return _gnn_cell(arch, shape, dev, batch)
-    return _lm_cell(arch, shape, dev, batch, n_layers)
+    return _lm_cell(arch, shape, dev, batch, n_layers, mesh, multi_pod)

@@ -26,6 +26,8 @@ from repro_torch.train.trainer import ARTIFACTS, Trainer, TrainerConfig
 
 CKPT_DIR = ARTIFACTS / "repro_dlrm_ckpt"
 LR = 0.02  # examples/train_dlrm.py's rowwise AdaGrad
+LOG_EVERY = 20     # steps between printed losses
+LOSS_WINDOW = 5    # steps averaged at each end of the run by end_losses
 
 
 def make_model() -> RecsysConfig:
@@ -64,14 +66,25 @@ def step_batches(cfg: RecsysConfig, batch: int, seed: int,
 
 
 def make_trainer(steps: int, batch: int, ckpt_dir, device: torch.device, *,
-                 ckpt_every: int = 50, log_every: int = 20, seed: int = 0,
-                 cfg: RecsysConfig | None = None) -> Trainer:
+                 ckpt_every: int = 50, log_every: int = LOG_EVERY,
+                 seed: int = 0, cfg: RecsysConfig | None = None) -> Trainer:
     cfg = cfg or make_model()
     cell = train_cell(cfg, batch, device)
     return Trainer(cell.run, cell.init_state,
                    step_batches(cfg, batch, seed, device),
                    TrainerConfig(total_steps=steps, ckpt_every=ckpt_every,
                                  ckpt_dir=str(ckpt_dir), log_every=log_every))
+
+
+def end_losses(history: list[dict]) -> tuple[float, float, int]:
+    """The mean loss of the first and of the last w steps of a run logged
+    every step (w = LOSS_WINDOW, or half the run if it is shorter), and w:
+    one batch's loss varies more from batch to batch than a short run
+    lowers it, so the ends are compared as means."""
+    w = max(1, min(LOSS_WINDOW, len(history) // 2))
+    first = sum(h["loss"] for h in history[:w]) / w
+    last = sum(h["loss"] for h in history[-w:]) / w
+    return first, last, w
 
 
 def main(argv=None) -> int:
@@ -85,7 +98,7 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
 
     trainer = make_trainer(args.steps, args.batch, args.ckpt_dir, dev,
-                           seed=args.seed)
+                           seed=args.seed, log_every=1)
     state, hist = trainer.run(torch.Generator(dev).manual_seed(args.seed))
     n = sum(t.numel() for t in tree_leaves(state["model"].tree()))
     print(f"model: {n / 1e6:.1f}M parameters on {dev}")
@@ -95,11 +108,15 @@ def main(argv=None) -> int:
         return 0
     print("step  loss")
     for h in hist:
-        print(f"{h['step']:5d}  {h['loss']:.4f}  "
-              f"({h['step_time_s'] * 1e3:.0f} ms)")
-    if not hist[-1]["loss"] < hist[0]["loss"]:
-        raise AssertionError("loss did not improve")
-    print("final loss improved over initial — OK")
+        if h is hist[0] or h["step"] % LOG_EVERY == 0:
+            print(f"{h['step']:5d}  {h['loss']:.4f}  "
+                  f"({h['step_time_s'] * 1e3:.0f} ms)")
+    first, last, w = end_losses(hist)
+    if not last < first:
+        raise AssertionError(f"loss did not improve: the mean of the last "
+                             f"{w} steps {last:.4f}, of the first {first:.4f}")
+    print(f"loss improved: the mean of the last {w} steps {last:.4f}, of "
+          f"the first {first:.4f} — OK")
     return 0
 
 

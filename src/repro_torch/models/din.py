@@ -232,14 +232,18 @@ class DIN(nn.Module):
 
 
 def init(cfg: RecsysConfig, *, generator: torch.Generator,
-         device: torch.device) -> DIN:
-    """A DIN (DIEN if ``cfg.use_gru``) with random weights drawn on
-    ``device`` from ``generator`` (the reference's init scales)."""
+         device: torch.device,
+         row_shard: tuple[int, int] | None = None) -> DIN:
+    """A DIN (DIEN if ``cfg.use_gru``) with random weights drawn on ``device``
+    from ``generator`` (the reference's init scales). ``row_shard=(i, n)``:
+    only row block i of n of the embedding tables (``init_embedding``), a
+    rank's state under a row-sharded "model" axis."""
     d = cfg.embed_dim
     n_profile = cfg.embedding.num_features - 1
     params = {
         "embedding": emb_lib.init_embedding(cfg.embedding, generator=generator,
-                                            device=device),
+                                            device=device,
+                                            row_shard=row_shard),
         # attention unit input: [e_h, e_t, e_h - e_t, e_h * e_t]
         "attn_mlp": init_mlp((4 * d, *cfg.attn_mlp, 1), generator=generator,
                              device=device, dtype=cfg.dtype),

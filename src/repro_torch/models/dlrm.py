@@ -59,7 +59,7 @@ class DLRM(nn.Module):
 
     def apply_sparse(self, batch) -> torch.Tensor:
         """G_s: the SparseNet — multi-hot EmbeddingBag -> pooled [B, F, D]."""
-        return emb_lib.embedding_bag_local(
+        return emb_lib.embedding_bag(
             {"table": self.table}, batch["sparse_ids"], self.cfg.embedding)
 
     def apply_dense_given_pooled(self, batch, pooled: torch.Tensor
@@ -81,12 +81,16 @@ class DLRM(nn.Module):
 
 
 def init(cfg: RecsysConfig, *, generator: torch.Generator,
-         device: torch.device) -> DLRM:
-    """A DLRM with random weights drawn on ``device`` from ``generator``
-    (the reference's init scales; ``jax.random``'s numbers differ)."""
+         device: torch.device,
+         row_shard: tuple[int, int] | None = None) -> DLRM:
+    """A DLRM with random weights drawn on ``device`` from ``generator`` (the
+    reference's init scales; ``jax.random``'s numbers differ).
+    ``row_shard=(i, n)``: only row block i of n of the embedding tables
+    (``init_embedding``), a rank's state under a row-sharded "model" axis."""
     bottom, top = _mlp_sizes(cfg)
     params = {"embedding": emb_lib.init_embedding(
-        cfg.embedding, generator=generator, device=device)}
+        cfg.embedding, generator=generator, device=device,
+        row_shard=row_shard)}
     if cfg.n_dense:
         params["bottom_mlp"] = init_mlp(bottom, generator=generator,
                                         device=device, dtype=cfg.dtype)

@@ -17,8 +17,12 @@ Hot/cold split (paper §IV-B): ``split_hot_cold`` re-lays the combined table
 into a hot replica and a cold remainder, and ``embedding_bag_hot_cold``
 pools both partial sums through K1.
 
-Only single-device lookup is here; the reference's mesh-routed
-``embedding_bag`` (row-sharded Psum) is ported with the distributed layer.
+``embedding_bag`` is the model-facing lookup, as in the reference: under a
+bound "model" mesh axis (``repro_torch.dist.logical``) the table is this
+rank's row shard and the lookup is the row-sharded Psum dataflow of
+``repro_torch.dist.sharded_embedding``; otherwise it is
+``embedding_bag_local``.  Single rows (``feature_rows``, QR features) route
+the same way, through ``sharded_row_gather``.
 """
 from __future__ import annotations
 
@@ -30,7 +34,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import logical
 from repro_torch.kernels.embedding_bag import embedding_bag_features, hot_embedding_bag
+
+# the rows of one draw of ``init_embedding``: chunk c of the table is drawn
+# from a generator of its own, so any row block is the same numbers whether
+# the table is made whole or one shard at a time
+INIT_CHUNK_ROWS = 2**20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,20 +104,56 @@ class EmbeddingConfig:
 
 
 def init_embedding(cfg: EmbeddingConfig, *, generator: torch.Generator,
-                   device: torch.device) -> dict[str, torch.Tensor]:
+                   device: torch.device,
+                   row_shard: tuple[int, int] | None = None
+                   ) -> dict[str, torch.Tensor]:
     """One combined [total_rows, dim] table, DLRM uniform init per table:
     rows of feature f ~ U(-1/sqrt(V_f), 1/sqrt(V_f)), padding rows U(-1, 1)
     (the reference's scales).  Made in place on ``device`` from
     ``generator``, which must live there; drawn in the table's dtype, so a
-    bf16 table never holds a float32 copy."""
-    table = torch.empty((cfg.total_rows, cfg.dim), dtype=cfg.dtype,
-                        device=device)
-    table.uniform_(-1.0, 1.0, generator=generator)
+    bf16 table never holds a float32 copy.
+
+    The table is drawn in chunks: ``generator`` gives one seed, and chunk
+    c of ``INIT_CHUNK_ROWS`` rows is drawn from a generator seeded with it
+    plus c.  ``row_shard=(i, n)`` makes only block i of n equal row blocks,
+    the rows a rank holds when the table shards over n ranks; block i is
+    bitwise those rows of the whole table made from the same generator,
+    which is left in the same state either way."""
+    total = cfg.total_rows
+    lo, hi = 0, total
+    if row_shard is not None:
+        i, n = row_shard
+        if total % n:
+            raise ValueError(f"{total} rows do not split into {n} shards")
+        lo, hi = i * total // n, (i + 1) * total // n
+    table = _chunked_uniform(cfg, lo, hi, generator, device)
     off = cfg.row_offsets
     for f in range(cfg.num_features):
-        table[int(off[f]):int(off[f + 1])].mul_(
-            1.0 / math.sqrt(cfg.vocab_sizes[f]))
+        a, b = max(int(off[f]), lo), min(int(off[f + 1]), hi)
+        if a < b:
+            table[a - lo:b - lo].mul_(1.0 / math.sqrt(cfg.vocab_sizes[f]))
     return {"table": table}
+
+
+def _chunked_uniform(cfg: EmbeddingConfig, lo: int, hi: int,
+                     generator: torch.Generator, device: torch.device
+                     ) -> torch.Tensor:
+    """Rows [lo, hi) of a U(-1, 1) table drawn in INIT_CHUNK_ROWS-row
+    chunks, chunk c from a generator seeded with one draw of ``generator``
+    plus c."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device))
+    table = torch.empty((hi - lo, cfg.dim), dtype=cfg.dtype, device=device)
+    g = torch.Generator(device=device)
+    for c in range(lo // INIT_CHUNK_ROWS, -(-hi // INIT_CHUNK_ROWS)):
+        c0 = c * INIT_CHUNK_ROWS
+        c1 = min(c0 + INIT_CHUNK_ROWS, cfg.total_rows)
+        g.manual_seed(seed + c)
+        chunk = torch.empty((c1 - c0, cfg.dim), dtype=cfg.dtype,
+                            device=device).uniform_(-1.0, 1.0, generator=g)
+        a, b = max(c0, lo), min(c1, hi)
+        table[a - lo:b - lo] = chunk[a - c0:b - c0]
+    return table
 
 
 def _offsets(offsets: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -134,6 +180,30 @@ def routed_offsets(cfg: EmbeddingConfig, device: torch.device) -> torch.Tensor:
             off = torch.as_tensor(host, dtype=torch.int64, device=device)
         _ROUTED_OFFSETS[key] = off
     return off
+
+
+def embedding_bag(params, ids: torch.Tensor, cfg: EmbeddingConfig
+                  ) -> torch.Tensor:
+    """Multi-hot gather + pool, ids [B, F, P] int32 (-1 padded) -> pooled
+    [B, F, dim]: the row-sharded dataflow (``repro_torch.dist.
+    sharded_embedding.embedding_bag_sharded``, ``params["table"]`` this
+    rank's rows) when a "model" mesh axis is bound, else
+    ``embedding_bag_local``."""
+    if logical.model_axis_name() is not None:
+        from repro_torch.dist.sharded_embedding import embedding_bag_sharded
+
+        return embedding_bag_sharded(params, ids, cfg)
+    return embedding_bag_local(params, ids, cfg)
+
+
+def _rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Rows ``rows`` (int64, global) of the table, or of the row-sharded
+    table whose shard this rank holds when a "model" axis is bound."""
+    if logical.model_axis_name() is not None:
+        from repro_torch.dist.sharded_embedding import sharded_row_gather
+
+        return sharded_row_gather(table, rows)
+    return F.embedding(rows, table)
 
 
 def embedding_bag_local(params, ids: torch.Tensor, cfg: EmbeddingConfig
@@ -181,11 +251,11 @@ def feature_rows(table: torch.Tensor, ids: torch.Tensor, f: int,
     The rows are gathered by ``F.embedding`` (the reference's
     ``jnp.take``): its backward sums a row's repeats in segments, where
     indexing's (``index_put_``) walks a power-law id's thousands of repeats
-    one at a time on a card."""
+    one at a time on a card.  Under a bound "model" axis ``table`` is this
+    rank's row shard and the rows come from ``sharded_row_gather``."""
     if f in cfg.qr_features:
         return _gather_qr_feature(table, ids, f, cfg)
-    return F.embedding(int(cfg.row_offsets[f]) + ids.clamp_min(0).long(),
-                       table)
+    return _rows(table, int(cfg.row_offsets[f]) + ids.clamp_min(0).long())
 
 
 def _gather_qr_feature(table: torch.Tensor, fid: torch.Tensor, f: int,
@@ -195,12 +265,14 @@ def _gather_qr_feature(table: torch.Tensor, fid: torch.Tensor, f: int,
 
     A QR feature of vocab V stores ``q = ceil(V/Q)`` quotient rows followed
     by ``Q`` remainder rows; emb(id) = quot[id // Q] * rem[id % Q]
-    (Hadamard, the reference's ``_gather_with_qr``)."""
+    (Hadamard, the reference's ``_gather_with_qr``); both rows in one
+    gather."""
     safe = fid.clamp_min(0).long()
     base = int(cfg.row_offsets[f])
     q_rows = -(-cfg.vocab_sizes[f] // cfg.qr_buckets)
-    quot = F.embedding(base + safe // cfg.qr_buckets, table)
-    rem = F.embedding(base + q_rows + safe % cfg.qr_buckets, table)
+    quot, rem = _rows(table, torch.stack([base + safe // cfg.qr_buckets,
+                                          base + q_rows
+                                          + safe % cfg.qr_buckets]))
     return quot * rem
 
 

@@ -91,13 +91,17 @@ class MIND(nn.Module):
 
 
 def init(cfg: RecsysConfig, *, generator: torch.Generator,
-         device: torch.device) -> MIND:
-    """A MIND with random weights drawn on ``device`` from ``generator``
-    (the reference's init scales)."""
+         device: torch.device,
+         row_shard: tuple[int, int] | None = None) -> MIND:
+    """A MIND with random weights drawn on ``device`` from ``generator`` (the
+    reference's init scales). ``row_shard=(i, n)``: only row block i of n
+    of the embedding tables (``init_embedding``), a rank's state under a
+    row-sharded "model" axis."""
     d = cfg.embed_dim
     return MIND(cfg, {
         "embedding": emb_lib.init_embedding(cfg.embedding, generator=generator,
-                                            device=device),
+                                            device=device,
+                                            row_shard=row_shard),
         # the shared bilinear routing map S (B2I routing shares one S)
         "S": normal_init((d, d), generator=generator, device=device,
                          stddev=0.05, dtype=cfg.dtype),

@@ -28,7 +28,13 @@ Three deliberate differences, all for memory on the card:
 Decode attention with ``decode_impl="flash"`` goes through
 ``repro_torch.dist.decode.decode_attention``, i.e. kernel K3 on the card;
 with the int8 cache through ``decode_attention_int8``, K3's int8 entry,
-which reads the cache itself instead of a dequantised copy of it.
+which reads the cache itself instead of a dequantised copy of it.  Under a
+"kv_seq" binding (``repro_torch.dist.logical``) the cache a step gets is
+this rank's sequence slice: only the rank whose slice holds ``pos`` writes
+the new token's K/V (at local row ``pos - kv_offset``), and the attention
+is the sequence-sharded decode.  The weights stay replicated: tensor-
+parallel execution of the LM's placements comes with the sharded train
+cells.
 """
 from __future__ import annotations
 
@@ -41,7 +47,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.convert import tree_from_numpy
 from repro_torch.common.init import normal_init
 from repro_torch.common.types import TensorSpec
-from repro_torch.dist.decode import decode_attention, decode_attention_int8
+from repro_torch.dist.decode import (
+    decode_attention,
+    decode_attention_int8,
+    kv_shard,
+)
 from repro_torch.dist.loss import cast_grad, ce_loss
 from repro_torch.dist.moe import moe_apply
 from repro_torch.models.layers import (
@@ -198,16 +208,34 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
     attn_fn = _attention_chunked if cfg.attn_impl == "chunked" and T > 1 \
         else _attention
     if cache_l is not None:
-        S = cache_l["k"].shape[1]
+        # under a "kv_seq" binding the cache is this rank's sequence slice:
+        # global rows [off, off + s_local) of an S-row cache
+        s_local = cache_l["k"].shape[1]
+        off, S = kv_shard(s_local)
         if not 0 <= pos <= S - T:
             raise ValueError(f"cache write [{pos}, {pos + T}) outside [0, {S})")
         # decode attends kv positions j <= pos, i.e. kv_len = pos + 1
         flash = cfg.decode_impl == "flash" and T == 1 and isinstance(pos, int)
+        if S != s_local and not flash:
+            raise ValueError("a sequence-sharded cache is read only by the "
+                             "flash decode (decode_impl='flash', one token "
+                             "at an int pos)")
+
+        def write(name, t):
+            """Rows [pos, pos + T) of the cache, where this slice holds
+            them (every rank of an unsharded cache)."""
+            if S == s_local:
+                cache_l[name][:, pos:pos + T] = t
+                return
+            lo, hi = max(pos, off), min(pos + T, off + s_local)
+            if lo < hi:
+                cache_l[name][:, lo - off:hi - off] = t[:, lo - pos:hi - pos]
+
         if cfg.kv_quant == "int8":
             kq, ks = _quantize_kv(k)
             vq, vs = _quantize_kv(v)
             for name, t in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
-                cache_l[name][:, pos:pos + T] = t
+                write(name, t)
             if flash:
                 # K3's int8 entry reads the cache itself: the same function
                 # as the dequantisation below followed by decode_attention,
@@ -220,8 +248,8 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
                 vc = cache_l["v"].to(x.dtype) * cache_l["vs"].to(x.dtype)
                 attn = attn_fn(q, kc, vc, q_offset=pos, chunk=cfg.attn_chunk)
         else:
-            cache_l["k"][:, pos:pos + T] = k
-            cache_l["v"][:, pos:pos + T] = v
+            write("k", k)
+            write("v", v)
             kc, vc = cache_l["k"], cache_l["v"]
             attn = decode_attention(q, kc, vc, kv_len=pos + 1) if flash \
                 else attn_fn(q, kc, vc, q_offset=pos, chunk=cfg.attn_chunk)

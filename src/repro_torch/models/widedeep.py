@@ -60,10 +60,9 @@ class WideDeep(nn.Module):
     def apply_sparse(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """G_s: deep embeddings [B, F, D] and wide scalar sums [B, F, 1]."""
         ids = batch["sparse_ids"]
-        deep = emb_lib.embedding_bag_local({"table": self.table}, ids,
-                                           self.cfg.embedding)
-        wide = emb_lib.embedding_bag_local({"table": self.wide}, ids,
-                                           self.wide_cfg)
+        deep = emb_lib.embedding_bag({"table": self.table}, ids,
+                                     self.cfg.embedding)
+        wide = emb_lib.embedding_bag({"table": self.wide}, ids, self.wide_cfg)
         return deep, wide
 
     def apply_dense_given_pooled(self, batch, pooled) -> torch.Tensor:
@@ -86,16 +85,19 @@ class WideDeep(nn.Module):
 
 
 def init(cfg: RecsysConfig, *, generator: torch.Generator,
-         device: torch.device) -> WideDeep:
-    """A Wide & Deep with random weights drawn on ``device`` from
-    ``generator`` (the reference's init scales; ``jax.random``'s numbers
-    differ)."""
+         device: torch.device,
+         row_shard: tuple[int, int] | None = None) -> WideDeep:
+    """A Wide & Deep with random weights drawn on ``device`` from ``generator``
+    (the reference's init scales; ``jax.random``'s numbers differ).
+    ``row_shard=(i, n)``: only row block i of n of the embedding tables
+    (``init_embedding``), a rank's state under a row-sharded "model" axis."""
     emb = cfg.embedding
     params = {
         "embedding": emb_lib.init_embedding(emb, generator=generator,
-                                            device=device),
+                                            device=device,
+                                            row_shard=row_shard),
         "wide": emb_lib.init_embedding(_wide_cfg(cfg), generator=generator,
-                                       device=device),
+                                       device=device, row_shard=row_shard),
     }
     if cfg.n_dense:
         params["wide_dense"] = torch.zeros((cfg.n_dense,), dtype=cfg.dtype,

@@ -27,6 +27,14 @@ CPU copy; one LM train step (a small f32 LM, dense with the chunked
 attention and MoE) against a CPU copy; a ``CheckpointManager`` roundtrip
 of CUDA tensors, bf16 included.
 
+K1's row window (a rank's shard of a row-sharded table): windows at the
+table's start, middle and end and one holding no id, a shard of no rows,
+the float32 store against the table-dtype store, the windows' float32
+partials summing to the whole pool, and the window (0, H) bitwise the
+unwindowed entry.  K3's int8 partials: a shard wholly past kv_len is
+exactly (-1e30, 0, 0), and the two halves' partials merged by
+``lse_combine`` equal the whole-cache int8 entry.
+
 The redesigned attention kernels: K3's int8 entry (within the bf16/f32 tolerance of its plain
 version, and bitwise equal to the entry in q's dtype on the cache
 dequantised eagerly), both K3 entries at the LM configs' KV groups 1, 7
@@ -56,14 +64,19 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_decode,
     flash_decode_int8,
+    flash_decode_int8_partials,
+    flash_decode_int8_partials_ref,
     flash_decode_int8_ref,
     flash_decode_ref,
+    lse_combine,
 )
+from repro_torch.kernels.flash_attention import ops as k3_ops
 from repro_torch.kernels.embedding_bag import (
     embedding_bag_features,
     embedding_bag_features_grad,
     embedding_bag_features_grad_ref,
     embedding_bag_features_ref,
+    embedding_bag_window_ref,
     hot_embedding_bag,
     hot_embedding_bag_grad,
     hot_embedding_bag_ref,
@@ -163,6 +176,119 @@ def test_flash_attention_ragged_and_offset(cuda_device, hd, causal, q_offset,
     torch.testing.assert_close(got.float(), want, rtol=TOL["bf16"],
                                atol=TOL["bf16"])
     torch.cuda.synchronize()
+
+
+def _window_case(dtype, device, D=64, B=300, P=40):
+    """A combined table of three features and per-feature ids on ``device``
+    with their int64 offsets."""
+    rng = np.random.default_rng(D + P)
+    sizes = (3000, 700, 1300)
+    off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    ids = np.stack([_k1_ids(rng, (B, P), v) for v in sizes], axis=1)
+    ids[EMPTY_BAGS] = -1
+    table = _k1_table(rng, int(sum(sizes)), D, dtype, device)
+    return (table, torch.from_numpy(ids).to(device),
+            torch.from_numpy(off).to(device))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("where", ["start", "middle", "end", "no_ids",
+                                   "no_rows"])
+def test_k1_row_window_matches_plain(cuda_device, where, dtype):
+    """One rank's rows [lo, hi) of the table: its window against the plain
+    version, in float32 and in the table's dtype (the float32 store
+    rounded is the table-dtype store, bitwise), one launch each."""
+    table, ids, off = _window_case(dtype, cuda_device)
+    H = table.shape[0]
+    lo, hi = {"start": (0, 1700), "middle": (1700, 3400),
+              "end": (3400, H), "no_ids": (H, H + 64),
+              "no_rows": (2000, 2000)}[where]
+    shard = table[lo:hi].contiguous() if where != "no_ids" else \
+        torch.randn((64, table.shape[1]), device=cuda_device).to(table.dtype)
+    before = k1_ops.window_launches
+    f32 = embedding_bag_features(shard, ids, off, row_window=(lo, hi),
+                                 out_dtype=torch.float32)
+    own = embedding_bag_features(shard, ids, off, row_window=(lo, hi))
+    torch.cuda.synchronize()
+    assert k1_ops.window_launches == before + (0 if where == "no_rows"
+                                               else 2)
+    want = embedding_bag_window_ref(shard, ids, off, (lo, hi),
+                                    torch.float32)
+    assert f32.dtype == torch.float32 and own.dtype == table.dtype
+    torch.testing.assert_close(f32, want, rtol=K1_TOL["f32"],
+                               atol=K1_TOL["f32"])
+    assert torch.equal(f32.to(table.dtype), own)
+    if where in ("no_ids", "no_rows"):
+        assert not f32.any()
+    assert not f32[EMPTY_BAGS].any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k1_row_windows_sum_to_the_pool(cuda_device, dtype):
+    """The float32 partials of three windows that tile the table sum to
+    the unwindowed pool; the window (0, H) is the unwindowed entry,
+    bitwise."""
+    table, ids, off = _window_case(dtype, cuda_device)
+    H = table.shape[0]
+    whole = embedding_bag_features(table, ids, off)
+    full = embedding_bag_features(table, ids, off, row_window=(0, H))
+    assert torch.equal(full, whole)
+    cuts = (0, 1111, 3001, H)
+    parts = sum(embedding_bag_features(table[a:b].contiguous(), ids, off,
+                                       row_window=(a, b),
+                                       out_dtype=torch.float32)
+                for a, b in zip(cuts, cuts[1:]))
+    want = embedding_bag_features(table, ids, off, out_dtype=torch.float32)
+    torch.testing.assert_close(parts, want, rtol=K1_TOL["f32"],
+                               atol=K1_TOL["f32"])
+    torch.testing.assert_close(parts.to(table.dtype).float(), whole.float(),
+                               rtol=K1_TOL[dtype], atol=K1_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_int8_partials_shard_past_kv_len(cuda_device, dtype):
+    """A shard wholly past kv_len contributes exactly the empty partial."""
+    B, S, H, KVH, hd = 2, 512, 8, 2, 128
+    q = torch.from_numpy(_normal(6, (B, 1, H, hd))[0]).to(cuda_device,
+                                                          TDT[dtype])
+    kq, ks, vq, vs = _int8_cache(7, B, S, KVH, hd, cuda_device)
+    before = k3_ops.launches["flash_decode_int8_partials"]
+    m, l, o = flash_decode_int8_partials(q, kq, ks, vq, vs, kv_len=600,
+                                         kv_offset=600)
+    torch.cuda.synchronize()
+    assert k3_ops.launches["flash_decode_int8_partials"] == before + 1
+    assert m.shape == (B, KVH, H // KVH, 1) and o.shape == (B, KVH, H // KVH,
+                                                             hd)
+    assert bool((m == -1e30).all()) and not l.any() and not o.any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kv_len", [1000, 700, 300])
+def test_int8_partials_halves_merge_to_whole(cuda_device, dtype, kv_len):
+    """The partials of the cache's two halves (kv_offset 0 and S / 2),
+    each against its plain version, merged with ``lse_combine``: the
+    whole-cache int8 entry."""
+    B, S, H, KVH, hd = 2, 1000, 8, 2, 128
+    tdt = TDT[dtype]
+    q = (torch.from_numpy(_normal(8, (B, 1, H, hd))[0]) * 8).to(cuda_device,
+                                                               tdt)
+    kq, ks, vq, vs = _int8_cache(9, B, S, KVH, hd, cuda_device)
+    parts = []
+    for lo in (0, S // 2):
+        sl = [t[:, lo:lo + S // 2].contiguous() for t in (kq, ks, vq, vs)]
+        got = flash_decode_int8_partials(q, *sl, kv_len=kv_len, kv_offset=lo)
+        want = flash_decode_int8_partials_ref(q, *sl, kv_len=kv_len,
+                                              kv_offset=lo)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+        parts.append(got)
+    m, l, o = (torch.stack(t) for t in zip(*parts))
+    _, l_c, o_c = lse_combine(m, l, o, axis=0)
+    merged = (o_c / l_c.clamp_min(1e-30)).to(tdt).reshape(B, 1, H, hd)
+    whole = flash_decode_int8(q, kq, ks, vq, vs, kv_len=kv_len)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(merged.float(), whole.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
 
 
 def _k1_ids(rng, shape, H, pad=0.3):

@@ -131,6 +131,25 @@ def test_init_embedding_scales_and_generator(dtype):
         assert part.abs().max() > 0.5 / np.sqrt(v)
 
 
+@pytest.mark.parametrize("n", [2, 4, 7])
+def test_init_embedding_row_shards_tile_the_table(monkeypatch, n):
+    """The blocks ``row_shard=(i, n)`` are bitwise the rows of the whole
+    table from the same seed, with chunk edges inside and between blocks,
+    and leave the generator in the same state."""
+    monkeypatch.setattr(temb, "INIT_CHUNK_ROWS", 300)
+    _, tc = _cfgs(row_pad=7 * 4)
+    g = torch.Generator().manual_seed(3)
+    whole = temb.init_embedding(tc, generator=g, device=CPU)["table"]
+    after = torch.rand(4, generator=g)
+    for i in range(n):
+        gi = torch.Generator().manual_seed(3)
+        block = temb.init_embedding(tc, generator=gi, device=CPU,
+                                    row_shard=(i, n))["table"]
+        lo, hi = i * tc.total_rows // n, (i + 1) * tc.total_rows // n
+        assert torch.equal(block, whole[lo:hi])
+        assert torch.equal(torch.rand(4, generator=gi), after)
+
+
 @pytest.mark.parametrize("qr", [False, True])
 def test_routed_offsets_built_once(qr):
     """K1's per-feature offsets: one int64 tensor per (config, device), the
