@@ -176,7 +176,41 @@ Phases, one JSON line each:
                of reordered partials); (d) one rank over NCCL: (a)'s
                dataflow at train_dlrm's table (3.2 M x 32 f32) bitwise one
                device's, and the int8 decode's merge;
- 12. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
+ 12. dist_train - the train and prefill cells on a mesh (``build_cell(...,
+               mesh=)``), 2 rank processes sharing the card over gloo as in
+               ``dist``, the single-device references first (each freed
+               before the next, handed to the ranks through files): (a)
+               dlrm-rm2 FULL train_batch (batch 65,536) with its bf16 table
+               row-sharded over (data 1, model 2): 2 steps with every call
+               of K1's window backward held to its plain version on the
+               window's touched rows, every other row exactly 0 (planted
+               fault: the window off by one row), launches and collectives
+               counted from 0, one more step timed, the window backward
+               timed alone beside its plain version, the library's
+               autograd and its byte bound; then a copy with every
+               vocabulary cut to 3,000 rows (every width kept) on the mesh
+               against one device: loss, DenseNet gradients, the rank's
+               table-gradient rows and its rows after one AdaGrad step;
+               (b) llama3.2-3b FULL width train_4k, 4 layers, B 2, S 4096,
+               tensor-parallel over "model": the loss and each rank's block
+               of every gradient leaf against one device in f32 (2e-4 x
+               the leaf's largest entry) and in bf16 (3e-2), step and peak
+               a rank; (c) olmoe-1b-7b FULL width train_4k, 2 layers, B 1,
+               experts and heads over "model", the same check in f32; (d)
+               llama3.2-3b prefill_32k, 2 layers, B 1: each rank's
+               vocabulary slice of the last logits and its kv_heads of the
+               int8 cache against one device, in an f32 copy (logits at
+               1e-3, codes at most one apart; the bf16 cell is timed);
+               (e)
+               GraphSAGE full_graph_sm (edges over both ranks) and molecule
+               (graphs over a (2, 1) mesh): the f32 cell timed, a float64
+               copy's loss and gradients at 1e-5 (in f32 a reordered sum
+               can flip a ReLU).  Planted faults
+               that must fail: a missing ``collectives.enter`` ((b), (c),
+               full_graph_sm), a row-parallel all-reduce left out ((d)), a
+               block's own mean for the global one (molecule), the table's
+               rows off by one ((a));
+ 13. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
                day through ``repro_torch.serving.scenarios``: (a) K4 at
                benchmarks/bench_cluster.py's fleet shape (512 streams, k in
                {2, 4, 8, 16}, 199,444 jobs) and at a full-width day's
@@ -202,7 +236,8 @@ entry each row read with the next row's scales); the kernel phases feed
 peaked queries so that attention outputs are O(1) against the bf16
 tolerance.
 Then the kernel summary line (K1, K1's backward, K2, K3, K3's int8 entry,
-K1's row window, K3's int8 partials and K4) with the whole script's
+K1's row window, K1's window backward, K3's int8 partials and K4) with the
+whole script's
 seconds, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result.  Without a CUDA device, or without the
@@ -3750,6 +3785,990 @@ def phase_dist(dev, bw: float, f32_rate: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the train and prefill cells on a mesh (dist_train)
+# ---------------------------------------------------------------------------
+
+DT_SEED = 41
+DT_STEPS = 2            # (a)'s checked steps on the mesh
+DT_CUT_ROWS = 3000      # (a)'s check copy: every vocabulary cut to this
+DT_LM_LAYERS, DT_LM_BATCH = 4, 2    # (b) llama3.2-3b train_4k
+DT_MOE_LAYERS, DT_MOE_BATCH = 2, 1  # (c) olmoe-1b-7b train_4k
+DT_PREFILL_LAYERS = 2               # (d) llama3.2-3b prefill_32k, batch 1
+DT_GNN_MESH = {"full_graph_sm": (1, DIST_RANKS),   # edges over both ranks
+               "molecule": (DIST_RANKS, 1)}        # graphs over "data"
+
+
+def dt_line(stage: str, **kw) -> dict:
+    return {"phase": "dist_train", "stage": stage, "ranks": DIST_RANKS,
+            "backend": DIST_BACKEND, "one_card": True, **kw}
+
+
+def must_raise(name: str, fn) -> None:
+    """``fn()`` (a check fed a planted fault) must raise AssertionError."""
+    try:
+        fn()
+    except AssertionError:
+        return
+    raise AssertionError(f"{name}: a planted fault passed the check")
+
+
+def leaf_checks(name: str, got: list, want: list, tol: float) -> float:
+    """Each leaf against its reference at ``tol`` x the leaf's largest
+    |want| (``check``); the largest error relative to that."""
+    worst = 0.0
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} leaves, want {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = check(f"{name} leaf {i}", g, w, tol)
+        worst = max(worst, err / max(float(w.float().abs().max()), 1e-30))
+    return worst
+
+
+@contextlib.contextmanager
+def no_enter():
+    """The planted fault of a missing ``collectives.enter``: every
+    replicated input of a rank's partial work keeps its own gradient
+    (the top-k weights, the tokens entering a column-parallel GEMM, the
+    node states of a full-graph aggregate)."""
+    from repro_torch.dist import collectives
+
+    saved = collectives.enter
+    collectives.enter = lambda x, group: x
+    try:
+        yield
+    finally:
+        collectives.enter = saved
+
+
+@contextlib.contextmanager
+def no_block_mean():
+    """The planted fault of a block loss left the block's own mean."""
+    from repro_torch.dist import collectives
+
+    saved = collectives.block_mean
+    collectives.block_mean = lambda x, axes: x
+    try:
+        yield
+    finally:
+        collectives.block_mean = saved
+
+
+class LazyRefs:
+    """The references of a rank, each loaded from its file when first
+    used and dropped when the next is loaded."""
+
+    def __init__(self, paths: dict):
+        self.paths, self.key, self.value = paths, None, None
+
+    def __getitem__(self, key):
+        if key != self.key:
+            self.value = None
+            self.key, self.value = key, load_ref(self.paths[key])
+        return self.value
+
+
+def dt_mesh(shape, dev_type: str):
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(shape, ("data", "model"), device_type=dev_type)
+
+
+# --- (a) rm2 FULL train_batch, row-sharded --------------------------------
+
+
+def window_touched(ids3, off, lo: int, hi: int, shift: int = 0):
+    """The window's touched rows ``u`` (global, sorted) and the ids
+    ``compact`` [B, F, P] that address them as rows 0 .. len(u) - 1 (the
+    per-feature offsets folded in, so they go with zero offsets): a slot
+    reads compact row i where its row is ``u[i] + shift``, none elsewhere.
+    At shift 0 these are the window's pairs in the same order, since the
+    compact rows keep the global rows' order."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ref
+
+    rows = ref.shift_feature_ids(ids3, off)
+    u = torch.unique(rows[(rows >= lo) & (rows < hi)])
+    pos = torch.searchsorted(u, rows - shift).clamp_max(max(u.numel() - 1, 0))
+    hit = (rows >= 0) & (u.numel() > 0) & (u[pos] == rows - shift)
+    return u, torch.where(hit, pos, -1).to(torch.int32)
+
+
+BF16_UNIT = 2.0 ** -8   # bf16's unit roundoff: |bf16(x) - x| <= it x |x|
+
+
+def ulp_held(name: str, got, want, pairs, abs_sum) -> float:
+    """A bf16 table gradient's rows ``got`` per element against the float32
+    plain version ``want`` of the same rows: |got - want| <= BF16_UNIT x
+    |want| + 2**-22 x n x sum|terms|, n the row's pairs.  The kernel's
+    compensated sum and the plain version's sum (any order) each lie
+    within (n + 2) x 2**-24 x sum|terms| of the exact sum, and the kernel
+    rounds once to bf16; so this bound holds for a right kernel, and a row
+    missing or doubling one of few pairs misses it by far.  Returns the max
+    abs error; raises past the bound, naming the worst row."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = (got.float() - want).abs()
+    limit = BF16_UNIT * want.abs() + abs_sum * (
+        pairs.to(torch.float32)[:, None] * 2.0 ** -22)
+    over = err > limit
+    if bool(over.any()):
+        row = int(over.any(dim=1).nonzero()[0])
+        raise AssertionError(
+            f"{name}: {int(over.sum())} elements past one bf16 rounding of "
+            f"the plain version, first in row {row} ({int(pairs[row])} "
+            f"pairs), max abs err {float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+@contextlib.contextmanager
+def checked_window_grad(rank: int, errs: list):
+    """Every call of K1's window backward held per element on the window's
+    touched rows: bitwise against the unwindowed kernel launched on the
+    same pairs (``window_touched``'s compact ids: the same pairs sorted in
+    the same order and summed in the same chunks, so the same bits), and
+    against the float32 plain version by ``ulp_held``; every other row
+    exactly zero.  The ranks check one at a time (``solo``: the plain
+    version's gather is ~9 GB a rank); the comparison launch is not
+    counted.  The first call's check is also fed planted faults, each of
+    which must fail ``ulp_held``: the window off by one row (each local row
+    given the next global row's gradient), the pairs of every tenth bag
+    dropped, and half the touched rows other than the hottest zeroed;
+    the plain version rounded once to bf16 must pass it."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    saved = ops.embedding_bag_features_grad
+
+    def wrapped(grad, ids, row_offsets, n_rows, *, row_window=None):
+        got = saved(grad, ids, row_offsets, n_rows, row_window=row_window)
+        if row_window is None:
+            return got
+
+        def one():
+            lo, hi = row_window
+            u, compact = window_touched(ids, row_offsets, lo, hi)
+            zeros = torch.zeros_like(row_offsets)
+            n_u, D = u.numel(), grad.shape[-1]
+            name = f"k1 window backward call {len(errs)}"
+            rows = got[u - lo]
+            counted = ops.grad_launches
+            twin = saved(grad, compact, zeros, n_u)
+            ops.grad_launches = counted
+            if not torch.equal(rows, twin):
+                raise AssertionError(
+                    f"{name}: {int((rows != twin).sum())} elements differ "
+                    f"from the unwindowed kernel on the window's pairs")
+            del twin
+            g32 = grad.float()
+            want = ref.embedding_bag_features_grad_ref(g32, compact, zeros,
+                                                       n_u)
+            abs_sum = ref.embedding_bag_features_grad_ref(
+                g32.abs(), compact, zeros, n_u)
+            live = compact[compact >= 0].long()
+            pairs = torch.bincount(live, minlength=n_u)
+            err = ulp_held(name, rows, want, pairs, abs_sum)
+            line = {"max_abs_err": err, "bitwise_unwindowed_twin": True,
+                    "touched_rows": n_u, "pairs": int(live.numel()),
+                    "hot_row_pairs": int(pairs.max()) if n_u else 0,
+                    "median_row_pairs": int(pairs.median()) if n_u else 0}
+            del live
+            if not errs:
+                ulp_held(f"{name}, the plain version rounded once",
+                         want.to(grad.dtype), want, pairs, abs_sum)
+                faults = {}
+                faults["the window off by one row"] = \
+                    ref.embedding_bag_features_grad_ref(
+                        g32, window_touched(ids, row_offsets, lo, hi, 1)[1],
+                        zeros, n_u).to(grad.dtype)
+                tenth = g32.clone()
+                tenth.view(-1, D)[::10] = 0
+                faults["every tenth bag's pairs dropped"] = \
+                    ref.embedding_bag_features_grad_ref(
+                        tenth, compact, zeros, n_u).to(grad.dtype)
+                del tenth
+                half = rows.clone()
+                cold = (pairs < pairs.max()) & (
+                    torch.arange(n_u, device=rows.device) % 2 == 0)
+                half[cold] = 0
+                faults["half the touched rows but the hottest zeroed"] = half
+                for what, bad in faults.items():
+                    must_raise(f"{name}, {what}", lambda bad=bad: ulp_held(
+                        name, bad, want, pairs, abs_sum))
+                line["planted_faults_failed"] = list(faults)
+                del faults, half
+            errs.append(line)
+            rest = got.clone()
+            rest[u - lo] = 0
+            if bool(rest.any()):
+                raise AssertionError(f"{name}: an untouched row is not 0")
+            del rest, rows, want, abs_sum, pairs, g32, compact, u
+            torch.cuda.empty_cache()
+        solo(rank, one)
+        return got
+
+    ops.embedding_bag_features_grad = wrapped
+    try:
+        yield
+    finally:
+        ops.embedding_bag_features_grad = saved
+
+
+def rm2_window_times(rank, g, ids, off, lo: int, hi: int, bw: float,
+                     f32_rate: float) -> dict:
+    """K1's window backward at the step's launch (``g`` a random bf16
+    cotangent), its plain version (dense float32 ``index_add_``), the
+    library (``torch.autograd.grad`` through ``F.embedding_bag`` on a table
+    of the window's rows, ids outside it dropped) and the bound: the
+    cotangent and ids read once, the window's rows written once; one rank
+    at a time."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    R, D = hi - lo, g.shape[-1]
+    rows = ref.shift_feature_ids(ids, off).reshape(-1, ids.shape[-1])
+    keep = (rows >= lo) & (rows < hi)
+    live = int(keep.sum())
+    n_bytes = (g.numel() * g.element_size() + ids.numel() * 4
+               + R * D * g.element_size())
+    t_bytes, t_ops = n_bytes / bw * 1e3, live * D / f32_rate * 1e3
+
+    def timed():
+        def entry():
+            return ops.embedding_bag_features_grad(g, ids, off, R,
+                                                   row_window=(lo, hi))
+        settle()
+        ms = time_ms(entry, reps=GRAD_REPS)
+        flat_ids = rows[keep] - lo
+        bag_off = torch.zeros(rows.shape[0], dtype=torch.long, device=g.device)
+        bag_off[1:] = keep.sum(dim=1).cumsum(0)[:-1]
+        table = torch.zeros((R, D), dtype=g.dtype, device=g.device,
+                            requires_grad=True)
+        pooled = F.embedding_bag(flat_ids, table, bag_off, mode="sum")
+        settle()
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            pooled, table, g.reshape(-1, D), retain_graph=True),
+            reps=GRAD_REPS)
+        del table, pooled, flat_ids, bag_off
+        torch.cuda.empty_cache()
+        settle()
+        plain_ms = time_ms(lambda: ref.embedding_bag_features_grad_ref(
+            g, ids, off, R, (lo, hi)), reps=GRAD_REPS)
+        torch.cuda.empty_cache()
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+
+    out = solo(rank, timed)
+    bound = max(t_bytes, t_ops)
+    return {**out, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "live_pairs": live,
+            "share_of_bound": bound / out["ms"]}
+
+
+def rm2_cut_check(rank, mesh, dev, cell, batch_np) -> dict:
+    """(a)'s correctness at every width: a copy of the cell with each
+    vocabulary cut to DT_CUT_ROWS rows, on the mesh and on one device from
+    the same seed and batch: the loss, the DenseNet's gradients, the rank's
+    rows of the table gradient and, after one AdaGrad step, of the table
+    and its accumulator; planted faults: the table's rows off by one."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.tree import tree_leaves, tree_map_with_path
+    from repro_torch.data.clicklog import cell_batch
+    from repro_torch.dist import logical
+    from repro_torch.dist.sharded_embedding import row_window
+    from repro_torch.launch.steps import RECSYS_LR, recsys_train_cell
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_recsys_util import cut_vocab
+
+    cut = cut_vocab(cell.cfg, DT_CUT_ROWS)
+    mcell = dataclasses.replace(cell, cfg=cut)
+    ocell = recsys_train_cell(cut, cell.batch, dev, lr=RECSYS_LR,
+                              arch_id=cell.arch_id, shape=cell.shape)
+    whole_np = cell_batch(cut, ocell.batch_specs, seed=DT_SEED + 2)
+    whole = {k: torch.from_numpy(v).to(dev) for k, v in whole_np.items()}
+    local = mcell.local_batch(whole)
+    ms = mcell.init_state(torch.Generator(dev).manual_seed(DT_SEED + 1))
+    os_ = ocell.init_state(torch.Generator(dev).manual_seed(DT_SEED + 1))
+    with logical.axis_rules(mesh, mcell.rules):
+        lo, hi = row_window(ms["model"].table)
+    mloss, mg = mcell.value_and_grad(ms, local)
+    oloss, og = ocell.value_and_grad(os_, whole)
+    m_leaves, o_leaves = tree_leaves(mg), tree_leaves(og)
+    is_table = tree_leaves(tree_map_with_path(
+        lambda path, _: "table" in path, mg))
+    dense_m = [g for g, t in zip(m_leaves, is_table) if not t]
+    dense_o = [g for g, t in zip(o_leaves, is_table) if not t]
+    tg_m = next(g for g, t in zip(m_leaves, is_table) if t)
+    tg_o = next(g for g, t in zip(o_leaves, is_table) if t)
+    out = {"rows": [lo, hi], "table": list(os_["model"].table.shape),
+           "loss": float(mloss), "loss_one_device": float(oloss),
+           "loss_err": check("rm2 cut loss", mloss, oloss, BF16_TOL),
+           "dense_err": leaf_checks("rm2 cut DenseNet gradient", dense_m,
+                                    dense_o, BF16_TOL),
+           "table_grad_err": check("rm2 cut table gradient rows", tg_m,
+                                   tg_o[lo:hi], BF16_TOL),
+           "table_grad_bitwise": bool(torch.equal(tg_m, tg_o[lo:hi]))}
+    must_fail("rm2 cut table gradient rows, off by one row", tg_o[lo + 1:
+              hi + 1] if hi < tg_o.shape[0] else tg_o[lo - 1:hi - 1],
+              tg_o[lo:hi], BF16_TOL)
+    mcell.run(ms, local)
+    ocell.run(os_, whole)
+    m_table, o_table = ms["model"].table, os_["model"].table
+    out["rows_after_err"] = check("rm2 cut rows after the step",
+                                  m_table, o_table[lo:hi], BF16_TOL)
+    out["rows_after_bitwise"] = bool(torch.equal(m_table, o_table[lo:hi]))
+    must_fail("rm2 cut rows after the step, off by one row",
+              o_table[lo + 1:hi + 1] if hi < o_table.shape[0]
+              else o_table[lo - 1:hi - 1], o_table[lo:hi], BF16_TOL)
+    del ms, os_, mg, og, whole, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def rm2_train_rank(rank: int, mesh, dev, bw: float, f32_rate: float) -> dict:
+    """(a) on one rank: its 65,000,192 rows of rm2's bf16 table, DT_STEPS
+    steps of the train cell on the mesh with every call of K1's window
+    backward held to its plain version (counts from 0), one more step
+    timed, K1's window backward timed alone, then the cut-vocabulary
+    copy against one device."""
+    import torch
+
+    from repro_torch.data.clicklog import cell_batch
+    from repro_torch.dist import collectives, logical
+    from repro_torch.dist.sharded_embedding import row_window
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.embedding import routed_offsets
+
+    t0 = time.perf_counter()
+    cell = build_cell("dlrm-rm2", "train_batch", dev, mesh=mesh)
+    one = build_cell("dlrm-rm2", "train_batch", dev)   # the whole batch
+    batch_np = cell_batch(cell.cfg, one.batch_specs, seed=DT_SEED)
+    batch = cell.local_batch({k: torch.from_numpy(v).to(dev)
+                              for k, v in batch_np.items()})
+    state = cell.init_state(torch.Generator(dev).manual_seed(DT_SEED))
+    table = state["model"].table
+    with logical.axis_rules(mesh, cell.rules):
+        lo, hi = row_window(table)
+    build_s = time.perf_counter() - t0
+    errs, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with checked_window_grad(rank, errs):
+        ops.window_launches = ops.grad_window_launches = 0
+        collectives.reset()
+        for _ in range(DT_STEPS):
+            state, out = cell.run(state, batch)
+            losses.append(float(out["loss"]))
+        torch.cuda.synchronize()
+        launches = ops.window_launches
+        grad_launches = ops.grad_window_launches
+        calls = dict(collectives.calls)
+    if launches < DT_STEPS or grad_launches < DT_STEPS:
+        raise AssertionError("the sharded rm2 train cell did not launch "
+                             "K1's window and its backward each step")
+    # the checked steps' peak holds the checks' tensors; the timed step's
+    # is the step's own
+    peak_checked = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(lambda: cell.run(state, batch), reps=1, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ids = batch["sparse_ids"].contiguous()
+    off = routed_offsets(cell.cfg.embedding, dev)
+    res = {"rank": rank, "coords": mesh.coords, "rows": [lo, hi],
+           "table_gb": table.numel() * table.element_size() / 1e9,
+           "batch": list(ids.shape), "build_s": build_s, "losses": losses,
+           "window_launches": launches, "grad_window_launches": grad_launches,
+           "collectives": calls, "grad_checks_per_call": errs,
+           "grad_tolerance": "bitwise the unwindowed kernel on the "
+                             "window's pairs; one bf16 rounding of the "
+                             "float32 plain version (ulp_held)",
+           "step_ms": step_ms, "peak_gb": peak,
+           "peak_gb_checked_steps": peak_checked,
+           "all_reduce_bytes": ids.shape[0] * ids.shape[1] * table.shape[1] * 4}
+    del state, table
+    torch.cuda.empty_cache()
+    g = torch.empty((*ids.shape[:2], cell.cfg.embedding.dim),
+                    device=dev).normal_(
+        generator=torch.Generator(dev).manual_seed(DT_SEED + rank)).to(
+        torch.bfloat16)
+    res.update(rm2_window_times(rank, g, ids, off, lo, hi, bw, f32_rate))
+    del g, ids, batch
+    torch.cuda.empty_cache()
+    res["cut_check"] = rm2_cut_check(rank, mesh, dev, cell, batch_np)
+    return res
+
+
+# --- (b), (c) the LM train cells: tensor and expert parallel --------------
+
+
+def lm_train_cell(dev, arch_id: str, layers: int, batch: int, dtype,
+                  mesh=None):
+    import dataclasses
+
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell(arch_id, "train_4k", dev, batch=batch, n_layers=layers,
+                      mesh=mesh)
+    # the dtype only sets the parameters' (the forward computes in theirs)
+    return dataclasses.replace(cell, cfg=dataclasses.replace(cell.cfg,
+                                                             dtype=dtype))
+
+
+def lm_train_reference(dev, arch_id: str, layers: int, batch: int, dtype,
+                       seed: int) -> dict:
+    """One device's loss and gradients (on the host) of the cell at this
+    cut, its gradient pass and step on the host clock and its peak."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+
+    cell = lm_train_cell(dev, arch_id, layers, batch, dtype)
+    state = cell.init_state(torch.Generator(dev).manual_seed(seed))
+    tokens = torch.randint(0, cell.cfg.vocab, (batch, cell.seq_len),
+                           generator=torch.Generator().manual_seed(seed),
+                           dtype=torch.int32)
+    b = {"tokens": tokens.to(dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = cell.value_and_grad(state, b)
+    torch.cuda.synchronize()
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    out = {"tokens": tokens, "seed": seed, "loss": loss.cpu(),
+           "grads": [t.cpu() for t in tree_leaves(grads)],
+           "grad_ms": grad_ms}
+    del grads
+    out["step_ms"] = host_ms(lambda: cell.run(state, b), reps=1, warmup=0)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["params_gb"] = tree_gb(state["params"])
+    del state, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def load_ref(path: str):
+    """A reference the parent saved (``phase_dist_train``), on the host."""
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def lm_train_rank(rank: int, mesh, dev, ref: dict, arch_id: str,
+                  layers: int, batch: int, dtype, tol: float) -> dict:
+    """(b) or (c) on one rank: its block of the parameters (heads, FFN
+    columns or experts, vocabulary rows) drawn as one device draws them,
+    one gradient pass held leaf by leaf (this rank's block) and in loss to
+    one device at ``tol``, the collectives counted from 0; the planted
+    fault of a missing ``enter`` must fail; one step timed."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import local_shard, param_spec_tree
+
+    cell = lm_train_cell(dev, arch_id, layers, batch, dtype, mesh=mesh)
+    state = cell.init_state(torch.Generator(dev).manual_seed(ref["seed"]))
+    b = cell.local_batch({"tokens": ref["tokens"].to(dev)})
+    specs = tree_leaves(param_spec_tree(cell.kind, state["params"]))
+    want = [local_shard(w, s, mesh).to(dev)
+            for w, s in zip(ref["grads"], specs)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset()
+    t0 = time.perf_counter()
+    loss, grads = cell.value_and_grad(state, b)
+    torch.cuda.synchronize()
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    calls = dict(collectives.calls)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    name = f"{arch_id} {dtype} on the mesh"
+    loss_err = check(f"{name} loss", loss.cpu(), ref["loss"], tol)
+    worst = leaf_checks(f"{name} gradient", tree_leaves(grads), want, tol)
+    del grads
+    with no_enter():
+        _, bad = cell.value_and_grad(state, b)
+    must_raise(f"{name}, a missing enter", lambda: leaf_checks(
+        f"{name} gradient", tree_leaves(bad), want, tol))
+    del bad, want
+    torch.cuda.empty_cache()
+    step_ms = host_ms(lambda: cell.run(state, b), reps=1, warmup=0)
+    res = {"rank": rank, "coords": mesh.coords, "loss": float(loss),
+           "loss_one_device": float(ref["loss"]), "loss_err": loss_err,
+           "grad_err_relative_to_leaf_max": worst, "tolerance": tol,
+           "leaves": len(specs), "params_gb": tree_gb(state["params"]),
+           "grad_ms": grad_ms, "step_ms": step_ms, "peak_gb": peak,
+           "collectives": calls}
+    del state, b
+    torch.cuda.empty_cache()
+    return res
+
+
+# --- (d) prefill_32k -------------------------------------------------------
+
+
+def prefill_cell(dev, dtype, mesh=None):
+    import dataclasses
+
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell("llama3.2-3b", "prefill_32k", dev, batch=1,
+                      n_layers=DT_PREFILL_LAYERS, mesh=mesh)
+    # the dtype only sets the parameters' (the forward computes in theirs)
+    return dataclasses.replace(cell, cfg=dataclasses.replace(cell.cfg,
+                                                             dtype=dtype))
+
+
+def prefill_reference(dev, seed: int) -> dict:
+    """One device's prefill_32k at this cut, bf16 (the cell's dtype) and
+    an f32 copy: each one's step on the host clock, last logits and
+    cache."""
+    import torch
+
+    cell = prefill_cell(dev, torch.bfloat16)
+    tokens = torch.randint(0, cell.cfg.vocab, (1, cell.seq_len),
+                           generator=torch.Generator().manual_seed(seed),
+                           dtype=torch.int32)
+    res = {"seed": seed, "tokens": tokens}
+    for dtype in (torch.bfloat16, torch.float32):
+        cell = prefill_cell(dev, dtype)
+        params = cell.init_state(torch.Generator(dev).manual_seed(seed))
+        b = {"tokens": tokens.to(dev)}
+        out = cell.run(params, b)
+        key = "f32" if dtype == torch.float32 else "bf16"
+        res[key] = {"step_ms": host_ms(lambda: cell.run(params, b), reps=1,
+                                       warmup=0),
+                    "logits": out["logits"].cpu(),
+                    "cache": {k: v.cpu() for k, v in out["cache"].items()}}
+        del params, out, b
+        torch.cuda.empty_cache()
+    return res
+
+
+def prefill_rank(rank: int, mesh, dev, ref: dict) -> dict:
+    """(d) on one rank, the bf16 cell (its step on the host clock, its
+    collectives counted from 0) and an f32 copy: each one's last logits
+    (this rank's vocabulary slice) and its kv_heads of the int8 cache
+    against one device's, bf16 at BF16_TOL (scales; codes within
+    BF16_TOL x 127) and f32 at F32_PATH_TOL (scales; codes at most one
+    apart); the planted fault of the row-parallel all-reduces left out
+    must fail each."""
+    import torch
+
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import P, local_shard
+    from repro_torch.models import transformer as tf
+
+    res = {"rank": rank}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = "f32" if dtype == torch.float32 else "bf16"
+        tol = F32_PATH_TOL if key == "f32" else BF16_TOL
+        cell = prefill_cell(dev, dtype, mesh=mesh)
+        params = cell.init_state(torch.Generator(dev).manual_seed(
+            ref["seed"]))
+        b = cell.local_batch({"tokens": ref["tokens"].to(dev)})
+        collectives.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cell.run(params, b)
+        torch.cuda.synchronize()
+        line = {"step_ms": (time.perf_counter() - t0) * 1e3,
+                "tolerance": tol}
+        if key == "bf16":
+            res.update(collectives=dict(collectives.calls),
+                       logits=list(out["logits"].shape),
+                       cache_k=list(out["cache"]["k"].shape))
+        want_logits = local_shard(ref[key]["logits"], P("data", "model"),
+                                  mesh)
+        spec = P(None, "data", None, "model", None)
+        want = local_shard(ref[key]["cache"],
+                           {k: spec for k in ref[key]["cache"]}, mesh)
+        got = {k: v.cpu() for k, v in out["cache"].items()}
+        line["logits_err"] = check(f"prefill on the mesh, {key} last logits",
+                                   out["logits"].cpu(), want_logits, tol)
+        line["logits_differing"] = int((out["logits"].cpu()
+                                        != want_logits).sum())
+        codes = max(int((got[k].int() - want[k].int()).abs().max())
+                    for k in ("k", "v"))
+        # f32: a value at a rounding boundary moves one code; bf16 K/V move
+        # by a few bf16 steps where a layer's input does: within BF16_TOL
+        # of the row's largest entry, 127 codes
+        limit = 1 if key == "f32" else int(BF16_TOL * 127)
+        if codes > limit:
+            raise AssertionError(f"prefill on the mesh, {key}: int8 cache "
+                                 f"codes {codes} apart (at most {limit})")
+        line["cache_codes_apart"], line["cache_codes_limit"] = codes, limit
+        line["cache_codes_differing"] = sum(int((got[k] != want[k]).sum())
+                                            for k in ("k", "v"))
+        line["cache_scale_err"] = max(check(
+            f"prefill on the mesh, {key} cache {k}", got[k], want[k], tol)
+            for k in ("ks", "vs"))
+        saved = tf._tp_sum
+        tf._tp_sum = lambda x, group: x
+        try:
+            bad = cell.run(params, b)["logits"].cpu()
+        finally:
+            tf._tp_sum = saved
+        must_fail(f"prefill on the mesh, {key}, the row-parallel all-reduces "
+                  f"left out", bad, want_logits, tol)
+        res[key] = line
+        del params, out, b, got, want
+        torch.cuda.empty_cache()
+    return res
+
+
+# --- (e) GraphSAGE ---------------------------------------------------------
+
+
+@contextlib.contextmanager
+def gnn_dtype(shape: str, dtype):
+    """GraphSAGE's ``shape`` cell built in ``dtype`` (its parameters and
+    activations; ``softmax_ce`` stays f32)."""
+    import dataclasses
+
+    from repro_torch.configs import graphsage_reddit as sage
+
+    saved = sage.SHAPE_CONFIGS[shape]
+    sage.SHAPE_CONFIGS[shape] = dataclasses.replace(saved, dtype=dtype)
+    try:
+        yield
+    finally:
+        sage.SHAPE_CONFIGS[shape] = saved
+
+
+@contextlib.contextmanager
+def sage_relu(record: list | None = None, force: list | None = None):
+    """GraphSAGE's ReLU watched: each layer's pre-activation signs (out >
+    0, on the host) appended to ``record``; or, with ``force``, layer i's
+    ReLU replaced by out x force[i] (the gradient of that activation
+    pattern: ReLU's backward is 0 at out <= 0)."""
+    import torch
+
+    from repro_torch.models import gnn as gnn_lib
+
+    saved = gnn_lib._sage_combine
+    calls = [0]
+
+    def combine(layer, h_self, h_agg, activate=True):
+        out = saved(layer, h_self, h_agg, activate=False)
+        if not activate:
+            return out
+        i, calls[0] = calls[0], calls[0] + 1
+        if force is not None:
+            return out * force[i % len(force)].to(out.device, out.dtype)
+        if record is not None:
+            record.append((out > 0).cpu())
+        return torch.relu(out)
+
+    gnn_lib._sage_combine = combine
+    try:
+        yield
+    finally:
+        gnn_lib._sage_combine = saved
+
+
+def leaf_err(got: list, want: list) -> float:
+    """The largest of each leaf's max |got - want| over its max |want|."""
+    return max(float((g.double() - w.double()).abs().max())
+               / max(float(w.double().abs().max()), 1e-300)
+               for g, w in zip(got, want))
+
+
+def sign_flips(a: list, b: list) -> int:
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+MATCHED_FACTOR = 4   # (e)'s f32 limit: this x one device's f32 error
+
+
+def gnn_train_reference(dev, shape: str, seed: int) -> dict:
+    """One device's loss and gradients (on the host) of a GraphSAGE cell in
+    float64, its f32 gradient pass on the host clock, and the f32 witness:
+    the f32 pass run twice (the two runs' difference relative to each
+    leaf's largest entry, and their sign flips: ``index_add_``'s atomics
+    sum in no fixed order), and each run's pre-activation signs against
+    float64's (the flips) and gradients against float64's, both as they
+    are and with float64 given that run's activation pattern (the matched
+    error; the larger of the two runs' sets (e)'s f32 limit:
+    MATCHED_FACTOR x it, at least F32_TOL)."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.data.graph import cell_batch as graph_batch
+    from repro_torch.launch.steps import build_cell
+
+    res = {"seed": seed}
+    cells = {}
+    for dtype in (torch.float32, torch.float64):
+        with gnn_dtype(shape, dtype):
+            cells[dtype] = build_cell("graphsage-reddit", shape, dev)
+    cell = cells[torch.float32]
+    state = cell.init_state(torch.Generator(dev).manual_seed(seed))
+    batch_np = graph_batch(cell.cfg, cell.dims, seed=seed)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    res.update(batch=batch_np, dims=cell.dims, grad_ms=host_ms(
+        lambda: cell.value_and_grad(state, b), reps=3))
+    runs, masks = [], [[], []]
+    for i in range(2):
+        with sage_relu(record=masks[i]):
+            runs.append([g.cpu() for g in tree_leaves(
+                cell.value_and_grad(state, b)[1])])
+    cell = cells[torch.float64]
+    state = cell.init_state(torch.Generator(dev).manual_seed(seed))
+    masks64 = []
+    with sage_relu(record=masks64):
+        loss, grads = cell.value_and_grad(state, b)
+    res.update(loss=loss.cpu(), grads=[g.cpu() for g in tree_leaves(grads)])
+    witness = []
+    for g32, masks32 in zip(runs, masks):
+        with sage_relu(force=masks32):
+            matched = [g.cpu() for g in tree_leaves(
+                cell.value_and_grad(state, b)[1])]
+        witness.append({"sign_flips_f32_vs_f64": sign_flips(masks32, masks64),
+                        "err_vs_f64": leaf_err(g32, res["grads"]),
+                        "err_vs_f64_matched": leaf_err(g32, matched)})
+    err = max(w["err_vs_f64_matched"] for w in witness)
+    res["f32_witness"] = {
+        "repeat_bitwise": all(torch.equal(x, y) for x, y in zip(*runs)),
+        "repeat_err": leaf_err(runs[1], runs[0]),
+        "repeat_sign_flips": sign_flips(*masks),
+        "pre_activations": sum(m.numel() for m in masks64),
+        "runs": witness,
+        "mesh_limit": max(F32_TOL, MATCHED_FACTOR * err)}
+    del state, b, grads, cells
+    torch.cuda.empty_cache()
+    return res
+
+
+def gnn_train_rank(rank: int, mesh, dev, dev_type: str, refs: dict) -> dict:
+    """(e) on one rank: full_graph_sm with its edges over both ranks and
+    molecule with its graphs over "data", each on its mesh of
+    DT_GNN_MESH.  The f32 cell (the timed one): its gradient pass on the
+    host clock, then its gradients against the float64 mesh copy given
+    the f32 pass's activation pattern, at one device's limit
+    (``gnn_train_reference``'s ``mesh_limit``), its sign flips against the
+    float64 copy's and its error against one device's float64 gradients
+    as they are.  The float64 copy: loss and every gradient against one
+    device's at F32_TOL x the leaf's largest entry.  Planted faults, each
+    fed to both checks: a missing ``enter`` (the full graph's node
+    states), a block's own mean for the global one (molecule)."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.dist import collectives
+    from repro_torch.launch.steps import build_cell
+
+    out = {}
+    for shape, mesh_shape in DT_GNN_MESH.items():
+        ref = refs[shape]
+        if mesh_shape != tuple(mesh.shape.values()):
+            mesh = dt_mesh(mesh_shape, dev_type)
+        line = {"mesh": list(mesh_shape)}
+        cells = {}
+        for dtype in (torch.float32, torch.float64):
+            with gnn_dtype(shape, dtype):
+                cells[dtype] = build_cell("graphsage-reddit", shape, dev,
+                                          mesh=mesh)
+            if cells[dtype].dims != ref["dims"]:
+                raise AssertionError(f"{shape}: the mesh cell's sizes "
+                                     f"{cells[dtype].dims} are not one "
+                                     f"device's")
+        fault = no_enter if shape == "full_graph_sm" else no_block_mean
+        b = cells[torch.float32].local_batch(
+            {k: torch.from_numpy(v).to(dev) for k, v in ref["batch"].items()})
+        line["batch"] = {k: list(v.shape) for k, v in b.items()}
+        name = f"{shape} on the mesh {mesh_shape}"
+
+        # float64: one device's gradients at F32_TOL
+        cell = cells[torch.float64]
+        state = cell.init_state(torch.Generator(dev).manual_seed(ref["seed"]))
+        collectives.reset()
+        masks64 = []
+        with sage_relu(record=masks64):
+            loss, grads = cell.value_and_grad(state, b)
+        calls = dict(collectives.calls)
+        want = [w.to(dev) for w in ref["grads"]]
+        loss_err = check(f"{name}, float64 loss", loss.cpu(), ref["loss"],
+                         F32_TOL)
+        worst = leaf_checks(f"{name}, float64 gradient", tree_leaves(grads),
+                            want, F32_TOL)
+        with fault():
+            _, bad = cell.value_and_grad(state, b)
+        must_raise(f"{name}, float64, planted fault", lambda: leaf_checks(
+            name, tree_leaves(bad), want, F32_TOL))
+        line.update(loss=float(loss), loss_err=loss_err,
+                    grad_err_relative_to_leaf_max=worst, tolerance=F32_TOL,
+                    collectives=calls)
+
+        # f32, the timed cell
+        c32 = cells[torch.float32]
+        s32 = c32.init_state(torch.Generator(dev).manual_seed(ref["seed"]))
+        line["grad_ms"] = host_ms(lambda: c32.value_and_grad(s32, b), reps=3)
+        masks32 = []
+        with sage_relu(record=masks32):
+            _, g32 = c32.value_and_grad(s32, b)
+        g32 = tree_leaves(g32)
+        with sage_relu(force=masks32):
+            matched = tree_leaves(cell.value_and_grad(state, b)[1])
+        limit = ref["f32_witness"]["mesh_limit"]
+        f32_err = leaf_checks(f"{name}, f32 against float64 at its "
+                              f"activation pattern", g32, matched, limit)
+        with fault():
+            _, bad = c32.value_and_grad(s32, b)
+        must_raise(f"{name}, f32, planted fault", lambda: leaf_checks(
+            name, tree_leaves(bad), matched, limit))
+        line["f32"] = {"err_vs_f64_matched": f32_err, "limit": limit,
+                       "sign_flips_vs_f64": sign_flips(masks32, masks64),
+                       "err_vs_one_device_f64": leaf_err(g32, want),
+                       "one_device": ref["f32_witness"]}
+        out[shape] = line
+        del cells, cell, c32, state, s32, b, want, matched, g32, grads, bad
+    return out
+
+
+def dist_train_rank(rank: int, dev_type: str, bw: float, f32_rate: float,
+                    paths: dict) -> dict:
+    """One rank of the dist_train phase: (a)-(d) on a (1, DIST_RANKS)
+    ("data", "model") mesh over the card, (e) on the meshes of
+    DT_GNN_MESH; each reference loaded from the file ``paths`` names."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    refs = LazyRefs(paths)
+
+    dev = torch.device(dev_type)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_debug_mesh(1, DIST_RANKS, device_type=dev_type)
+    out = {}
+    for key, fn in (
+            ("rm2", lambda: rm2_train_rank(rank, mesh, dev, bw, f32_rate)),
+            ("llama_f32", lambda: lm_train_rank(
+                rank, mesh, dev, refs["llama_f32"], "llama3.2-3b",
+                DT_LM_LAYERS, DT_LM_BATCH, torch.float32, SUM_TOL)),
+            ("llama_bf16", lambda: lm_train_rank(
+                rank, mesh, dev, refs["llama_bf16"], "llama3.2-3b",
+                DT_LM_LAYERS, DT_LM_BATCH, torch.bfloat16, BF16_TOL)),
+            ("olmoe_f32", lambda: lm_train_rank(
+                rank, mesh, dev, refs["olmoe_f32"], "olmoe-1b-7b",
+                DT_MOE_LAYERS, DT_MOE_BATCH, torch.float32, SUM_TOL)),
+            ("prefill", lambda: prefill_rank(rank, mesh, dev,
+                                             refs["prefill"])),
+            ("gnn", lambda: gnn_train_rank(rank, mesh, dev, dev_type,
+                                           refs["gnn"]))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        # each case as it ends, on stderr: what a later case's failure
+        # would otherwise take with it
+        print(json.dumps(dt_line(f"{key}_rank{rank}", **out[key]),
+                         default=str), file=sys.stderr, flush=True)
+    return out
+
+
+def phase_dist_train(dev, bw: float, f32_rate: float) -> dict:
+    """The train and prefill cells on a mesh: the single-device references
+    first (each freed before the next), then DIST_RANKS rank processes on
+    the card over gloo run (a) dlrm-rm2 FULL train_batch row-sharded, (b)
+    llama3.2-3b FULL-width train_4k tensor-parallel in f32 and bf16, (c)
+    olmoe-1b-7b FULL-width train_4k expert- and tensor-parallel, (d)
+    llama3.2-3b prefill_32k and (e) GraphSAGE's full_graph_sm and molecule.
+    A rank that fails fails the phase."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    refs, t_ref = {}, {}
+    sys.path.insert(0, str(ROOT / "tests"))   # torch_recsys_util, in (a)
+    for key, fn in (
+            ("llama_f32", lambda: lm_train_reference(
+                dev, "llama3.2-3b", DT_LM_LAYERS, DT_LM_BATCH, torch.float32,
+                DT_SEED + 10)),
+            ("llama_bf16", lambda: lm_train_reference(
+                dev, "llama3.2-3b", DT_LM_LAYERS, DT_LM_BATCH, torch.bfloat16,
+                DT_SEED + 11)),
+            ("olmoe_f32", lambda: lm_train_reference(
+                dev, "olmoe-1b-7b", DT_MOE_LAYERS, DT_MOE_BATCH,
+                torch.float32, DT_SEED + 12)),
+            ("prefill", lambda: prefill_reference(dev, DT_SEED + 13)),
+            ("gnn", lambda: {s: gnn_train_reference(dev, s, DT_SEED + 14 + i)
+                             for i, s in enumerate(DT_GNN_MESH)})):
+        t = time.perf_counter()
+        refs[key] = fn()
+        t_ref[key] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the references go to the ranks through files: several GB of
+        # gradients, more than a shared-memory segment may hold
+        paths = {}
+        for key, ref in refs.items():
+            paths[key] = str(Path(tmp) / f"ref_{key}.pt")
+            torch.save(ref, paths[key])
+        t = time.perf_counter()
+        ranks = spawn(dist_train_rank, DIST_RANKS, backend=DIST_BACKEND,
+                      init_file=Path(tmp) / "init", device=dev.type,
+                      args=(dev.type, bw, f32_rate, paths))
+        ranks_s = time.perf_counter() - t
+    rm2 = [r["rm2"] for r in ranks]
+    res = {"phase": "dist_train", "ranks": DIST_RANKS,
+           "backend": DIST_BACKEND, "one_card": True, "ranks_s": ranks_s,
+           "reference_s": t_ref,
+           "rm2": {"config": "dlrm-rm2 FULL train_batch (batch 65536), bf16 "
+                             "table 130,000,384 x 64 over (data 1, model 2), "
+                             f"{DT_STEPS} checked steps",
+                   "per_rank": rm2,
+                   "window_launches": sum(r["window_launches"] for r in rm2),
+                   "grad_window_launches": sum(r["grad_window_launches"]
+                                               for r in rm2)}}
+    emit(dt_line("rm2_train", **res["rm2"]))
+    for key, config in (
+            ("llama_f32", f"llama3.2-3b FULL width, {DT_LM_LAYERS} layers, "
+                          f"train_4k B {DT_LM_BATCH} S 4096, f32, (1, 2)"),
+            ("llama_bf16", f"the same in bf16"),
+            ("olmoe_f32", f"olmoe-1b-7b FULL width, {DT_MOE_LAYERS} layers, "
+                          f"train_4k B {DT_MOE_BATCH} S 4096, f32, (1, 2)")):
+        ref = refs[key]
+        res[key] = {"config": config, "loss_one_device": float(ref["loss"]),
+                    "one_device_grad_ms": ref["grad_ms"],
+                    "one_device_step_ms": ref["step_ms"],
+                    "one_device_peak_gb": ref["peak_gb"],
+                    "params_gb": ref["params_gb"],
+                    "per_rank": [r[key] for r in ranks]}
+        emit(dt_line(key, **res[key]))
+    res["prefill"] = {"config": f"llama3.2-3b FULL, prefill_32k, "
+                                f"{DT_PREFILL_LAYERS} layers, batch 1, (1, 2)"
+                                f"; checked in bf16 and in an f32 copy",
+                      "one_device_step_ms": refs["prefill"]["bf16"]["step_ms"],
+                      "one_device_f32_step_ms": refs["prefill"]["f32"][
+                          "step_ms"],
+                      "per_rank": [r["prefill"] for r in ranks]}
+    emit(dt_line("prefill", **res["prefill"]))
+    res["gnn"] = {s: {"one_device_grad_ms": refs["gnn"][s]["grad_ms"],
+                      "per_rank": [r["gnn"][s] for r in ranks]}
+                  for s in DT_GNN_MESH}
+    emit(dt_line("gnn", **res["gnn"]))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the cluster day (K4)
 # ---------------------------------------------------------------------------
 
@@ -4174,7 +5193,8 @@ def phase_cluster(dev, bw: float, probes) -> dict:
 
 def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                    lm: dict, lm_configs: dict, recsys: dict, train: dict,
-                   trainer: dict, dist: dict, cluster: dict) -> list[dict]:
+                   trainer: dict, dist: dict, dist_train: dict,
+                   cluster: dict) -> list[dict]:
     """The summary of every kernel: where it replaces a TPU kernel, its
     launches on the paths driven here, its error and its times."""
     import torch
@@ -4188,6 +5208,7 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     fb = cluster["a_fleet_bench"]
     w = dist["rm2"]["per_rank"]
     lg = dist["long_500k"]["per_rank"]
+    dt = dist_train["rm2"]["per_rank"]
     day = cluster["a_day_shape"]
     decode_src = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
     k1_keys = ("ms", "ms_cold_l2", "ms_cold_clean", "ms_stream", "plain_ms",
@@ -4366,6 +5387,34 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
         "tolerance": F32_TOL,
         "ranks": DIST_RANKS, "backend": DIST_BACKEND, "one_card": True,
     }, {
+        "name": "embedding_bag_grad.row_window",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                  "embedding_bag_grad.cu",
+        "replaces": "the autodiff of src/repro/models/embedding.py:138 "
+                    "embedding_bag_local under the row-sharded binding of "
+                    "src/repro/dist/sharded_embedding.py:47 (the Pallas "
+                    "kernel src/repro/kernels/embedding_bag/embedding_bag.py"
+                    ":43 has no backward)",
+        "launches": dist_train["rm2"]["grad_window_launches"],
+        "launches_note": f"the sharded rm2 train cell, both ranks, "
+                         f"{DT_STEPS} steps counted from 0: one launch a "
+                         f"step a rank (its rows of the table gradient)",
+        "max_abs_err": max(c["max_abs_err"] for r in dt
+                           for c in r["grad_checks_per_call"]),
+        **{k: dt[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")},
+        "per_rank_ms": [r["ms"] for r in dt],
+        "library_of": "torch.autograd.grad through F.embedding_bag(mode="
+                      "'sum') on a table of the window's rows, ids outside "
+                      "it dropped",
+        "shape": f"cotangent [{dt[0]['batch'][0]}, {dt[0]['batch'][1]}, 64] "
+                 f"bf16, ids {dt[0]['batch']} int32 -> rows "
+                 f"{dt[0]['rows']} ({dt[0]['rows'][1] - dt[0]['rows'][0]} "
+                 f"x 64 bf16)",
+        "tolerance": dt[0]["grad_tolerance"],
+        "ranks": DIST_RANKS, "backend": DIST_BACKEND, "one_card": True,
+    }, {
         "name": "flash_decode_int8.partials",
         "route": "cuda",
         "source": decode_src,
@@ -4505,12 +5554,20 @@ def main() -> int:
     emit({k: dist[k] for k in ("phase", "ranks", "backend", "one_card",
                                "ranks_s", "nccl_s", "seconds")})
 
-    # 12. the cluster day (K4's count is reset inside, just before each day)
+    # 12. the train and prefill cells on a mesh (each rank's counts are
+    # reset inside, just before its main path)
+    dist_train = phase_dist_train(dev, bw, f32_rate)
+    emit({k: dist_train[k] for k in ("phase", "ranks", "backend",
+                                     "one_card", "ranks_s", "reference_s",
+                                     "seconds")})
+
+    # 13. the cluster day (K4's count is reset inside, just before each day)
     cluster = phase_cluster(dev, bw, probes)
     emit(cluster)
 
     emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, lm_configs,
-                                    recsys, train, trainer, dist, cluster),
+                                    recsys, train, trainer, dist, dist_train,
+                                    cluster),
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

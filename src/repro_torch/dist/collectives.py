@@ -1,8 +1,9 @@
 """The collectives of the distributed layer, in one place.
 
 Every dataflow of ``repro_torch.dist`` moves data between ranks only
-through these two wrappers, so their ``calls`` are the port's record of
-collective traffic.  They use whatever backend the caller initialised the
+through these wrappers, so their ``calls`` are the port's record of
+collective traffic (the collectives a remat'ed block runs again in the
+backward included).  They use whatever backend the caller initialised the
 process group with; nothing here picks gloo or NCCL, and nothing copies a
 tensor to the host: gloo in torch 2.11 takes CUDA tensors for both
 (checked on an H100), so no collective is staged through host memory.
@@ -16,7 +17,19 @@ derivative of the sum of every rank's loss, which a replicated loss would
 count once a rank).  ``enter`` is the other half: a replicated tensor that
 each rank uses for its own partial work, whose gradient is the sum of the
 ranks' cotangents (Megatron's copy-to-region).  MAX reductions and
-``all_gather`` carry no gradient yet: they raise under autograd.
+``all_gather`` carry no gradient: they raise under autograd (the routing
+ids a MoE layer gathers need none).
+
+Training over data-parallel ranks adds two pieces, which stand in for
+what the reference's GSPMD inserts implicitly.  ``block_mean`` makes a
+loss the mean over the batch's blocks: each rank's own block mean divided
+by the blocks, summed by ``all_reduce``; so every rank holds the global
+loss, and its backward differentiates its own block's share only.
+``reduce_grads`` then sums each gradient leaf over the data axes that its
+spec does not shard, which gives every rank the gradient of the global
+loss.  Nothing else is reduced: a leaf replicated over "model" already
+holds the whole gradient on each rank, since every partial consumer of a
+replicated tensor entered through ``enter``.
 """
 from __future__ import annotations
 
@@ -87,6 +100,38 @@ def enter(x: torch.Tensor, group) -> torch.Tensor:
     if _wants_grad(x):
         return _Enter.apply(x, group)
     return x
+
+
+def block_mean(x: torch.Tensor, axes) -> torch.Tensor:
+    """The mean over the ranks of the mesh ``axes`` (of the bound mesh) of
+    each rank's ``x``, a mean over its equal block of the batch: the
+    global mean, the same on every rank, whose gradient on each rank is
+    that of its own term (``all_reduce``'s identity backward).  ``x``
+    itself where ``axes`` hold one rank."""
+    from repro_torch.dist import logical
+
+    n = logical.shards(axes, logical.current_mesh()) if axes else 1
+    if n == 1:
+        return x
+    return all_reduce((x / n).reshape(1), logical.group(axes))[0]
+
+
+def reduce_grads(grads: list, specs: list, mesh, axes) -> list:
+    """Sum, over the mesh ``axes`` (the data axes), each gradient leaf
+    whose spec does not shard over them; ``specs`` holds a ``Spec`` a
+    leaf.  A leaf sharded over some of ``axes`` is summed over the others.
+    Returns the summed leaves (each reduced in place, or in a contiguous
+    copy)."""
+    from repro_torch.dist.logical import as_axes, shards
+
+    out = []
+    for g, spec in zip(grads, specs):
+        held = {a for b in spec for a in as_axes(b)}
+        rest = tuple(a for a in as_axes(axes) if a not in held)
+        if rest and shards(rest, mesh) > 1:
+            g = all_reduce(g.contiguous(), mesh.group(rest))
+        out.append(g)
+    return out
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:

@@ -13,7 +13,8 @@ so each sharded function is an explicit dataflow over the process groups
 local shape its binding implies; it moves nothing.
 
 The binding is per thread, like the reference's (entered around a step,
-not stored in the model).
+not stored in the model); ``rebind`` carries it onto the thread that runs
+the backward.
 """
 from __future__ import annotations
 
@@ -38,6 +39,26 @@ def axis_rules(mesh, rules: dict):
     Nesting is allowed; the innermost binding wins."""
     prev = _context()
     _STATE.ctx = (mesh, dict(rules))
+    try:
+        yield
+    finally:
+        _STATE.ctx = prev
+
+
+def current_binding():
+    """The innermost (mesh, rules) binding, or None: what ``rebind``
+    enters again elsewhere."""
+    return _context()
+
+
+@contextlib.contextmanager
+def rebind(binding):
+    """Enter ``binding`` (a ``current_binding()``; None binds nothing) for
+    the enclosed calls: how a function that runs on another thread, as the
+    recompute of a checkpointed block does in the backward of a CUDA
+    graph, keeps the binding it was called under."""
+    prev = _context()
+    _STATE.ctx = binding
     try:
         yield
     finally:

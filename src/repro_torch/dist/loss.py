@@ -11,8 +11,9 @@ is this rank's slice [v0, v1) of the vocabulary, and the reference's
 GSPMD-inserted psums become the Megatron vocab-parallel loss written out:
 the local max and an ``all_reduce`` MAX, the local sum of ``exp(x - m)``
 and an ``all_reduce`` SUM, the gold logit gathered where the target falls
-in [v0, v1) (0 elsewhere) and an ``all_reduce`` SUM; with "batch" bound too,
-the token mean sums over the batch group.  Everything is float32, and no
+in [v0, v1) (0 elsewhere) and an ``all_reduce`` SUM.  With "batch" bound
+(either way) the token mean is over every data rank's tokens: the local
+sum over the global count, summed over the batch group.  Everything is float32, and no
 [.., V] tensor is ever gathered.
 """
 from __future__ import annotations
@@ -34,7 +35,8 @@ def ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         m = x.amax(dim=-1, keepdim=True).detach()
         logz = m.squeeze(-1) + torch.log(torch.exp(x - m).sum(dim=-1))
         gold = x.gather(-1, targets.long()[..., None]).squeeze(-1)
-        return (logz - gold).mean()
+        batch_axes = logical.bound_axes("batch") if x.dim() >= 2 else ()
+        return collectives.block_mean((logz - gold).mean(), batch_axes)
     mesh = logical.current_mesh()
     group = logical.group(vocab_axes)
     v_local = x.shape[-1]

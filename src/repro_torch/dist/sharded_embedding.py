@@ -10,6 +10,14 @@ owns (a masked local gather, zero elsewhere), and one ``all_reduce`` over
 the "model" group sums the partial results.  No rank ever holds the whole
 table, and nothing [.., table]-sized crosses a link.
 
+Both carry gradients into the shard.  The ``all_reduce`` passes its
+gradient through (``repro_torch.dist.collectives``), since every rank of
+the "model" group consumes the sum alike; so each rank's backward is the
+gradient of its own rows only: K1's backward through the same row window
+for the pooled features, and the masked gather's for single rows (the QR
+features, DIN's and MIND's item rows, an LM's vocab-sharded token
+embedding).
+
 Each function is its single-device counterpart where no "model" axis is
 bound (``repro_torch.models.embedding`` routes on the binding).
 """
@@ -66,16 +74,14 @@ def embedding_bag_sharded(params, ids: torch.Tensor, cfg) -> torch.Tensor:
     (a bf16 partial summed in bf16 would round twice).  QR features gather
     their quotient and remainder rows with ``sharded_row_gather`` (one more
     ``all_reduce``) and pool as ``embedding_bag_local`` does; ``mean``
-    divides last.  No gradient through the shard yet: a table that
-    requires grad raises."""
+    divides last.  A table that requires grad gets the gradient of its
+    rows [lo, hi): K1's window backward on the partial's cotangent, cast to
+    the table's dtype first (exact: it holds values of that dtype, the
+    cast after the sum having rounded to it)."""
     from repro_torch.kernels.embedding_bag import embedding_bag_features
     from repro_torch.models.embedding import _gather_qr_feature, routed_offsets
 
     table = params["table"]
-    if table.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "embedding_bag_sharded: no gradient through a row-sharded table "
-            "yet; it comes with the sharded train cells")
     if ids.shape[1] != cfg.num_features:
         raise ValueError(f"expected {cfg.num_features} features, got "
                          f"{ids.shape[1]}")
@@ -86,6 +92,8 @@ def embedding_bag_sharded(params, ids: torch.Tensor, cfg) -> torch.Tensor:
                                      row_window=window,
                                      out_dtype=torch.float32)
     pooled = collectives.all_reduce(partial, _model_group()).to(table.dtype)
+    if cfg.qr_features and pooled.requires_grad:
+        pooled = pooled.clone()  # autograd forbids writing the sum in place
     if cfg.qr_features or cfg.combine == "mean":
         valid = ids >= 0
     for f in cfg.qr_features:

@@ -14,6 +14,17 @@
 //   reads row r twice in one bag counts twice; padding (id < 0), an
 //   unrouted feature (offset < 0) and an id at or past the table read no
 //   row.
+// Row window: with a first row lo > 0, out is the gradient of rows
+//   [lo, lo + H) of the combined table only, the rows one rank of a
+//   row-sharded table holds (repro_torch.dist.sharded_embedding): a pair
+//   whose row ids[i] + offsets[f] lies outside the window is dropped in
+//   stage 1, and one inside adds into local row ids[i] + offsets[f] - lo.
+//   The sort, the sums and the zero sweep then see only the window's pairs
+//   and rows, in the same order as the whole table's launch sees them, so
+//   the window's rows are bitwise rows [lo, lo + H) of that launch.  The
+//   window is a template flag of stage 1's kernels (the subtraction and
+//   the compare exist only in the windowed instances); lo = 0 needs
+//   neither, since an id at or past H already reads no row.
 //
 // What bounds it: bytes.  The function reads the pooled gradient and the
 // ids once and writes the dense gradient once: at the dlrm-rm2 train
@@ -190,10 +201,13 @@ struct PairsArgs {
   int64_t n;               // slots, < 2^31
   int32_t P;
   int32_t F;
-  int32_t H;
+  int32_t H;   // the rows of the output (the window's with kWindow)
+  int64_t lo;  // the window's first row in the combined table (kWindow)
 };
 
-// The row slot i (holding `id`) reads, if any.
+// The row slot i (holding `id`) reads, if any (a local row of the window
+// with kWindow).
+template <bool kWindow>
 __device__ __forceinline__ bool slot_row(const PairsArgs& a, int64_t i,
                                          int32_t id, int32_t& row) {
   if (i >= a.n || id < 0) return false;
@@ -205,6 +219,10 @@ __device__ __forceinline__ bool slot_row(const PairsArgs& a, int64_t i,
     if (off < 0) return false;
     r += off;
   }
+  if constexpr (kWindow) {
+    r -= a.lo;
+    if (r < 0) return false;
+  }
   if (r >= a.H) return false;
   row = static_cast<int32_t>(r);
   return true;
@@ -213,6 +231,7 @@ __device__ __forceinline__ bool slot_row(const PairsArgs& a, int64_t i,
 // A warp's kWarpSpan slots of the tile from `base`, slot lane of round k:
 // the rows they read (rows[k]) and which of them read one (bit k of
 // `valid`).
+template <bool kWindow>
 __device__ __forceinline__ void warp_slots(const PairsArgs& a, int64_t base,
                                            int lane, int32_t (&rows)[kItems],
                                            unsigned& valid) {
@@ -225,10 +244,12 @@ __device__ __forceinline__ void warp_slots(const PairsArgs& a, int64_t base,
   valid = 0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k)
-    if (slot_row(a, base + 32 * k + lane, id[k], rows[k])) valid |= 1u << k;
+    if (slot_row<kWindow>(a, base + 32 * k + lane, id[k], rows[k]))
+      valid |= 1u << k;
 }
 
 // The valid pairs of each tile of kTile slots -> tile_count[tile].
+template <bool kWindow>
 __global__ void __launch_bounds__(kThreads)
     k1g_pairs_count(PairsArgs a, int32_t* __restrict__ tile_count) {
   __shared__ int warp_count[kWarps];
@@ -236,8 +257,9 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5;
   int32_t rows[kItems];
   unsigned valid;
-  warp_slots(a, static_cast<int64_t>(blockIdx.x) * kTile + warp * kWarpSpan,
-             lane, rows, valid);
+  warp_slots<kWindow>(
+      a, static_cast<int64_t>(blockIdx.x) * kTile + warp * kWarpSpan, lane,
+      rows, valid);
   const int count = __reduce_add_sync(kFull, __popc(valid));
   if (lane == 0) warp_count[warp] = count;
   __syncthreads();
@@ -267,6 +289,7 @@ __global__ void __launch_bounds__(kScanThreads)
 
 // The valid pairs of each tile written in flat-index order from
 // tile_start[tile]: pairs[j] = (row, flat slot index).
+template <bool kWindow>
 __global__ void __launch_bounds__(kThreads)
     k1g_pairs_emit(PairsArgs a, const int32_t* __restrict__ tile_start,
                    int2* __restrict__ pairs) {
@@ -277,7 +300,7 @@ __global__ void __launch_bounds__(kThreads)
                        warp * kWarpSpan;
   int32_t rows[kItems];
   unsigned valid;
-  warp_slots(a, base, lane, rows, valid);
+  warp_slots<kWindow>(a, base, lane, rows, valid);
   const int count = __reduce_add_sync(kFull, __popc(valid));
   if (lane == 0) warp_count[warp] = count;
   __syncthreads();
@@ -1100,14 +1123,17 @@ int repro_embedding_bag_grad_layout(int64_t n, int64_t H, int64_t D,
 // slot, an output of zeros), 0 < H < 2^31, D > 0; contiguous, on
 // `device`.  Runs the stages set in `stages` (1 pairs, 2 sort, 4 sums, 8
 // write; 15 all), each from what the earlier ones left in the scratch.
+// lo >= 0: out holds rows [lo, lo + H) of the combined table (the row
+// window; 0 the table's first H rows).
 int repro_embedding_bag_grad(const void* ids, const void* offsets, int64_t n,
                              int64_t P, int64_t F, const void* grad,
-                             void* out, int64_t H, int64_t D, int64_t dtype,
+                             void* out, int64_t H, int64_t lo, int64_t D,
+                             int64_t dtype,
                              void* scratch, int64_t stages, int64_t device,
                              void* stream) {
   if (n < 0 || n >= (int64_t{1} << 31) || P < 0 || (P == 0 && n > 0) ||
       F <= 0 || (P > 0 && n % P != 0) ||
-      H <= 0 || H >= (int64_t{1} << 31) || D <= 0 ||
+      H <= 0 || H >= (int64_t{1} << 31) || lo < 0 || D <= 0 ||
       D >= (int64_t{1} << 31) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(static_cast<int>(device));
@@ -1127,13 +1153,19 @@ int repro_embedding_bag_grad(const void* ids, const void* offsets, int64_t n,
       const PairsArgs a{static_cast<const int32_t*>(ids),
                         static_cast<const int64_t*>(offsets), n,
                         static_cast<int32_t>(P), static_cast<int32_t>(F),
-                        static_cast<int32_t>(H)};
+                        static_cast<int32_t>(H), lo};
       int32_t* tile = reinterpret_cast<int32_t*>(s + p.o_tile);
+      int2* pairs = reinterpret_cast<int2*>(s + p.o_pairs[0]);
       const unsigned grid = static_cast<unsigned>(p.tiles);
-      k1g_pairs_count<<<grid, kThreads, 0, st>>>(a, tile);
+      if (lo > 0)
+        k1g_pairs_count<true><<<grid, kThreads, 0, st>>>(a, tile);
+      else
+        k1g_pairs_count<false><<<grid, kThreads, 0, st>>>(a, tile);
       k1g_scan_tiles<<<1, kScanThreads, 0, st>>>(tile, p.tiles, m);
-      k1g_pairs_emit<<<grid, kThreads, 0, st>>>(
-          a, tile, reinterpret_cast<int2*>(s + p.o_pairs[0]));
+      if (lo > 0)
+        k1g_pairs_emit<true><<<grid, kThreads, 0, st>>>(a, tile, pairs);
+      else
+        k1g_pairs_emit<false><<<grid, kThreads, 0, st>>>(a, tile, pairs);
       e = cudaGetLastError();
     }
     if (e != cudaSuccess) return static_cast<int>(e);

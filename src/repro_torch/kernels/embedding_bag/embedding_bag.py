@@ -76,7 +76,7 @@ def _grad_kernel():
         fn = lib.repro_embedding_bag_grad
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [
             ctypes.c_int64] * 3 + [ctypes.c_void_p, ctypes.c_void_p] + [
-            ctypes.c_int64] * 3 + [ctypes.c_void_p] + [ctypes.c_int64] * 2 + [
+            ctypes.c_int64] * 4 + [ctypes.c_void_p] + [ctypes.c_int64] * 2 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         layout = lib.repro_embedding_bag_grad_layout
@@ -95,7 +95,10 @@ class GradLaunch:
     P] int32 whose leading dims are the bags (the last one the feature
     when ``row_offsets`` [F] int64 is given), all contiguous on one CUDA
     device, with fewer than 2**31 slots; the output [n_rows, D] and the
-    scratch, allocated once with ``torch.empty``.
+    scratch, allocated once with ``torch.empty``.  ``row_lo`` > 0 makes the
+    output the row window [row_lo, row_lo + n_rows) of the combined table:
+    pairs reading rows outside it are dropped in PAIRS, and the rows are
+    local (a pair's row less ``row_lo``).
 
     ``run(stages)`` launches the kernels of the stages set in ``stages``
     (PAIRS: the valid pairs from the ids; SORT: the radix sort by row; SUM:
@@ -107,11 +110,12 @@ class GradLaunch:
     ALL = 15
 
     def __init__(self, grad: torch.Tensor, ids: torch.Tensor,
-                 row_offsets: torch.Tensor | None, n_rows: int):
+                 row_offsets: torch.Tensor | None, n_rows: int,
+                 row_lo: int = 0):
         fn, layout_fn, self._err_str = _grad_kernel()
         self._fn = fn
         self.grad, self.ids, self.row_offsets = grad, ids, row_offsets
-        self.n_rows, self.D = n_rows, grad.shape[1]
+        self.n_rows, self.row_lo, self.D = n_rows, row_lo, grad.shape[1]
         self.P = ids.shape[-1]
         self.F = 1 if row_offsets is None else row_offsets.shape[0]
         layout = (ctypes.c_int64 * 4)()
@@ -134,7 +138,7 @@ class GradLaunch:
             self.ids.data_ptr(),
             None if self.row_offsets is None else self.row_offsets.data_ptr(),
             self.ids.numel(), self.P, self.F, self.grad.data_ptr(),
-            self.out.data_ptr(), self.n_rows, self.D,
+            self.out.data_ptr(), self.n_rows, self.row_lo, self.D,
             _DTYPE_CODE[self.grad.dtype], self.scratch.data_ptr(), stages,
             dev.index, torch.cuda.current_stream(dev).cuda_stream))
         return self.out
@@ -162,8 +166,9 @@ class GradLaunch:
 
 def embedding_bag_grad_cuda(grad: torch.Tensor, ids: torch.Tensor,
                             row_offsets: torch.Tensor | None,
-                            n_rows: int) -> torch.Tensor:
+                            n_rows: int, row_lo: int = 0) -> torch.Tensor:
     """The dense table gradient [n_rows, D] (grad's dtype) from the pooled
     gradient ``grad`` [n_bags, D] and the ids the bags read (see
-    ``GradLaunch``): every stage of the kernel, every row written by it."""
-    return GradLaunch(grad, ids, row_offsets, n_rows).run()
+    ``GradLaunch``), of rows [row_lo, row_lo + n_rows) of the combined
+    table: every stage of the kernel, every row written by it."""
+    return GradLaunch(grad, ids, row_offsets, n_rows, row_lo).run()

@@ -30,8 +30,10 @@ Both entries carry autograd when the table requires grad (outside
 table's dtype, as ``jax.grad`` of the reference's ``embedding_bag_local``
 does.  It takes the int32 ids and the offsets as they are: its kernels
 emit the valid pairs, sort them by row with a radix sort of their own and
-write every row of the output once (no sort or fill by torch).  Without
-grad the forward is called as it is.
+write every row of the output once (no sort or fill by torch).  Through a
+row window the backward is the gradient of the shard's rows only, [hi - lo,
+D]: the gradient kernel's windowed instance drops every pair outside the
+window in its first stage.  Without grad the forward is called as it is.
 
 Which version runs is decided by where the caller put the tensors, never
 by what is installed: a CUDA tensor launches the kernel or raises.
@@ -57,10 +59,12 @@ from repro_torch.kernels.embedding_bag.ref import (
 
 # Kernel launches since the last reset (set it to 0 to start a count): the
 # forward kernel's, the forward kernel's through a row window, and the
-# gradient kernel's (one a backward call).
+# gradient kernel's (one a backward call; those through a row window are
+# also counted in grad_window_launches).
 launches = 0
 window_launches = 0
 grad_launches = 0
+grad_window_launches = 0
 
 _MAX_ROWS = 2**31  # ids are int32
 
@@ -164,41 +168,46 @@ def embedding_bag_features(table: torch.Tensor, ids: torch.Tensor,
     _check_offsets(ids, row_offsets)
     if table.device.type == "cuda" and not row_offsets.is_contiguous():
         raise ValueError("kernel takes contiguous row_offsets")
-    if row_window is not None or out_dtype is not None:
-        return _features_window(table, ids, row_offsets, row_window,
-                                out_dtype)
+    window = _window_args(table, row_window, out_dtype)
     if _wants_grad(table):
-        return _FeaturesBag.apply(table, ids, row_offsets)
-    return _features_forward(table, ids, row_offsets)
+        return _FeaturesBag.apply(table, ids, row_offsets, window)
+    return _bag_forward(table, ids, row_offsets, window)
 
 
-def _features_window(table, ids, row_offsets, row_window, out_dtype
-                     ) -> torch.Tensor:
-    """``embedding_bag_features`` through a row window or into
-    ``out_dtype``: forward only (no gradient through a window yet)."""
-    global launches, window_launches
-    if _wants_grad(table):
-        raise NotImplementedError(
-            "embedding_bag_features: no gradient through a row window or an "
-            "out_dtype yet; it comes with the sharded train cells")
+def _window_args(table, row_window, out_dtype):
+    """``(row_window, out_dtype)`` checked, or None where neither is asked
+    for (the unwindowed launch in the table's dtype)."""
+    if row_window is None and out_dtype is None:
+        return None
     if row_window is not None:
         lo, hi = (int(x) for x in row_window)
         if not 0 <= lo <= hi or hi - lo != table.shape[0]:
             raise ValueError(f"row_window ({lo}, {hi}) does not hold the "
                              f"table's {table.shape[0]} rows")
+        row_window = (lo, hi)
     out_dtype = table.dtype if out_dtype is None else out_dtype
     if out_dtype not in (table.dtype, torch.float32):
         raise TypeError(f"out_dtype must be the table's {table.dtype} or "
                         f"float32, got {out_dtype}")
-    window = NO_WINDOW if row_window is None else (lo, hi)
+    return row_window, out_dtype
+
+
+def _bag_forward(table, ids, row_offsets, window) -> torch.Tensor:
+    global launches, window_launches
+    if window is None:
+        if table.device.type == "cpu":
+            return embedding_bag_features_ref(table, ids, row_offsets)
+        return _launch(table, ids, row_offsets)
+    row_window, out_dtype = window
+    bounds = NO_WINDOW if row_window is None else row_window
     if table.device.type == "cpu":
-        return embedding_bag_window_ref(table, ids, row_offsets, window,
+        return embedding_bag_window_ref(table, ids, row_offsets, bounds,
                                         out_dtype)
     B, F, _ = ids.shape
     if ids.numel() == 0 or table.shape[1] == 0 or table.shape[0] == 0:
         return torch.zeros((B, F, table.shape[1]), dtype=out_dtype,
                            device=table.device)
-    out = embedding_bag_cuda(table, ids, row_offsets, row_window=window,
+    out = embedding_bag_cuda(table, ids, row_offsets, row_window=bounds,
                              out_dtype=out_dtype)
     if row_window is None:
         launches += 1
@@ -207,25 +216,25 @@ def _features_window(table, ids, row_offsets, row_window, out_dtype
     return out
 
 
-def _features_forward(table, ids, row_offsets) -> torch.Tensor:
-    if table.device.type == "cpu":
-        return embedding_bag_features_ref(table, ids, row_offsets)
-    return _launch(table, ids, row_offsets)
-
-
 class _FeaturesBag(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, ids, row_offsets):
+    def forward(ctx, table, ids, row_offsets, window):
         ctx.save_for_backward(ids, row_offsets)
-        ctx.n_rows = table.shape[0]
-        return _features_forward(table, ids, row_offsets)
+        ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
+        ctx.row_window = None if window is None else window[0]
+        return _bag_forward(table, ids, row_offsets, window)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
         ids, row_offsets = ctx.saved_tensors
-        return (embedding_bag_features_grad(grad, ids, row_offsets,
-                                            ctx.n_rows), None, None)
+        # a float32 partial's cotangent holds values of the table's dtype
+        # when the caller rounded the summed partials to it (the sharded
+        # embedding): the cast is exact, and the backward writes the
+        # gradient in the table's dtype
+        return (embedding_bag_features_grad(
+            grad.to(ctx.dtype), ids, row_offsets, ctx.n_rows,
+            row_window=ctx.row_window), None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +253,9 @@ def _check_grad(grad: torch.Tensor, ids: torch.Tensor, n_rows: int) -> None:
         if grad.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"kernel takes float32 or bfloat16 gradients, "
                             f"got {grad.dtype}")
-        if not 0 < n_rows < _MAX_ROWS:
+        if not 0 <= n_rows < _MAX_ROWS:
             raise ValueError(f"the gradient kernel's int32 rows address "
-                             f"1 to 2**31 - 1 rows, got {n_rows}")
+                             f"0 to 2**31 - 1 rows, got {n_rows}")
         _check_kernel_slots(ids)
 
 
@@ -259,18 +268,20 @@ def _check_kernel_slots(ids: torch.Tensor) -> None:
 
 
 def _launch_grad(grad: torch.Tensor, ids: torch.Tensor,
-                 row_offsets: torch.Tensor | None, n_rows: int
-                 ) -> torch.Tensor:
+                 row_offsets: torch.Tensor | None, n_rows: int,
+                 row_lo: int = 0) -> torch.Tensor:
     """grad [n_bags, D]; ids [..., P] int32 whose leading dims are the bags
-    (the last one the feature, with row_offsets [F] int64)."""
+    (the last one the feature, with row_offsets [F] int64); rows [row_lo,
+    row_lo + n_rows) of the combined table."""
     global grad_launches
     D = grad.shape[-1]
-    if D == 0:
-        return torch.empty((n_rows, 0), dtype=grad.dtype, device=grad.device)
+    if D == 0 or n_rows == 0:
+        return torch.zeros((n_rows, D), dtype=grad.dtype, device=grad.device)
     grad = grad.contiguous()
     if grad.data_ptr() % 16:  # the kernel's 16-byte row loads
         grad = grad.clone()
-    out = embedding_bag_grad_cuda(grad, ids.contiguous(), row_offsets, n_rows)
+    out = embedding_bag_grad_cuda(grad, ids.contiguous(), row_offsets, n_rows,
+                                  row_lo)
     grad_launches += 1
     return out
 
@@ -292,21 +303,36 @@ def hot_embedding_bag_grad(grad: torch.Tensor, ids: torch.Tensor,
 
 
 def embedding_bag_features_grad(grad: torch.Tensor, ids: torch.Tensor,
-                                row_offsets: torch.Tensor, n_rows: int
+                                row_offsets: torch.Tensor, n_rows: int, *,
+                                row_window: tuple[int, int] | None = None
                                 ) -> torch.Tensor:
     """The table gradient of ``embedding_bag_features``: grad [B, F, D],
     ids [B, F, P] int32, row_offsets [F] int64 -> [n_rows, D] in grad's
     dtype.  Feature f's pairs add into rows ``ids + row_offsets[f]``; an
-    unrouted feature (negative offset) and padding add nothing.  One call
-    of the gradient kernel; on the card ids of 2**31 slots or more are
-    refused."""
+    unrouted feature (negative offset) and padding add nothing.  With
+    ``row_window=(lo, hi)`` (n_rows = hi - lo) the gradient of rows [lo, hi)
+    of the combined table: a pair adds into local row ids + row_offsets[f]
+    - lo where that row lies in the window, nowhere else.  One call of the
+    gradient kernel; on the card ids of 2**31 slots or more are refused."""
     if grad.dim() != 3 or ids.dim() != 3 or grad.shape[:2] != ids.shape[:2]:
         raise ValueError(f"expected grad [B, F, D] and ids [B, F, P], got "
                          f"{tuple(grad.shape)} and {tuple(ids.shape)}")
+    lo = 0
+    if row_window is not None:
+        lo, hi = (int(x) for x in row_window)
+        if not 0 <= lo <= hi or hi - lo != n_rows:
+            raise ValueError(f"row_window ({lo}, {hi}) does not hold "
+                             f"{n_rows} rows")
     _check_offsets(ids, row_offsets)
     _check_grad(grad, ids, n_rows)
     if grad.device.type == "cpu":
-        return embedding_bag_features_grad_ref(grad, ids, row_offsets, n_rows)
+        return embedding_bag_features_grad_ref(grad, ids, row_offsets, n_rows,
+                                               row_window)
+    global grad_window_launches
     B, F, _ = ids.shape
-    return _launch_grad(grad.reshape(B * F, grad.shape[2]), ids,
-                        row_offsets.contiguous(), n_rows)
+    before = grad_launches
+    out = _launch_grad(grad.reshape(B * F, grad.shape[2]), ids,
+                       row_offsets.contiguous(), n_rows, lo)
+    if row_window is not None:
+        grad_window_launches += grad_launches - before
+    return out

@@ -89,16 +89,27 @@ def hot_embedding_bag_grad_ref(grad: torch.Tensor, ids: torch.Tensor,
 
 
 def embedding_bag_features_grad_ref(grad: torch.Tensor, ids: torch.Tensor,
-                                    row_offsets: torch.Tensor, n_rows: int
-                                    ) -> torch.Tensor:
+                                    row_offsets: torch.Tensor, n_rows: int,
+                                    row_window=None) -> torch.Tensor:
     """The table gradient of ``embedding_bag_features_ref``: grad [B, F, D],
     ids [B, F, P], row_offsets [F] int64 -> [n_rows, D] in grad's dtype
     (the shift, then ``hot_embedding_bag_grad_ref``; an unrouted feature
-    gives nothing)."""
+    gives nothing).  With ``row_window=(lo, hi)`` (n_rows = hi - lo) the
+    gradient of rows [lo, hi) of the combined table only, that of
+    ``embedding_bag_window_ref``: a pair adds into local row id +
+    row_offsets[f] - lo where that row lies in the window, and nowhere
+    else."""
     B, F, P = ids.shape
-    shifted = shift_feature_ids(ids, row_offsets).reshape(B * F, P)
+    shifted = shift_feature_ids(ids, row_offsets)
+    if row_window is not None:
+        lo, hi = row_window
+        if hi - lo != n_rows:
+            raise ValueError(f"row_window ({lo}, {hi}) does not hold "
+                             f"{n_rows} rows")
+        shifted = torch.where((shifted >= lo) & (shifted < hi),
+                              shifted - lo, -1)
     return hot_embedding_bag_grad_ref(grad.reshape(B * F, grad.shape[-1]),
-                                      shifted, n_rows)
+                                      shifted.reshape(B * F, P), n_rows)
 
 
 def grad_sorted_pairs_ref(ids: torch.Tensor, n_rows: int,

@@ -38,24 +38,50 @@ loss before the update, as the reference's step does.  ``value_and_grad``
 gives the loss and the gradient tree without the update.
 
 ``mesh`` (a ``repro_torch.launch.mesh.Mesh`` over the ranks that run the
-cell; ``device`` is then each rank's device) places a decode or a recsys
-serve cell on the distributed layer, as the reference's mesh cells:
+cell; ``device`` is then each rank's device) places every cell on the
+distributed layer, as the reference's mesh cells, with the rules of
+``logical_rules(kind, multi_pod)``:
 
+- an LM train or prefill cell runs tensor- and expert-parallel over
+  "model" (``repro_torch.models.transformer``, ``repro_torch.dist.moe``):
+  its state holds this rank's block of every parameter by
+  ``param_spec_tree`` (and, training, the optimizer state of those
+  blocks, which ``opt_spec_tree`` mirrors leaf for leaf), the tokens
+  shard over the data axes, and the loss is the vocab-parallel
+  ``ce_loss``.  Prefill returns this rank's vocabulary slice of the last
+  logits (``P(dp, "model")``) and a cache of its batch block and its
+  kv_heads (``P(None, dp, None, "model", None)``), whole along the
+  sequence;
 - a decode cell (``decode_32k``, ``long_500k``) binds ``kv_seq`` to
   ``kv_seq_axes(B)`` and, below batch 16, "batch" to None; its batch specs
   hold only this rank's cache slice (``kv_cache_spec``) and token block.
-  The LM's weights stay replicated in this slice: its tensor-parallel
-  names ("model", "heads", "kv_heads", "ffn", "vocab", "expert") are bound
-  to None, and column- and row-parallel execution of those placements
-  comes with the sharded train cells;
-- a recsys serve cell binds "model" (and "batch" over the data axes); its
-  state holds only this rank's rows of each embedding table
-  (``row_shard``), its batch specs this rank's batch block.
+  Its weights are whole on every rank: the tensor-parallel names
+  ("model", "heads", "kv_heads", "ffn", "vocab", "expert") are bound to
+  None;
+- a recsys cell binds "model" (and "batch" over the data axes); its state
+  holds only this rank's rows of each embedding table (``row_shard``), its
+  batch specs this rank's batch block; training, the tables' gradient is
+  K1's backward through the rank's row window;
+- a GNN cell keeps its parameters whole on every rank: ``full_graph_sm``
+  and ``ogb_products`` shard the edge list over every axis
+  (``dist.gnn.apply_full_sharded``; the node count padded to a multiple of
+  the ranks, as the reference pads it), ``molecule`` its graphs over the
+  data axes (``apply_batched_sharded``) and ``minibatch_lg`` its seeds
+  over the data axes (data-parallel).
+
+A train cell on a mesh takes the one-device step's loss: each rank's
+block loss is a mean over its block divided by the blocks and summed over
+the data axes (``collectives.block_mean``; the full graph's loss is whole
+on every rank), and ``value_and_grad`` sums each gradient leaf over the
+data axes its spec does not shard (``collectives.reduce_grads``) before
+the update, which every rank makes on its own blocks.  ``init_state``
+gives a rank its block of the state that one device draws from the same
+generator (the recsys tables by the chunked ``row_shard`` draw), so the
+one-device step is the mesh step's oracle.
 
 ``batch_spec_tree`` gives each batch leaf's ``Spec``; ``local_batch``
-cuts a whole batch to this rank's block, and ``run`` enters the cell's
-binding (``logical.axis_rules``).  Train, prefill and GNN cells take no
-mesh yet.
+cuts a whole batch to this rank's block, and ``run`` (and
+``value_and_grad``) enters the cell's binding (``logical.axis_rules``).
 """
 from __future__ import annotations
 
@@ -68,13 +94,15 @@ import torch
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.common.types import ArchKind, ShapeSpec, TensorSpec, resolve_device
 from repro_torch.configs.registry import get_arch
-from repro_torch.dist import logical
+from repro_torch.dist import collectives, logical
+from repro_torch.dist import gnn as dist_gnn
 from repro_torch.dist.sharding import (
     P,
     kv_cache_spec,
     kv_seq_axes,
     local_shard,
     logical_rules,
+    param_spec_tree,
 )
 from repro_torch.models import RECSYS_MODELS
 from repro_torch.models import gnn as gnn_lib
@@ -110,25 +138,57 @@ class CellProgram:
     mesh: Any = None          # the ranks' Mesh, or None on one device
     rules: dict | None = None             # the logical binding of a mesh
     batch_spec_tree: dict | None = None   # Spec of each batch leaf
+    grad_axes: tuple = ()  # mesh axes a train cell's gradients sum over
+
+    @property
+    def is_lm(self) -> bool:
+        return self.kind in (ArchKind.LM_DENSE, ArchKind.LM_MOE)
 
     def init_state(self, generator: torch.Generator):
         """Random parameters on the cell's device (``generator`` lives
         there): the LM's parameter tree, the recsys or GNN model, or for a
-        train cell ``{"model", "opt"}`` (an LM's ``{"params", "opt"}``)."""
+        train cell ``{"model", "opt"}`` (an LM's ``{"params", "opt"}``).
+        On a mesh, this rank's block of them (module docstring)."""
         if self.mesh is not None and self.kind == ArchKind.RECSYS:
             model_axis = self.rules["model"]
             row_shard = (logical.shard_index(self.mesh, model_axis),
                          logical.shards(model_axis, self.mesh))
-            return self.init_fn(self.cfg, generator=generator,
-                                device=self.device, row_shard=row_shard)
-        model = self.init_fn(self.cfg, generator=generator, device=self.device)
+            model = self.init_fn(self.cfg, generator=generator,
+                                 device=self.device, row_shard=row_shard)
+        else:
+            model = self.init_fn(self.cfg, generator=generator,
+                                 device=self.device)
+        if self.mesh is not None and self.is_lm:
+            model = self.local_params(model)
         if self.opt is None:
             return model
-        if self.kind in (ArchKind.LM_DENSE, ArchKind.LM_MOE):
+        return self.train_state(model)
+
+    def local_params(self, params):
+        """This rank's block of a whole LM parameter tree
+        (``param_spec_tree``'s placements; the tree itself without a mesh
+        or where "model" is unbound, as in a decode cell, whose weights
+        are whole on every rank)."""
+        if self.mesh is None or not self.rules.get("model"):
+            return params
+        return local_shard(params, param_spec_tree(self.kind, params),
+                           self.mesh)
+
+    def train_state(self, model):
+        """A train state of ``model`` (an LM's parameter tree, whose leaves
+        are then made to require grad, or a recsys or GNN model) with a
+        fresh optimizer state of its leaves."""
+        if self.is_lm:
             for t in tree_leaves(model):
                 t.requires_grad_(True)
             return {"params": model, "opt": self.opt.init(model)}
         return {"model": model, "opt": self.opt.init(model.tree())}
+
+    def binding(self):
+        """The cell's logical binding, entered (a no-op without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return logical.axis_rules(self.mesh, self.rules)
 
     @staticmethod
     def params(state):
@@ -138,12 +198,18 @@ class CellProgram:
 
     def value_and_grad(self, state, batch):
         """A train cell's loss on ``batch`` and the gradient of every
-        parameter, as the tree of ``params`` (no update)."""
+        parameter, as the tree of ``params`` (no update).  On a mesh: the
+        global loss and this rank's block of each gradient, summed over
+        ``grad_axes``."""
         params = self.params(state)
-        with torch.enable_grad():
+        with torch.enable_grad(), self.binding():
             loss = self.loss_fn(state.get("model", params), batch)
             grads = torch.autograd.grad(loss, tree_leaves(params),
                                         materialize_grads=True)
+        if self.mesh is not None and self.grad_axes:
+            grads = collectives.reduce_grads(
+                list(grads), tree_leaves(param_spec_tree(self.kind, params)),
+                self.mesh, self.grad_axes)
         return loss.detach(), tree_unflatten(params, grads)
 
     def train_step(self, state, batch):
@@ -163,19 +229,22 @@ class CellProgram:
     def run(self, state, batch):
         if self.opt is not None:
             return self.train_step(state, batch)
-        binding = contextlib.nullcontext() if self.mesh is None else \
-            logical.axis_rules(self.mesh, self.rules)
-        with torch.inference_mode(), binding:
+        with torch.inference_mode(), self.binding():
             return self.step_fn(state, batch)
 
 
-# the LM's tensor-parallel logical names, unbound while its weights stay
-# replicated (see the module docstring)
+# the LM's tensor-parallel logical names, unbound in a decode cell, whose
+# weights are whole on every rank (see the module docstring)
 _LM_TP_NAMES = ("model", "heads", "kv_heads", "ffn", "vocab", "expert")
 
 
 def _dp_axes(multi_pod: bool) -> tuple[str, ...]:
     return ("pod", "data") if multi_pod else ("data",)
+
+
+def _pad_to(n: int, mult: int) -> int:
+    return -(-n // mult) * mult
+
 
 
 def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
@@ -190,6 +259,13 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     step = opt = loss_fn = None
+    dp = _dp_axes(multi_pod)
+    # the cache prefill fills: this rank's batch block and kv_heads
+    cache_specs = tf_lib.kv_cache_specs(cfg, B, S)
+    cache_spec = P(None, dp, None, "model", None)
+    if mesh is not None and shape.step == "prefill":
+        cache_specs = local_shard(cache_specs, {k: cache_spec for k in
+                                                cache_specs}, mesh)
 
     if shape.step == "train":
         batch_specs = tf_lib.input_specs(cfg, B, S)
@@ -202,7 +278,7 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
         batch_specs = tf_lib.input_specs(cfg, B, S)
 
         def step(params, batch):
-            cache = tf_lib.init_kv_cache(cfg, B, S, device=device)
+            cache = tf_lib.cache_from_specs(cache_specs, device)
             last, new_cache = tf_lib.prefill(params, batch["tokens"], cache, cfg)
             return {"logits": last, "cache": new_cache}
 
@@ -219,25 +295,27 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
             return {"logits": logits, "cache": new_cache}
 
     rules = spec_tree = None
+    grad_axes = ()
     if mesh is not None:
-        if shape.step != "decode":
-            raise NotImplementedError(f"{shape.name}: only the decode cells "
-                                      "of an LM take a mesh yet")
         rules = logical_rules(arch.KIND, multi_pod)
-        rules.update({name: None for name in _LM_TP_NAMES})
-        rules["kv_seq"] = kv_seq_axes(B, multi_pod)
-        if B < 16:
-            rules["batch"] = None  # batch 1: token replicated, KV seq-sharded
-        spec = kv_cache_spec(B, multi_pod)
-        spec_tree = {"token": P(_dp_axes(multi_pod), None) if B >= 16
-                     else P(None, None),
-                     "cache": {k: spec for k in batch_specs["cache"]}}
+        if shape.step == "decode":
+            rules.update({name: None for name in _LM_TP_NAMES})
+            rules["kv_seq"] = kv_seq_axes(B, multi_pod)
+            if B < 16:
+                rules["batch"] = None  # batch 1: token replicated, KV seq-sharded
+            spec = kv_cache_spec(B, multi_pod)
+            spec_tree = {"token": P(dp, None) if B >= 16 else P(None, None),
+                         "cache": {k: spec for k in batch_specs["cache"]}}
+        else:
+            spec_tree = {"tokens": P(dp, None)}
+            grad_axes = dp if shape.step == "train" else ()
         batch_specs = local_shard(batch_specs, spec_tree, mesh)
     return CellProgram(arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND,
                        cfg=cfg, device=device, batch=B, seq_len=S,
                        step_fn=step, batch_specs=batch_specs,
                        init_fn=tf_lib.init, opt=opt, loss_fn=loss_fn,
-                       mesh=mesh, rules=rules, batch_spec_tree=spec_tree)
+                       mesh=mesh, rules=rules, batch_spec_tree=spec_tree,
+                       grad_axes=grad_axes)
 
 
 def recsys_train_cell(cfg, batch: int, device: torch.device, *, lr: float,
@@ -254,19 +332,35 @@ def recsys_train_cell(cfg, batch: int, device: torch.device, *, lr: float,
         loss_fn=lambda model, b: binary_ce(model(b), b["label"]))
 
 
+def _recsys_batch_spec_tree(batch_specs: dict, dp) -> dict:
+    """The reference's recsys batch layout: a leading dimension over one
+    shards over the data axes."""
+    return {k: P(dp if len(v.shape) and v.shape[0] > 1 else None,
+                 *[None] * (len(v.shape) - 1))
+            for k, v in batch_specs.items()}
+
+
 def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
                  batch: int | None, mesh, multi_pod: bool) -> CellProgram:
     on_card = device.type == "cuda"
     cfg = arch.FULL if on_card else arch.SMOKE
     B = shape["batch"] if on_card else SMOKE_RECSYS_BATCH
-    if mesh is not None and shape.step == "train":
-        raise NotImplementedError("a recsys train cell takes no mesh yet: "
-                                  "its gradients through the row-sharded "
-                                  "table come with the sharded train cells")
+    dp = _dp_axes(multi_pod)
     if shape.step == "train":
-        return recsys_train_cell(cfg, B if batch is None else batch, device,
+        cell = recsys_train_cell(cfg, B if batch is None else batch, device,
                                  lr=RECSYS_LR, arch_id=arch.ARCH_ID,
                                  shape=shape)
+        if mesh is None:
+            return cell
+        spec_tree = _recsys_batch_spec_tree(cell.batch_specs, dp)
+
+        def loss_fn(model, b):
+            return collectives.block_mean(binary_ce(model(b), b["label"]), dp)
+
+        return dataclasses.replace(
+            cell, mesh=mesh, rules=logical_rules(arch.KIND, multi_pod),
+            batch_spec_tree=spec_tree, grad_axes=dp, loss_fn=loss_fn,
+            batch_specs=local_shard(cell.batch_specs, spec_tree, mesh))
     n_cand = shape.get("n_candidates", 0)
     if n_cand and not on_card:
         n_cand = SMOKE_CANDIDATES
@@ -295,12 +389,7 @@ def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
     rules = spec_tree = None
     if mesh is not None:
         rules = logical_rules(arch.KIND, multi_pod)
-        dp = _dp_axes(multi_pod)
-        # the reference's recsys batch layout: a leading dimension over one
-        # shards over the data axes
-        spec_tree = {k: P(dp if len(v.shape) and v.shape[0] > 1 else None,
-                          *[None] * (len(v.shape) - 1))
-                     for k, v in batch_specs.items()}
+        spec_tree = _recsys_batch_spec_tree(batch_specs, dp)
         batch_specs = local_shard(batch_specs, spec_tree, mesh)
     return CellProgram(
         arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND, cfg=cfg,
@@ -311,9 +400,15 @@ def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
 
 
 def _gnn_cell(arch, shape: ShapeSpec, device: torch.device,
-              batch: int | None) -> CellProgram:
+              batch: int | None, mesh, multi_pod: bool) -> CellProgram:
     on_card = device.type == "cuda"
     cfg = arch.SHAPE_CONFIGS[shape.name] if on_card else arch.SMOKE
+    if mesh is not None and not on_card:
+        # the shape's mode at the SMOKE widths: a CPU mesh runs the
+        # sharded dataflow of each shape
+        mode = arch.SHAPE_CONFIGS[shape.name]
+        cfg = dataclasses.replace(cfg, mode=mode.mode, readout=mode.readout,
+                                  aggregator=mode.aggregator)
     # the shape's nodes at its edges a node, rounded
     graph = (shape["n_nodes"], round(shape["n_edges"] / shape["n_nodes"]))
     if cfg.mode == "full":
@@ -321,6 +416,8 @@ def _gnn_cell(arch, shape: ShapeSpec, device: torch.device,
         if batch is not None:
             raise ValueError("a full-graph cell trains on the whole graph; "
                              "it takes no batch")
+        if mesh is not None:  # the edges split over every rank
+            N = _pad_to(N, mesh.size)
         dims = {"graph_nodes": N, "graph_degree": deg, "n_nodes": N,
                 "n_edges": N * deg}
         B = N
@@ -338,12 +435,57 @@ def _gnn_cell(arch, shape: ShapeSpec, device: torch.device,
         if batch is not None:
             B = batch
         dims = {"batch": B, "n_nodes": n, "n_edges": e}
+    batch_specs = gnn_lib.input_specs(cfg, dims)
+    loss_fn = gnn_lib.GraphSAGE.loss
+    rules = spec_tree = None
+    grad_axes = ()
+    if mesh is not None:
+        rules = logical_rules(arch.KIND, multi_pod)
+        dp = _dp_axes(multi_pod)
+        loss_fn, spec_tree, grad_axes = _gnn_mesh(cfg, dims, batch_specs,
+                                                  mesh, dp)
+        batch_specs = local_shard(batch_specs, spec_tree, mesh)
     return CellProgram(
         arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND, cfg=cfg,
         device=device, batch=B, seq_len=0, step_fn=None,
-        batch_specs=gnn_lib.input_specs(cfg, dims), init_fn=gnn_lib.init,
-        opt=opt_lib.adamw(lr=1e-3),
-        loss_fn=gnn_lib.GraphSAGE.loss, dims=dims)
+        batch_specs=batch_specs, init_fn=gnn_lib.init,
+        opt=opt_lib.adamw(lr=1e-3), loss_fn=loss_fn, dims=dims, mesh=mesh,
+        rules=rules, batch_spec_tree=spec_tree, grad_axes=grad_axes)
+
+
+def _gnn_mesh(cfg, dims: dict, batch_specs: dict, mesh, dp):
+    """(loss, batch spec tree, gradient axes) of a GNN cell on a mesh: the
+    full graph's edges over every axis (every other leaf whole; the loss
+    whole on every rank, so no gradient sum), the packed graphs or the
+    minibatch's seeds over the data axes (a block loss, its gradient
+    summed over them)."""
+    if cfg.mode == "full":
+        axes = tuple(mesh.axis_names)
+        spec_tree = {k: P(*[None] * len(v.shape))
+                     for k, v in batch_specs.items()}
+        spec_tree["edges"] = P(None, axes)
+
+        def loss(model, b):
+            return dist_gnn.apply_full_sharded(
+                model.tree(), b["feats"], b["edges"], b["labels"],
+                b["label_mask"], cfg, mesh, dims["n_nodes"])
+
+        return loss, spec_tree, ()
+    spec_tree = {k: P(dp, *[None] * (len(v.shape) - 1))
+                 for k, v in batch_specs.items()}
+    if cfg.mode == "batched":
+        spec_tree["edges"] = P(None, dp)
+
+        def loss(model, b):
+            logits, labels = dist_gnn.apply_batched_sharded(
+                model.tree(), b, cfg, mesh, dp, dims["batch"],
+                dims["n_nodes"], dims["n_edges"])
+            return collectives.block_mean(gnn_lib.softmax_ce(logits, labels),
+                                          dp)
+    else:
+        def loss(model, b):
+            return collectives.block_mean(model.loss(b), dp)
+    return loss, spec_tree, dp
 
 
 def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda",
@@ -351,8 +493,8 @@ def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda
                mesh=None, multi_pod: bool = False) -> CellProgram:
     """The cell ``shape_name`` of ``arch_id`` on ``device``; ``batch``
     replaces the cell's batch and ``n_layers`` an LM's depth (the cuts a
-    card needs).  ``mesh``: this rank's ``Mesh`` for a decode or recsys
-    serve cell on the distributed layer (``multi_pod``: the ("pod",
+    card needs).  ``mesh``: this rank's ``Mesh``, the cell then on the
+    distributed layer (module docstring; ``multi_pod``: the ("pod",
     "data", "model") rules)."""
     dev = resolve_device(device)
     arch = get_arch(arch_id)
@@ -363,8 +505,5 @@ def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda
     if arch.KIND == ArchKind.RECSYS:
         return _recsys_cell(arch, shape, dev, batch, mesh, multi_pod)
     if arch.KIND == ArchKind.GNN:
-        if mesh is not None:
-            raise NotImplementedError("a GNN cell takes no mesh yet; the "
-                                      "sharded GNN train cells come next")
-        return _gnn_cell(arch, shape, dev, batch)
+        return _gnn_cell(arch, shape, dev, batch, mesh, multi_pod)
     return _lm_cell(arch, shape, dev, batch, n_layers, mesh, multi_pod)

@@ -32,9 +32,25 @@ which reads the cache itself instead of a dequantised copy of it.  Under a
 "kv_seq" binding (``repro_torch.dist.logical``) the cache a step gets is
 this rank's sequence slice: only the rank whose slice holds ``pos`` writes
 the new token's K/V (at local row ``pos - kv_offset``), and the attention
-is the sequence-sharded decode.  The weights stay replicated: tensor-
-parallel execution of the LM's placements comes with the sharded train
-cells.
+is the sequence-sharded decode.
+
+Tensor parallelism follows ``repro_torch.dist.sharding.param_spec_tree``'s
+placements where "heads" (and "kv_heads", "ffn", "vocab", all on the same
+mesh axes) is bound, as a train or prefill cell on a mesh binds it: a
+rank holds wq/wk/wv (and bq/bk/bv) column blocks of whole heads and
+kv_heads (GQA groups stay whole, heads splitting contiguously), wo's
+matching row block, w_gate/w_up's column and w_down's row block of the
+FFN, and its vocabulary rows of ``embed`` (its columns of ``lm_head``).
+Each column-parallel input passes through ``collectives.enter`` (the
+gradient summed over the group), each row-parallel product through one
+``all_reduce`` of its float32 partial, rounded to the activations' dtype
+once after the sum as one device rounds the whole product once (a bf16
+partial would be rounded on each rank and again after the sum), the
+token embedding through ``sharded_row_gather``, and
+the logits are this rank's vocabulary slice, which the vocab-parallel
+``ce_loss`` takes.  Under ``remat`` the checkpointed block runs its
+collectives again in the backward.  A decode cell leaves those names
+unbound: its weights are whole on every rank.
 """
 from __future__ import annotations
 
@@ -42,11 +58,13 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.convert import tree_from_numpy
 from repro_torch.common.init import normal_init
 from repro_torch.common.types import TensorSpec
+from repro_torch.dist import collectives, logical
 from repro_torch.dist.decode import (
     decode_attention,
     decode_attention_int8,
@@ -59,8 +77,6 @@ from repro_torch.models.layers import (
     MoEConfig,
     apply_rmsnorm,
     apply_rope,
-    apply_swiglu,
-    attention_output,
     init_moe,
     init_rmsnorm,
     qkv_projection,
@@ -191,16 +207,99 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _tensor_parallel(cfg: LMConfig):
+    """(group, ranks) of the mesh axes "heads" is bound to, or (None, 1)
+    without tensor parallelism.  Raises when "kv_heads", "ffn" or "vocab"
+    is bound elsewhere, or when the heads, kv_heads, FFN width (a dense
+    model's, or a MoE model's shared expert) or vocabulary do not split
+    over the ranks."""
+    axes = logical.bound_axes("heads")
+    if not axes:
+        return None, 1
+    for name in ("kv_heads", "ffn", "vocab"):
+        if logical.bound_axes(name) != axes:
+            raise ValueError(f'"{name}" is bound to '
+                             f"{logical.bound_axes(name)}, not to the heads' "
+                             f"{axes}")
+    w = logical.shards(axes, logical.current_mesh())
+    ffn = cfg.d_ff if cfg.moe is None else cfg.moe.shared_width
+    for name, n in (("heads", cfg.n_heads), ("kv_heads", cfg.n_kv_heads),
+                    ("ffn", ffn), ("vocab", cfg.vocab)):
+        if n % w:
+            raise ValueError(f"{cfg.name}: {n} {name} do not split over the "
+                             f"{w} ranks of {axes}")
+    return logical.group(axes), w
+
+
+def _enter(x, group):
+    return x if group is None else collectives.enter(x, group)
+
+
+def _tp_sum(x, group):
+    return x if group is None else collectives.all_reduce(x.contiguous(),
+                                                          group)
+
+
+class _Float32Product(torch.autograd.Function):
+    """x [..., k] @ w [k, n] of a 16-bit dtype, accumulated and returned in
+    float32 (no rounding to the inputs' dtype).  The backward takes the
+    cotangent in the inputs' dtype, as the rounded product's would be, so
+    its matmuls are one device's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.device.type == "cuda":
+            out = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            out = x2.float() @ w.float()
+        return out.reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        dx = g @ w.transpose(0, 1) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = x.reshape(-1, x.shape[-1]).transpose(0, 1) @ g.reshape(
+                -1, g.shape[-1])
+        return dx, dw
+
+
+def _row_parallel(x, w, group):
+    """x @ w with the contraction split over ``group`` (x and w this rank's
+    blocks): the float32 partials summed by one ``all_reduce`` and rounded
+    to x's dtype once."""
+    if group is None:
+        return x @ w
+    if x.dtype == torch.float32:
+        return _tp_sum(x @ w, group)
+    return _tp_sum(_Float32Product.apply(x, w), group).to(x.dtype)
+
+
 def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
                  pos=None):
     """One transformer block. cache_l: {"k","v"(,"ks","vs")} [B, S, KVH, *]
-    views, written in place at ``pos``, or None.
+    views, written in place at ``pos``, or None.  Under a "heads" binding
+    the block runs this rank's heads and FFN columns (module docstring);
+    the cache then holds this rank's kv_heads.
 
     Returns (x, cache_l, aux): aux is the MoE router's load-balance loss,
     None for a dense block."""
     B, T, _ = x.shape
+    tp, w = _tensor_parallel(cfg)
+    attn_cfg = cfg.attn
+    if tp is not None:
+        attn_cfg = dataclasses.replace(attn_cfg, n_heads=cfg.n_heads // w,
+                                       n_kv_heads=cfg.n_kv_heads // w)
+        want = attn_cfg.n_heads * cfg.head_dim
+        if params_l["attn"]["wq"].shape[-1] != want:
+            raise ValueError(f"wq holds {params_l['attn']['wq'].shape[-1]} "
+                             f"columns; this rank's heads need {want}")
     h = apply_rmsnorm(params_l["ln1"], x)
-    q, k, v = qkv_projection(params_l["attn"], h, cfg.attn)
+    q, k, v = qkv_projection(params_l["attn"], _enter(h, tp), attn_cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -255,10 +354,12 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
                 else attn_fn(q, kc, vc, q_offset=pos, chunk=cfg.attn_chunk)
     else:
         attn = attn_fn(q, k, v, q_offset=0, chunk=cfg.attn_chunk)
-    x = x + attention_output(params_l["attn"], attn)
+    x = x + _row_parallel(attn.reshape(B, T, -1), params_l["attn"]["wo"], tp)
     h2 = apply_rmsnorm(params_l["ln2"], x)
     if cfg.moe is None:
-        return x + apply_swiglu(params_l["ffn"], h2), cache_l, None
+        p, h2 = params_l["ffn"], _enter(h2, tp)
+        hidden = F.silu(h2 @ p["w_gate"]) * (h2 @ p["w_up"])
+        return x + _row_parallel(hidden, p["w_down"], tp), cache_l, None
     out, aux = moe_apply(params_l["ffn"], h2.reshape(B * T, cfg.d_model),
                          cfg.moe)
     return x + out.reshape(B, T, cfg.d_model), cache_l, aux
@@ -327,14 +428,36 @@ def _attention_chunked(q, k, v, *, q_offset, chunk=1024):
     return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, hd)
 
 
+def _vocab_group(cfg: LMConfig):
+    """The group "vocab" is bound to (the "model" axis of a mesh cell), or
+    None on one device."""
+    axes = logical.bound_axes("vocab")
+    if not axes:
+        return None
+    if axes != logical.as_axes(logical.model_axis_name()):
+        raise ValueError(f'"vocab" is bound to {axes}, not to the "model" '
+                         f"axis the row-sharded gather uses")
+    if cfg.vocab % logical.shards(axes, logical.current_mesh()):
+        raise ValueError(f"{cfg.name}: a vocabulary of {cfg.vocab} does not "
+                         f"split over {axes}")
+    return logical.group(axes)
+
+
 def _embed_tokens(params, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    # tied or not, the table is whole on one device: a local row gather
+    # tied or not, the table is vocab-row-sharded under a "vocab" binding
+    # (the reference's masked local gather and psum, for its tied table)
+    if _vocab_group(cfg) is not None:
+        from repro_torch.dist.sharded_embedding import sharded_row_gather
+
+        return sharded_row_gather(params["embed"], tokens)
     return params["embed"][tokens]
 
 
 def _lm_logits(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """x [..., d] -> logits [..., V], or this rank's vocabulary slice of
+    them under a "vocab" binding (the head column-sharded)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return _enter(x, _vocab_group(cfg)) @ head
 
 
 def _hidden(params, tokens: torch.Tensor, cfg: LMConfig, cache, pos):
@@ -349,10 +472,18 @@ def _hidden(params, tokens: torch.Tensor, cfg: LMConfig, cache, pos):
     cos, sin = cos.expand(B, T, half), sin.expand(B, T, half)
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    binding = logical.current_binding()
+
+    def block(params_l, x, cos, sin, cfg):
+        # the recompute runs in the backward, on the autograd engine's
+        # thread for a CUDA graph: under the binding of the forward
+        with logical.rebind(binding):
+            return _block_apply(params_l, x, cos, sin, cfg)
+
     for i in range(cfg.n_layers):
         params_l = _layer(params["blocks"], i)
         if remat:
-            x, _, aux_l = checkpoint(_block_apply, params_l, x, cos, sin, cfg,
+            x, _, aux_l = checkpoint(block, params_l, x, cos, sin, cfg,
                                      use_reentrant=False)
         else:
             cache_l = None if cache is None else _layer(cache, i)
@@ -419,9 +550,16 @@ def kv_cache_specs(cfg: LMConfig, batch: int, seq: int, dtype=None
 def init_kv_cache(cfg: LMConfig, batch: int, seq: int, dtype=None, *,
                   device: torch.device) -> dict[str, torch.Tensor]:
     """Zero values (and unit scales for int8) on ``device``."""
+    return cache_from_specs(kv_cache_specs(cfg, batch, seq, dtype), device)
+
+
+def cache_from_specs(specs: dict[str, TensorSpec], device: torch.device
+                     ) -> dict[str, torch.Tensor]:
+    """A cache of ``kv_cache_specs``' leaves (or a rank's block of them):
+    zero values, unit int8 scales."""
     return {name: (torch.ones if name in ("ks", "vs") else torch.zeros)(
                 spec.shape, dtype=spec.dtype, device=device)
-            for name, spec in kv_cache_specs(cfg, batch, seq, dtype).items()}
+            for name, spec in specs.items()}
 
 
 def prefill(params, tokens: torch.Tensor, cache, cfg: LMConfig):

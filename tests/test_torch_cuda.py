@@ -31,7 +31,11 @@ K1's row window (a rank's shard of a row-sharded table): windows at the
 table's start, middle and end and one holding no id, a shard of no rows,
 the float32 store against the table-dtype store, the windows' float32
 partials summing to the whole pool, and the window (0, H) bitwise the
-unwindowed entry.  K3's int8 partials: a shard wholly past kv_len is
+unwindowed entry.  K1's backward through a row window: windows cutting a
+feature, holding a hot row's run, the last rows, one past every id and
+one of no rows, against the plain version and against the unwindowed
+backward's rows; autograd through the window's float32 partial into the
+bf16 window backward.  K3's int8 partials: a shard wholly past kv_len is
 exactly (-1e30, 0, 0), and the two halves' partials merged by
 ``lse_combine`` equal the whole-cache int8 entry.
 
@@ -805,6 +809,119 @@ def test_k1_grad_writes_every_row(cuda_device, dtype):
     call = GradLaunch(grad.reshape(-1, 32), ids, off, H)
     call.out.fill_(float("nan"))
     _k1_grad_against_plain(call.run(), grad, ids, off, H, dtype)
+
+
+# the row windows of K1's backward on _k1_grad_case's 4,900 rows (feature
+# 0: rows 0-2999, feature 1 unrouted, feature 2: rows 3700-4899): one
+# cutting feature 0, one holding the hot row 7, the last rows, one past
+# every id's row, and a window of no rows
+GRAD_WINDOWS = {"cut_feature": (1234, 3800), "hot_row": (5, 911),
+                "last_rows": (4100, 4900), "no_ids": (4900, 5500),
+                "no_rows": (2000, 2000)}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("where", list(GRAD_WINDOWS))
+def test_k1_grad_row_window_matches_plain(cuda_device, where, dtype):
+    """K1's backward through a row window: against its plain version (in
+    float64), twice bitwise, one launch counted as a window launch, every
+    row of the window without a pair exactly zero; and against the
+    unwindowed launch's rows [lo, hi) -- bitwise where no row's pairs
+    cross one of the sums pass's chunks in either launch (the window's
+    sorted pairs are a slice of the whole launch's, so the chunks fall
+    elsewhere and a run that crosses one is joined in another grouping),
+    else at K1's tolerance."""
+    rng = np.random.default_rng(len(where) * 11 + len(dtype))
+    grad, ids, off, H = _k1_grad_case(rng, 400, 64, 64, dtype, cuda_device,
+                                      hot=0.3)
+    lo, hi = GRAD_WINDOWS[where]
+    before = (k1_ops.grad_launches, k1_ops.grad_window_launches)
+    got = embedding_bag_features_grad(grad, ids, off, hi - lo,
+                                      row_window=(lo, hi))
+    again = embedding_bag_features_grad(grad, ids, off, hi - lo,
+                                        row_window=(lo, hi))
+    torch.cuda.synchronize()
+    n = 0 if where == "no_rows" else 2
+    assert (k1_ops.grad_launches, k1_ops.grad_window_launches) == (
+        before[0] + n, before[1] + n)
+    assert torch.equal(got, again)
+    assert got.dtype == grad.dtype and got.shape == (hi - lo, 64)
+    want = embedding_bag_features_grad_ref(grad.cpu().double(), ids.cpu(),
+                                           off.cpu(), hi - lo,
+                                           row_window=(lo, hi))
+    scale = max(float(want.abs().max()) if want.numel() else 0.0, 1.0)
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               rtol=K1_TOL[dtype], atol=K1_TOL[dtype] * scale)
+    rows = shift_feature_ids(ids.cpu(), off.cpu())
+    rows = rows[(rows >= lo) & (rows < hi)] - lo
+    touched = torch.zeros(hi - lo, dtype=torch.bool)
+    touched[rows] = True
+    assert not got.cpu()[~touched].any()
+    if where == "no_ids":
+        assert not got.any()
+    whole = embedding_bag_features_grad(grad, ids, off, H)[lo:min(hi, H)]
+    part = got[:whole.shape[0]]
+    if not torch.equal(part, whole):
+        torch.testing.assert_close(part.float(), whole.float(),
+                                   rtol=K1_TOL[dtype],
+                                   atol=K1_TOL[dtype] * scale)
+
+
+def test_k1_grad_row_window_autograd(cuda_device):
+    """Autograd through the forward's row window into a float32 partial:
+    the cotangent (float32 holding bf16 values, as the sharded embedding
+    hands it back) is cast to the bf16 table exactly and the window's
+    backward runs in bf16, equal to the backward called on the bf16
+    cotangent, bitwise; an unwindowed float32 out_dtype takes the
+    unwindowed backward."""
+    rng = np.random.default_rng(8)
+    grad, ids, off, H = _k1_grad_case(rng, 200, 64, 30, "bf16", cuda_device)
+    lo, hi = 1000, 4000
+    table = torch.from_numpy(rng.standard_normal((hi - lo, 64)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).requires_grad_()
+    part = embedding_bag_features(table, ids, off, row_window=(lo, hi),
+                                  out_dtype=torch.float32)
+    assert part.dtype == torch.float32
+    before = k1_ops.grad_window_launches
+    g, = torch.autograd.grad(part, table, grad.float())
+    torch.cuda.synchronize()
+    assert k1_ops.grad_window_launches == before + 1
+    assert g.dtype == torch.bfloat16
+    assert torch.equal(grad.float().to(torch.bfloat16), grad)
+    assert torch.equal(g, embedding_bag_features_grad(
+        grad, ids, off, hi - lo, row_window=(lo, hi)))
+    whole = torch.zeros((H, 64), device=cuda_device,
+                        dtype=torch.bfloat16).requires_grad_()
+    gw, = torch.autograd.grad(embedding_bag_features(
+        whole, ids, off, out_dtype=torch.float32), whole, grad.float())
+    assert torch.equal(gw, embedding_bag_features_grad(grad, ids, off, H))
+
+
+def test_row_parallel_float32_product(cuda_device):
+    """The tensor-parallel LM's row-parallel partial on the card: bf16
+    x @ w returned in float32 (``torch.mm(out_dtype=)``), within float32
+    rounding of the product of the bf16 values in float32; its backward
+    (the same bf16 matmuls, whose cuBLAS layouts may differ) within one
+    bf16 rounding of the bf16 product's."""
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator(cuda_device).manual_seed(4)
+    x = torch.randn((2, 64, 512), generator=g, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    w = torch.randn((512, 256), generator=g, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    out = tf._Float32Product.apply(x, w)
+    assert out.dtype == torch.float32 and out.shape == (2, 64, 256)
+    want = x.detach().double() @ w.detach().double()
+    torch.testing.assert_close(out.double(), want, rtol=1e-5, atol=1e-4)
+    cot = torch.randn(out.shape, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    dx, dw = torch.autograd.grad(out, (x, w), cot.float())
+    ex, ew = torch.autograd.grad(x @ w, (x, w), cot)
+    for got, want in ((dx, ex), (dw, ew)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -7 * float(want.abs().max()))
 
 
 def _train_on_card_and_cpu(cell, cfg, batch_np, dims=None):

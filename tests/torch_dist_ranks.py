@@ -333,3 +333,181 @@ def moe_loss_gnn_rank(rank: int, moe: dict, ce: dict, gnn: dict) -> dict:
     gnn_out["batched"] = {"logits": _np(logits), "labels": _np(labels)}
     out["gnn"] = gnn_out
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dist_train*.py: the train and prefill cells on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _local_tree(tree, kind, mesh):
+    from repro_torch.dist.sharding import local_shard, param_spec_tree
+
+    return local_shard(tree, param_spec_tree(kind, tree), mesh)
+
+
+def _cell_state(cell, params):
+    """This rank's train state of a cell from the whole parameter tree (CPU
+    tensors): the LM's blocks, the recsys model over its table rows, the
+    whole GNN.  The tree is copied first: the spawned ranks share its
+    storage, and the step updates the leaves in place."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.common.types import ArchKind
+    from repro_torch.models import RECSYS_MODELS
+    from repro_torch.models import gnn as gnn_lib
+
+    params = tree_map(torch.clone, params)
+
+    if cell.is_lm:
+        return cell.train_state(cell.local_params(params))
+    if cell.kind == ArchKind.GNN:
+        return cell.train_state(gnn_lib.GraphSAGE(cell.cfg, params))
+    local = _local_tree(params, cell.kind, cell.mesh)
+    lib = RECSYS_MODELS[cell.cfg.interaction]
+    cls = type(lib.init(cell.cfg, generator=torch.Generator().manual_seed(0),
+                        device=torch.device("cpu")))
+    return cell.train_state(cls(cell.cfg, local))
+
+
+def _tree_np(tree):
+    from repro_torch.common.tree import tree_map
+
+    return tree_map(_np, tree)
+
+
+def train_step_case(mesh, multi_pod: bool, arch_id: str, shape: str,
+                    params, batch: dict, batch_size=None, n_layers=None
+                    ) -> dict:
+    """One train step of ``build_cell(arch_id, shape, "cpu", mesh=...)``
+    from the whole parameters and batch: the loss, this rank's gradient
+    blocks, its parameters and optimizer state after the step, the spec
+    trees and the collectives' calls."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import opt_spec_tree, param_spec_tree
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell(arch_id, shape, "cpu", mesh=mesh, multi_pod=multi_pod,
+                      batch=batch_size, n_layers=n_layers)
+    state = _cell_state(cell, params)
+    local = cell.local_batch({k: torch.as_tensor(v) for k, v in
+                              batch.items()})
+    p_specs = param_spec_tree(cell.kind, cell.params(state))
+    collectives.reset()
+    loss, grads = cell.value_and_grad(state, local)
+    calls = dict(collectives.calls)
+    state, out = cell.run(state, local)
+    opt = {k: v for k, v in state["opt"].items()}
+    return {"loss": float(loss), "step_loss": float(out["loss"]),
+            "grads": _tree_np(grads), "params": _tree_np(cell.params(state)),
+            "opt": _tree_np(opt), "p_specs": p_specs,
+            "o_specs": opt_spec_tree(cell.kind, opt, p_specs, strict=True),
+            "rules": dict(cell.rules), "grad_axes": cell.grad_axes,
+            "calls": calls,
+            "batch_shapes": {k: tuple(v.shape) for k, v in local.items()}}
+
+
+def train_cells_rank(rank: int, cases: dict, shape=(2, 2),
+                     axes=("data", "model")) -> dict:
+    """Every case of ``train_step_case`` on one mesh."""
+    mesh = _mesh(shape, axes)
+    multi_pod = len(axes) == 3
+    return {"coords": dict(mesh.coords),
+            "cases": {name: train_step_case(mesh, multi_pod, **case)
+                      for name, case in cases.items()}}
+
+
+def prefill_case(mesh, arch_id: str, params, tokens) -> dict:
+    """The prefill cell on the mesh: this rank's vocabulary slice of the
+    last logits and its block of the cache."""
+    from repro_torch.dist import collectives
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell(arch_id, "prefill_32k", "cpu", mesh=mesh)
+    local = cell.local_params(params)
+    collectives.reset()
+    out = cell.run(local, cell.local_batch({"tokens": torch.as_tensor(
+        tokens)}))
+    return {"logits": _np(out["logits"]),
+            "cache": {k: _np(v) for k, v in out["cache"].items()},
+            "calls": dict(collectives.calls)}
+
+
+def moe_drop_case(mesh, moe: dict) -> dict:
+    """``moe_apply`` with its tokens over "data" and its experts over
+    "model" at a capacity that drops tokens: the output, the aux loss, and
+    this rank's gradients of sum(y * r) / N + aux (its parameter blocks
+    summed over "data") and of its token block."""
+    from repro_torch.common.tree import tree_leaves, tree_unflatten
+    from repro_torch.dist import collectives, logical
+    from repro_torch.dist.moe import moe_apply
+    from repro_torch.dist.sharding import P, Spec, local_shard
+    from repro_torch.models.layers import MoEConfig
+
+    cfg = MoEConfig(**moe["cfg"])
+    specs = {"router": P(None, None),
+             "experts": {k: Spec(("model", None, None))
+                         for k in moe["params"]["experts"]},
+             "shared": {"w_gate": P(None, "model"), "w_up": P(None, "model"),
+                        "w_down": P("model", None)}}
+    params = local_shard(moe["params"], specs, mesh)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    x = local_shard(torch.from_numpy(moe["x"]), P("data", None),
+                    mesh).requires_grad_(True)
+    r = local_shard(torch.from_numpy(moe["r"]), P("data", None), mesh)
+    with torch.enable_grad(), logical.axis_rules(
+            mesh, {"batch": "data", "model": "model"}):
+        y, aux = moe_apply(params, x, cfg)
+        loss = collectives.block_mean((y * r).sum(-1).mean(), "data") + aux
+        grads = torch.autograd.grad(loss, tree_leaves(params) + [x])
+    pgrads = collectives.reduce_grads(list(grads[:-1]), tree_leaves(specs),
+                                      mesh, ("data",))
+    return {"y": _np(y), "aux": float(aux), "loss": float(loss),
+            "grads": _tree_np(tree_unflatten(params, pgrads)),
+            "x_grad": _np(grads[-1])}
+
+
+def lm_prefill_moe_rank(rank: int, prefill: dict, moe: dict) -> dict:
+    from repro_torch.launch.steps import build_cell
+
+    mesh = _mesh()
+    # a decode cell's state on the mesh: its weights whole on every rank
+    decode = build_cell(prefill["arch_id"], "decode_32k", "cpu", mesh=mesh,
+                        batch=16).init_state(torch.Generator().manual_seed(0))
+    return {"coords": dict(mesh.coords),
+            "prefill": prefill_case(mesh, **prefill),
+            "moe": moe_drop_case(mesh, moe),
+            "decode_shapes": {k: tuple(v.shape) for k, v in
+                              decode["blocks"]["attn"].items()}}
+
+
+def qr_grad_case(mesh, qr: dict) -> dict:
+    """``embedding_bag`` of a config with a QR feature through the
+    row-sharded table (rows over "model", bags over "data") under autograd:
+    the pooled block and this rank's table-row gradient of mean_b sum(pooled
+    * r), summed over "data"."""
+    from repro_torch.dist import collectives, logical
+    from repro_torch.dist.sharding import P, local_shard
+    from repro_torch.models.embedding import EmbeddingConfig, embedding_bag
+
+    cfg = EmbeddingConfig(**qr["cfg"])
+    table = local_shard(torch.from_numpy(qr["table"]), P("model", None),
+                        mesh).requires_grad_(True)
+    ids = local_shard(torch.from_numpy(qr["ids"]), P("data", None, None),
+                      mesh)
+    r = local_shard(torch.from_numpy(qr["r"]), P("data", None, None), mesh)
+    with torch.enable_grad(), logical.axis_rules(
+            mesh, {"batch": "data", "model": "model"}):
+        pooled = embedding_bag({"table": table}, ids, cfg)
+        loss = collectives.block_mean((pooled * r).sum((1, 2)).mean(), "data")
+        g, = torch.autograd.grad(loss, table)
+    g = collectives.reduce_grads([g], [P("model", None)], mesh, ("data",))[0]
+    return {"pooled": _np(pooled), "grad": _np(g), "loss": float(loss)}
+
+
+def recsys_gnn_rank(rank: int, cases: dict, qr: dict) -> dict:
+    mesh = _mesh()
+    return {"coords": dict(mesh.coords),
+            "cases": {name: train_step_case(mesh, False, **case)
+                      for name, case in cases.items()},
+            "qr": qr_grad_case(mesh, qr)}
