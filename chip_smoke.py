@@ -114,7 +114,8 @@ Phases, one JSON line each:
                ogb_products on a 2,449,029-node synthetic graph (one layer's
                aggregate held to the CPU on the in-edges of 65,536 nodes,
                every gradient finite), minibatch_lg (1,024 seeds sampled at
-               fanout 15-10 from a 232,965-node graph; the graph's and the
+               fanout 15-10 from a 232,965-node graph at 32 edges a node,
+               cut from the shape's 492; the graph's and the
                sampler's host seconds), full_graph_sm and molecule (each's
                gradients held to a CPU copy at 1e-4); (c) K1's backward
                against its plain version at the dlrm-rm2 train launch and
@@ -193,9 +194,8 @@ Phases, one JSON line each:
                table-gradient rows and its rows after one AdaGrad step;
                (b) llama3.2-3b FULL width train_4k, 4 layers, B 2, S 4096,
                tensor-parallel over "model": the loss and each rank's block
-               of every gradient leaf against one device in f32 (2e-4 x
-               the leaf's largest entry) and in bf16 (3e-2), step and peak
-               a rank; (c) olmoe-1b-7b FULL width train_4k, 2 layers, B 1,
+               of every gradient leaf against one device in bf16 (3e-2 x
+               the leaf's largest entry), step and peak a rank; (c) olmoe-1b-7b FULL width train_4k, 2 layers, B 1,
                experts and heads over "model", the same check in f32; (d)
                llama3.2-3b prefill_32k, 2 layers, B 1: each rank's
                vocabulary slice of the last logits and its kv_heads of the
@@ -210,7 +210,30 @@ Phases, one JSON line each:
                full_graph_sm), a row-parallel all-reduce left out ((d)), a
                block's own mean for the global one (molecule), the table's
                rows off by one ((a));
- 13. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
+ 13. dryrun  - (a) ``python -m repro_torch.launch.dryrun --all --mesh
+               both`` in a process of its own (a fake world of 256, then
+               512 ranks; every cell traced on the meta device), ending 0
+               within 120 s with every record's keys, one line a mesh (the
+               cells over 80 GB a rank); (b) the dry run's trace of the
+               cells the phases above ran, at their cuts (llama3.2-3b
+               decode_32k B 16, prefill_32k B 1, train_4k B 4; dlrm-rm2
+               train_batch; ogb_products; dist_train's rm2 and llama
+               cells on (data 1, model 2)): its arguments within 512
+               bytes a tensor of what making the state and batch added to
+               the caching allocator's requested bytes, and to its
+               allocated bytes within that plus 1 MiB a tensor past 1 MiB
+               (a large block keeps its segment's rest unsplit up to
+               1 MiB); its peak within 10% of a step's measured allocated
+               peak above its baseline; (c)
+               qwen2-7b train_4k at FULL width, 2 layers, B 1, bf16, on 8
+               gloo ranks on the card, (data 1, model 8): 28 heads and 4
+               kv heads, each kv head replicated on 2 ranks and its 7 q
+               heads padded to 8; the loss and each rank's gradient blocks
+               against one device at 3e-2 (a padded head's exactly zero;
+               the planted fault of an unsummed kv head must fail), the
+               padded heads and their moments exactly zero after the
+               step, each kv head's copies and moments bitwise equal;
+ 14. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
                day through ``repro_torch.serving.scenarios``: (a) K4 at
                benchmarks/bench_cluster.py's fleet shape (512 streams, k in
                {2, 4, 8, 16}, 199,444 jobs) and at a full-width day's
@@ -228,14 +251,15 @@ Phases, one JSON line each:
                every fleet call bitwise ``_sweep``; (c) the full-width
                event-core day (all six workloads x all eleven server
                types, cut from 96 to 24 intervals, cap 200,000) from an
-               empty profile cache, every fleet call bitwise ``_sweep``,
+               empty profile cache (its 66 pairs profiled first in 8
+               processes at once), every fleet call bitwise ``_sweep``,
                with the bridged days' Hercules-vs-greedy peak power.
 Every attention-kernel check is also shown to fail planted faults (zeros,
 half the keys, the wrong KV head, the causal mask flipped, and for the int8
 entry each row read with the next row's scales); the kernel phases feed
 peaked queries so that attention outputs are O(1) against the bf16
 tolerance.
-Then the kernel summary line (K1, K1's backward, K2, K3, K3's int8 entry,
+Then a line of every phase's seconds, the kernel summary line (K1, K1's backward, K2, K3, K3's int8 entry,
 K1's row window, K1's window backward, K3's int8 partials and K4) with the
 whole script's
 seconds, the nvidia-smi line, and last
@@ -247,11 +271,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -458,6 +484,44 @@ def must_fail(name, wrong, want, tol) -> None:
     except AssertionError:
         return
     raise AssertionError(f"{name}: a planted fault passed the check")
+
+
+def _mem(kind: str):
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    st = torch.cuda.memory_stats()
+    return np.array([st[f"allocated_bytes.all.{kind}"],
+                     st[f"requested_bytes.all.{kind}"]], dtype=np.int64)
+
+
+def mem():
+    """The caching allocator's (allocated, requested) bytes now, once the
+    stream is idle: its blocks' sizes, and the bytes the tensors asked
+    for."""
+    return _mem("current")
+
+
+def mem_peak():
+    """The same two at their peak since ``reset_peak_memory_stats``."""
+    return _mem("peak")
+
+
+def mem_reading(growth, tensors: list, before_step, peak) -> dict:
+    """What phase ``dryrun`` (b) holds the dry run's prediction of one cell
+    to: what making its state and batch (``tensors``) added to the
+    allocated and the requested bytes (``growth``, from ``mem()``), and
+    the peak of a step above its baseline (``before_step`` less that
+    growth)."""
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    return {"args_growth_bytes": int(growth[0]),
+            "args_requested_bytes": int(growth[1]), "tensors": len(sizes),
+            "large_tensors": sum(n > LARGE_REMAINDER for n in sizes),
+            "peak_above_baseline_bytes": int(peak[0] - (before_step[0]
+                                                        - growth[0])),
+            "peak_requested_bytes": int(peak[1] - (before_step[1]
+                                                   - growth[1]))}
 
 
 def k3_controls(name, want, q, k, v, tol, *, kv_len, **kw) -> None:
@@ -1309,7 +1373,9 @@ def phase_lm(dev) -> dict:
             and pre.cfg.attn_impl == "chunked"):
         raise AssertionError(f"unexpected cell configs {pre.cfg} / {cfg}")
     torch.cuda.reset_peak_memory_stats()
+    m0 = mem()
     params = pre.init_state(g)
+    params_growth = mem() - m0
     n_params = sum(t.numel() for t in tree_leaves(params))
     if n_params != cfg.param_count():
         raise AssertionError(f"{n_params} parameters, expected "
@@ -1318,16 +1384,22 @@ def phase_lm(dev) -> dict:
            "weights_gb": n_params * 2 / 1e9}
 
     # (a) prefill_32k: batch 1, S = 32768
+    m1 = mem()
     tokens = torch.randint(0, cfg.vocab, (pre.batch, pre.seq_len),
                            generator=g, device=dev, dtype=torch.int32)
+    growth = params_growth + mem() - m1
     reset_k3(ops)
     times = []
     for _ in range(2):               # the first run warms cuBLAS up
-        torch.cuda.synchronize()
+        before = mem()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = pre.run(params, {"tokens": tokens})
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if len(times) == 1:
+            prefill_mem = mem_reading(growth, tree_leaves(params) + [tokens],
+                                      before, mem_peak())
     logits = out["logits"]
     if tuple(logits.shape) != (pre.batch, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
@@ -1335,7 +1407,8 @@ def phase_lm(dev) -> dict:
     res["prefill_32k"] = {"batch": pre.batch, "seq_len": pre.seq_len,
                           "ms": times[-1], "first_ms": times[0],
                           "logits_finite": True,
-                          "k3_launches": k3_count(ops)}
+                          "k3_launches": k3_count(ops),
+                          "memory": prefill_mem}
     del out, logits, tokens
     torch.cuda.empty_cache()
 
@@ -1351,6 +1424,7 @@ def phase_lm(dev) -> dict:
     # same step in f32 to a tolerance.
     B, S = dec.batch, dec.seq_len
     specs = dec.batch_specs["cache"]
+    m1 = mem()
     cache = {name: torch.randint(-127, 128, spec.shape, generator=g,
                                  device=dev, dtype=torch.int8)
              for name, spec in specs.items() if spec.dtype == torch.int8}
@@ -1360,7 +1434,8 @@ def phase_lm(dev) -> dict:
     token = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=dev,
                           dtype=torch.int32)
     batch = {"token": token, "cache": cache}
-    torch.cuda.synchronize()
+    growth = params_growth + mem() - m1
+    before = mem()
     base_gb = torch.cuda.memory_allocated() / 1e9
     peak_before_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
@@ -1368,6 +1443,8 @@ def phase_lm(dev) -> dict:
     got = dec.run(params, batch)["logits"]
     torch.cuda.synchronize()
     step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_mem = mem_reading(growth, tree_leaves(params) + list(
+        cache.values()) + [token], before, mem_peak())
     k3_step = ops.launches["flash_decode_int8"]
     if k3_step != cfg.n_layers or ops.launches["flash_decode"]:
         raise AssertionError(f"K3's int8 entry launched {k3_step} times in a "
@@ -1413,6 +1490,7 @@ def phase_lm(dev) -> dict:
         # the pass the path no longer runs, timed for the record
         "dequant_ms_per_layer": deq_ms,
         "step_peak_gb": step_peak_gb,
+        "memory": decode_mem,
         "step_transient_gb": step_peak_gb - base_gb,
         "dequantised_layer_gb": deq_gb}
     del got, checked, plain, nudged    # the cache stays for (d)
@@ -1763,12 +1841,12 @@ def phase_lm_train(dev) -> dict:
     from repro_torch.launch.steps import build_cell
 
     t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
     cell = build_cell(LM_ARCH, "train_4k", dev, batch=LM_TRAIN_BATCH)
     cfg = cell.cfg
     if not (cfg.remat and cfg.attn_impl == "chunked"
             and cfg.dtype == torch.bfloat16):
         raise AssertionError(f"unexpected train config {cfg}")
+    m0 = mem()
     state = cell.init_state(torch.Generator(dev).manual_seed(3))
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     if n_params != cfg.param_count():
@@ -1778,14 +1856,20 @@ def phase_lm_train(dev) -> dict:
     tokens = torch.from_numpy(TokenStream(cfg.vocab, seed=0).batch(
         B, S)["tokens"]).to(dev)
     batch = {"tokens": tokens}
+    growth = mem() - m0
     state_gb = tree_gb(state["params"]) + tree_gb(state["opt"])
     losses, times = [], []
+    before = mem()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(LM_TRAIN_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, out = cell.run(state, batch)
         losses.append(float(out["loss"]))
         times.append((time.perf_counter() - t) * 1e3)
+        if len(times) == 1:
+            step_mem = mem_reading(growth, tree_leaves(state) + [tokens],
+                                   before, mem_peak())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1817,7 +1901,7 @@ def phase_lm_train(dev) -> dict:
            "init_loss_expected": init_loss,
            "step_ms": times, "median_step_ms": step_ms, "grad_ms": grad_ms,
            "update_ms": step_ms - grad_ms, "peak_gb": peak_gb,
-           "grad_profile": prof,
+           "memory": step_mem, "grad_profile": prof,
            "tokens_per_s": B * S / step_ms * 1e3,
            "model_flops_per_step": flops,
            "model_flop_rate_share": flops / (step_ms / 1e3) / BF16_PEAK,
@@ -2176,6 +2260,10 @@ def phase_recsys(dev, bw: float, f32_rate: float) -> dict:
 TRAIN_STEPS = 3    # steps of each FULL train cell, on one fixed batch
 TRAIN_RECSYS = ("dlrm-rm2", "wide-deep", "din", "mind")
 TRAIN_GNN = ("ogb_products", "minibatch_lg", "full_graph_sm", "molecule")
+# minibatch_lg samples its seeds' fixed fanout from a graph of the shape's
+# 232,965 nodes at this many edges a node, cut from the shape's 492 (the
+# step's shapes are the fanout's; building the whole graph took ~65 s)
+MINI_GRAPH_DEGREE = 32
 # K1 tables of each recsys interaction (wide-deep: the deep and the wide)
 K1_TABLES = {"dot": 1, "concat": 2, "target-attn": 0, "multi-interest": 0}
 GRAD_BATCH = 2048  # the recsys gradient checks' batch (a CPU copy runs it)
@@ -2225,10 +2313,13 @@ def train_cell(dev, arch_id: str, shape: str):
     import numpy as np
     import torch
 
+    from repro_torch.common.tree import tree_leaves
     from repro_torch.data import clicklog, graph
     from repro_torch.launch.steps import build_cell
 
     cell = build_cell(arch_id, shape, dev)
+    if cell.dims is not None and "batch_nodes" in cell.dims:
+        cell.dims = {**cell.dims, "graph_degree": MINI_GRAPH_DEGREE}
     t0 = time.perf_counter()
     data = {}
     if cell.dims is None:
@@ -2244,10 +2335,16 @@ def train_cell(dev, arch_id: str, shape: str):
              else "batch_host_s"] = time.perf_counter() - t1
         del g
     data["data_host_s"] = time.perf_counter() - t0
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    m0 = mem()
+    # in the cell's dtypes (the click log's dense features and labels are
+    # float32; a bf16 model casts them on entry, so the values are alike)
+    batch = {k: torch.from_numpy(v).to(dev, cell.batch_specs[k].dtype)
+             for k, v in batch_np.items()}
     state = cell.init_state(torch.Generator(dev).manual_seed(2))
+    growth = mem() - m0
+    args = list(batch.values()) + tree_leaves(state["model"].tree()) + \
+        tree_leaves(state["opt"])
+    torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2255,6 +2352,8 @@ def train_cell(dev, arch_id: str, shape: str):
         state, out = cell.run(state, batch)
         losses.append(float(out["loss"]))
         times.append((time.perf_counter() - t) * 1e3)
+        if len(times) == 1:
+            step_mem = mem_reading(growth, args, m0 + growth, mem_peak())
     with torch.no_grad():
         after = float(cell.loss_fn(state["model"], batch))
     # where a step goes: the loss and gradients alone (no update), once
@@ -2276,7 +2375,8 @@ def train_cell(dev, arch_id: str, shape: str):
             "update_ms": statistics.median(times) - grad_ms,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "params_gb": tree_gb(state["model"].tree()),
-            "opt_state_gb": tree_gb(state["opt"]), **data}
+            "opt_state_gb": tree_gb(state["opt"]), "memory": step_mem,
+            **data}
     return line, cell, state, batch_np
 
 
@@ -4143,6 +4243,7 @@ def rm2_train_rank(rank: int, mesh, dev, bw: float, f32_rate: float) -> dict:
     copy against one device."""
     import torch
 
+    from repro_torch.common.tree import tree_leaves
     from repro_torch.data.clicklog import cell_batch
     from repro_torch.dist import collectives, logical
     from repro_torch.dist.sharded_embedding import row_window
@@ -4154,9 +4255,13 @@ def rm2_train_rank(rank: int, mesh, dev, bw: float, f32_rate: float) -> dict:
     cell = build_cell("dlrm-rm2", "train_batch", dev, mesh=mesh)
     one = build_cell("dlrm-rm2", "train_batch", dev)   # the whole batch
     batch_np = cell_batch(cell.cfg, one.batch_specs, seed=DT_SEED)
-    batch = cell.local_batch({k: torch.from_numpy(v).to(dev)
-                              for k, v in batch_np.items()})
+    m0 = mem()
+    batch = cell.local_batch({k: torch.from_numpy(v).to(
+        dev, one.batch_specs[k].dtype) for k, v in batch_np.items()})
     state = cell.init_state(torch.Generator(dev).manual_seed(DT_SEED))
+    growth = mem() - m0
+    args = list(batch.values()) + tree_leaves(state["model"].tree()) + \
+        tree_leaves(state["opt"])
     table = state["model"].table
     with logical.axis_rules(mesh, cell.rules):
         lo, hi = row_window(table)
@@ -4180,9 +4285,12 @@ def rm2_train_rank(rank: int, mesh, dev, bw: float, f32_rate: float) -> dict:
     # the checked steps' peak holds the checks' tensors; the timed step's
     # is the step's own
     peak_checked = torch.cuda.max_memory_allocated() / 1e9
+    before = mem()
     torch.cuda.reset_peak_memory_stats()
     step_ms = host_ms(lambda: cell.run(state, batch), reps=1, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    step_mem = mem_reading(growth, args, before, mem_peak())
+    del args
     ids = batch["sparse_ids"].contiguous()
     off = routed_offsets(cell.cfg.embedding, dev)
     res = {"rank": rank, "coords": mesh.coords, "rows": [lo, hi],
@@ -4193,7 +4301,7 @@ def rm2_train_rank(rank: int, mesh, dev, bw: float, f32_rate: float) -> dict:
            "grad_tolerance": "bitwise the unwindowed kernel on the "
                              "window's pairs; one bf16 rounding of the "
                              "float32 plain version (ulp_held)",
-           "step_ms": step_ms, "peak_gb": peak,
+           "step_ms": step_ms, "peak_gb": peak, "memory": step_mem,
            "peak_gb_checked_steps": peak_checked,
            "all_reduce_bytes": ids.shape[0] * ids.shape[1] * table.shape[1] * 4}
     del state, table
@@ -4278,8 +4386,10 @@ def lm_train_rank(rank: int, mesh, dev, ref: dict, arch_id: str,
     from repro_torch.dist.sharding import local_shard, param_spec_tree
 
     cell = lm_train_cell(dev, arch_id, layers, batch, dtype, mesh=mesh)
+    m0 = mem()
     state = cell.init_state(torch.Generator(dev).manual_seed(ref["seed"]))
     b = cell.local_batch({"tokens": ref["tokens"].to(dev)})
+    growth = mem() - m0
     specs = tree_leaves(param_spec_tree(cell.kind, state["params"]))
     want = [local_shard(w, s, mesh).to(dev)
             for w, s in zip(ref["grads"], specs)]
@@ -4302,13 +4412,17 @@ def lm_train_rank(rank: int, mesh, dev, ref: dict, arch_id: str,
         f"{name} gradient", tree_leaves(bad), want, tol))
     del bad, want
     torch.cuda.empty_cache()
+    before = mem()
+    torch.cuda.reset_peak_memory_stats()
     step_ms = host_ms(lambda: cell.run(state, b), reps=1, warmup=0)
+    step_mem = mem_reading(growth, tree_leaves(state) + [b["tokens"]], before,
+                           mem_peak())
     res = {"rank": rank, "coords": mesh.coords, "loss": float(loss),
            "loss_one_device": float(ref["loss"]), "loss_err": loss_err,
            "grad_err_relative_to_leaf_max": worst, "tolerance": tol,
            "leaves": len(specs), "params_gb": tree_gb(state["params"]),
            "grad_ms": grad_ms, "step_ms": step_ms, "peak_gb": peak,
-           "collectives": calls}
+           "memory": step_mem, "collectives": calls}
     del state, b
     torch.cuda.empty_cache()
     return res
@@ -4654,9 +4768,6 @@ def dist_train_rank(rank: int, dev_type: str, bw: float, f32_rate: float,
     out = {}
     for key, fn in (
             ("rm2", lambda: rm2_train_rank(rank, mesh, dev, bw, f32_rate)),
-            ("llama_f32", lambda: lm_train_rank(
-                rank, mesh, dev, refs["llama_f32"], "llama3.2-3b",
-                DT_LM_LAYERS, DT_LM_BATCH, torch.float32, SUM_TOL)),
             ("llama_bf16", lambda: lm_train_rank(
                 rank, mesh, dev, refs["llama_bf16"], "llama3.2-3b",
                 DT_LM_LAYERS, DT_LM_BATCH, torch.bfloat16, BF16_TOL)),
@@ -4682,7 +4793,7 @@ def phase_dist_train(dev, bw: float, f32_rate: float) -> dict:
     """The train and prefill cells on a mesh: the single-device references
     first (each freed before the next), then DIST_RANKS rank processes on
     the card over gloo run (a) dlrm-rm2 FULL train_batch row-sharded, (b)
-    llama3.2-3b FULL-width train_4k tensor-parallel in f32 and bf16, (c)
+    llama3.2-3b FULL-width train_4k tensor-parallel in bf16, (c)
     olmoe-1b-7b FULL-width train_4k expert- and tensor-parallel, (d)
     llama3.2-3b prefill_32k and (e) GraphSAGE's full_graph_sm and molecule.
     A rank that fails fails the phase."""
@@ -4697,9 +4808,6 @@ def phase_dist_train(dev, bw: float, f32_rate: float) -> dict:
     refs, t_ref = {}, {}
     sys.path.insert(0, str(ROOT / "tests"))   # torch_recsys_util, in (a)
     for key, fn in (
-            ("llama_f32", lambda: lm_train_reference(
-                dev, "llama3.2-3b", DT_LM_LAYERS, DT_LM_BATCH, torch.float32,
-                DT_SEED + 10)),
             ("llama_bf16", lambda: lm_train_reference(
                 dev, "llama3.2-3b", DT_LM_LAYERS, DT_LM_BATCH, torch.bfloat16,
                 DT_SEED + 11)),
@@ -4739,9 +4847,8 @@ def phase_dist_train(dev, bw: float, f32_rate: float) -> dict:
                                                for r in rm2)}}
     emit(dt_line("rm2_train", **res["rm2"]))
     for key, config in (
-            ("llama_f32", f"llama3.2-3b FULL width, {DT_LM_LAYERS} layers, "
-                          f"train_4k B {DT_LM_BATCH} S 4096, f32, (1, 2)"),
-            ("llama_bf16", f"the same in bf16"),
+            ("llama_bf16", f"llama3.2-3b FULL width, {DT_LM_LAYERS} layers, "
+                           f"train_4k B {DT_LM_BATCH} S 4096, bf16, (1, 2)"),
             ("olmoe_f32", f"olmoe-1b-7b FULL width, {DT_MOE_LAYERS} layers, "
                           f"train_4k B {DT_MOE_BATCH} S 4096, f32, (1, 2)")):
         ref = refs[key]
@@ -4764,6 +4871,361 @@ def phase_dist_train(dev, bw: float, f32_rate: float) -> dict:
                       "per_rank": [r["gnn"][s] for r in ranks]}
                   for s in DT_GNN_MESH}
     emit(dt_line("gnn", **res["gnn"]))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the dry run: every cell on the production meshes, the prediction against
+# the card, and the uneven head split at full width
+# ---------------------------------------------------------------------------
+
+DRYRUN_BUDGET_S = 120      # (a)'s sweep of both meshes
+DRYRUN_KEYS = ("arch", "shape", "mesh", "n_devices", "time_trace_s",
+               "flops_per_device", "bytes_per_device",
+               "collective_bytes_per_device", "collectives", "memory",
+               "t_compute_s", "t_memory_s", "t_collective_s", "bottleneck")
+CARD_BYTES = 80e9          # one rank's card
+ALLOC_ROUNDING = 512       # the caching allocator's block, bytes a tensor
+# a block of the large pool keeps the rest of its segment unsplit when the
+# rest is 1 MiB or less: allocated bytes past the request, a large tensor
+LARGE_REMAINDER = 1 << 20
+PEAK_TOL = 0.10            # (b): the predicted peak against the measured
+# (b): the cells earlier phases ran, traced at the same cut: (arch, shape,
+# build_cell's cuts, on the (data 1, model 2) mesh of dist_train)
+DRYRUN_CELLS = {
+    "lm_decode_32k": ("llama3.2-3b", "decode_32k", {"batch": DECODE_BATCH},
+                      False),
+    "lm_prefill_32k": ("llama3.2-3b", "prefill_32k",
+                       {"batch": PREFILL_BATCH}, False),
+    "lm_train_4k": ("llama3.2-3b", "train_4k", {"batch": LM_TRAIN_BATCH},
+                    False),
+    "rm2_train_batch": ("dlrm-rm2", "train_batch", {}, False),
+    "ogb_products": ("graphsage-reddit", "ogb_products", {}, False),
+    "dist_rm2_train_batch": ("dlrm-rm2", "train_batch", {}, True),
+    "dist_lm_train_4k": ("llama3.2-3b", "train_4k",
+                         {"batch": DT_LM_BATCH, "n_layers": DT_LM_LAYERS},
+                         True),
+}
+PREDICT = """
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.steps import build_cell
+cells, out, mesh = json.loads(sys.argv[1]), {}, None
+for key, (arch, shape, cuts, on_mesh) in cells.items():
+    if on_mesh and mesh is None:
+        dryrun.fake_world(2)
+        mesh = make_debug_mesh(1, 2, device_type="cpu")
+    rec = dryrun.trace_cell(build_cell(arch, shape, "meta",
+                                       mesh=mesh if on_mesh else None, **cuts))
+    out[key] = rec["memory"]
+print(json.dumps(out))
+"""
+# (c): qwen2-7b at FULL width, 28 heads and 4 kv heads over 8 "model"
+# ranks: a kv head on 2 ranks, 7 q heads padded to 8, 4 a rank
+UNEVEN_ARCH, UNEVEN_LAYERS, UNEVEN_BATCH, UNEVEN_RANKS = "qwen2-7b", 2, 1, 8
+UNEVEN_SEED = 61
+
+
+def dryrun_line(stage: str, **kw) -> dict:
+    return {"phase": "dryrun", "stage": stage, **kw}
+
+
+def dryrun_sweep(tmp: Path) -> list[dict]:
+    """(a) ``python -m repro_torch.launch.dryrun --all --mesh both`` in a
+    process of its own (it starts a fake process group of 256, then 512
+    ranks): it must end 0 within DRYRUN_BUDGET_S, with a record of every
+    key for each cell.  One line a mesh."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh",
+         "both", "--out", str(tmp)], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)), timeout=2 * DRYRUN_BUDGET_S)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the dry run ended {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    if seconds > DRYRUN_BUDGET_S:
+        raise AssertionError(f"the dry run took {seconds} s, past its "
+                             f"{DRYRUN_BUDGET_S} s")
+    records = [json.loads(p.read_text()) for p in sorted(tmp.iterdir())]
+    lines = []
+    for mesh in ("single", "multi"):
+        recs = [r for r in records if r["mesh"] == mesh]
+        for r in recs:
+            missing = [k for k in DRYRUN_KEYS if k not in r]
+            if missing:
+                raise AssertionError(f"{r['arch']} {r['shape']} {mesh}: no "
+                                     f"{missing}")
+        if len(recs) != len(records) // 2 or not recs:
+            raise AssertionError(f"{len(recs)} records on {mesh}")
+        over = [f"{r['arch']} {r['shape']}" for r in recs
+                if r["memory"]["peak_memory_bytes"] > CARD_BYTES]
+        lines.append(dryrun_line(
+            "sweep", mesh=mesh, ranks=recs[0]["n_devices"], cells=len(recs),
+            seconds=seconds, trace_s=sum(r["time_trace_s"] for r in recs),
+            over_80gb_a_rank=over,
+            bottlenecks={b: sum(r["bottleneck"] == b for r in recs)
+                         for b in ("compute", "memory", "collective")},
+            records=[{k: r[k] for k in (
+                "arch", "shape", "flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "t_compute_s", "t_memory_s",
+                "t_collective_s", "bottleneck")} | {
+                "argument_gb": r["memory"]["argument_size_bytes"] / 1e9,
+                "peak_gb": r["memory"]["peak_memory_bytes"] / 1e9}
+                for r in recs]))
+    return lines
+
+
+def start_predictions() -> subprocess.Popen:
+    """The dry run's traces of DRYRUN_CELLS, in a process of its own (a
+    fake world of 2 for the mesh cells), started to run beside (a)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", PREDICT, json.dumps(DRYRUN_CELLS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+
+
+def dryrun_against_card(predictions: subprocess.Popen,
+                        readings: dict) -> dict:
+    """(b) each cell an earlier phase ran, traced at its cut on one device
+    or rank 0 of the (data 1, model 2) mesh (a process of its own, with a
+    fake world of 2): the arguments within ALLOC_ROUNDING bytes a tensor
+    of what making the state and batch added to the caching allocator's
+    requested bytes, and of what it added to its allocated bytes within
+    that and LARGE_REMAINDER a large tensor (a block's unsplit rest of its
+    segment); the peak within PEAK_TOL of a step's measured allocated
+    peak above its baseline.  ``predictions``: ``start_predictions()``'s
+    process; ``readings``: each cell's ``mem_reading`` (one a rank on the
+    mesh)."""
+    stdout, stderr = predictions.communicate(timeout=300)
+    if predictions.returncode != 0:
+        raise AssertionError(f"the predictions failed:\n{stderr[-3000:]}")
+    predicted = json.loads(stdout.strip().splitlines()[-1])
+    res, misses = {}, []
+    for key, got in readings.items():
+        want = predicted[key]
+        for i, m in enumerate(got if isinstance(got, list) else [got]):
+            name = key if not isinstance(got, list) else f"{key} rank {i}"
+            args = want["argument_size_bytes"]
+            requested_err = args - m["args_requested_bytes"]
+            allocated_err = args - m["args_growth_bytes"]
+            requested_limit = ALLOC_ROUNDING * m["tensors"]
+            allocated_limit = requested_limit + \
+                LARGE_REMAINDER * m["large_tensors"]
+            peak_err = (want["peak_memory_bytes"]
+                        - m["peak_above_baseline_bytes"]) \
+                / m["peak_above_baseline_bytes"]
+            line = {"cell": name, "argument_bytes_predicted": args,
+                    "argument_bytes_requested": m["args_requested_bytes"],
+                    "argument_requested_err_bytes": requested_err,
+                    "argument_requested_limit_bytes": requested_limit,
+                    "argument_bytes_allocated": m["args_growth_bytes"],
+                    "argument_allocated_err_bytes": allocated_err,
+                    "argument_allocated_limit_bytes": allocated_limit,
+                    "tensors": m["tensors"],
+                    "large_tensors": m["large_tensors"],
+                    "peak_bytes_predicted": want["peak_memory_bytes"],
+                    "peak_bytes_measured": m["peak_above_baseline_bytes"],
+                    "peak_err_relative": peak_err, "peak_limit": PEAK_TOL,
+                    "peak_requested_bytes": m["peak_requested_bytes"],
+                    "peak_requested_err_relative": (
+                        want["peak_memory_bytes"] - m["peak_requested_bytes"])
+                    / m["peak_requested_bytes"]}
+            res[name] = line
+            if abs(requested_err) > requested_limit:
+                misses.append(f"{name}: arguments {requested_err} bytes off "
+                              "the requested bytes")
+            if abs(allocated_err) > allocated_limit:
+                misses.append(f"{name}: arguments {allocated_err} bytes off "
+                              "the allocated bytes")
+            if abs(peak_err) > PEAK_TOL:
+                misses.append(f"{name}: peak {peak_err:+.3f} off")
+    emit(dryrun_line("against_card", cells=res, misses=misses))
+    if misses:
+        raise AssertionError(f"the dry run missed the card: {misses}")
+    return res
+
+
+def uneven_cell(dev, mesh=None):
+    import torch
+
+    return lm_train_cell(dev, UNEVEN_ARCH, UNEVEN_LAYERS, UNEVEN_BATCH,
+                         torch.bfloat16, mesh=mesh)
+
+
+@contextlib.contextmanager
+def no_kv_sum():
+    """The planted fault of a replicated kv head whose gradient is not
+    summed over the ranks that share it (each keeps its own q heads'
+    share)."""
+    from repro_torch.launch import steps
+
+    saved = steps.collectives
+    steps.collectives = types.SimpleNamespace(
+        **{**vars(saved), "all_reduce": lambda x, group: x})
+    try:
+        yield
+    finally:
+        steps.collectives = saved
+
+
+def uneven_rank(rank: int, dev_type: str, path: str) -> dict:
+    """(c) on one rank: its block of qwen2-7b's parameters (its 4 q heads,
+    padded ones zero, and its kv head, whole) drawn as one device draws
+    them; one gradient pass held leaf by leaf to one device's gradients
+    cut the same way (a padded head's exactly zero) and in loss, at
+    BF16_TOL; the fault of an unsummed kv head must fail it; then one step,
+    after which its padded heads and their moments must be exactly zero.
+    Returns its kv leaves and moments for the parent's bitwise check."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves, tree_unflatten
+    from repro_torch.dist.sharding import (local_shard, pad_mask,
+                                           param_spec_tree)
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    dev = torch.device(dev_type)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_debug_mesh(1, UNEVEN_RANKS, device_type=dev_type)
+    ref = torch.load(path, map_location="cpu", weights_only=False, mmap=True)
+    cell = uneven_cell(dev, mesh)
+    state = cell.init_state(torch.Generator(dev).manual_seed(ref["seed"]))
+    b = cell.local_batch({"tokens": ref["tokens"].to(dev)})
+    params = state["params"]
+    whole = tree_unflatten(params, ref["grads"])
+    want = [w.to(dev) for w in tree_leaves(local_shard(
+        whole, param_spec_tree(cell.kind, whole), mesh,
+        heads=(cell.heads, cell.cfg.head_dim)))]
+    del whole
+    name = f"{UNEVEN_ARCH} uneven rank {rank}"
+    loss, grads = cell.value_and_grad(state, b)
+    loss_err = check(f"{name} loss", loss.cpu(), ref["loss"], BF16_TOL)
+    worst = leaf_checks(f"{name} gradient", tree_leaves(grads), want,
+                        BF16_TOL)
+    del grads
+    with no_kv_sum():
+        _, bad = cell.value_and_grad(state, b)
+    must_raise(f"{name}, an unsummed kv head", lambda: leaf_checks(
+        f"{name} gradient", tree_leaves(bad), want, BF16_TOL))
+    del bad, want
+    state, _ = cell.run(state, b)
+    i = mesh.axis_index("model")
+    attn = state["params"]["blocks"]["attn"]
+    padded = 0
+    for key, t in attn.items():
+        pad = pad_mask(["blocks", "attn", key], cell.heads, i,
+                       cell.cfg.head_dim, t.dim())
+        if pad is None:
+            continue
+        axis, mask = pad
+        idx = torch.as_tensor(mask.nonzero()[0], device=dev)
+        for tree, tname in ((state["params"], "params"),
+                            (state["opt"]["m"], "m"), (state["opt"]["v"], "v")):
+            leaf = tree["blocks"]["attn"][key]
+            if leaf.index_select(axis, idx).count_nonzero():
+                raise AssertionError(f"{name}: padded {key} {tname} not zero "
+                                     f"after the step")
+        if key == "wq":
+            padded = int(mask.sum()) // cell.cfg.head_dim
+    kv = {f"{tree}.{k}": t[k].cpu() for tree, t in (
+        ("params", attn), ("m", state["opt"]["m"]["blocks"]["attn"]),
+        ("v", state["opt"]["v"]["blocks"]["attn"]))
+        for k in ("wk", "wv", "bk", "bv")}
+    return {"rank": rank, "coords": mesh.coords, "share": cell.heads.share,
+            "heads": [cell.cfg.n_heads, cell.cfg.n_kv_heads],
+            "q_heads": cell.heads.q_heads(i),
+            "kv_heads": cell.heads.kv_heads(i), "loss": float(loss),
+            "loss_err": loss_err, "grad_err_relative_to_leaf_max": worst,
+            "padded_heads": padded, "kv": kv}
+
+
+def uneven_split(dev) -> dict:
+    """(c) qwen2-7b train_4k at FULL width, UNEVEN_LAYERS layers, batch
+    UNEVEN_BATCH, bf16 (row-parallel partials in f32), on UNEVEN_RANKS gloo
+    ranks on the card, (data 1, model 8): one device's gradients first,
+    handed to the ranks through a file; each rank's loss and gradient
+    blocks at BF16_TOL; the padded heads zero after the step; each kv
+    head's copies bitwise equal on the two ranks that hold it."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    ref = lm_train_reference(dev, UNEVEN_ARCH, UNEVEN_LAYERS, UNEVEN_BATCH,
+                             torch.bfloat16, UNEVEN_SEED)
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ref.pt")
+        torch.save(ref, path)
+        t = time.perf_counter()
+        ranks = spawn(uneven_rank, UNEVEN_RANKS, backend=DIST_BACKEND,
+                      init_file=Path(tmp) / "init", device=dev.type,
+                      args=(dev.type, path))
+        ranks_s = time.perf_counter() - t
+    copies = 0
+    by_head: dict = {}
+    for r in ranks:
+        by_head.setdefault(tuple(r["kv_heads"]), []).append(r)
+    share = ranks[0]["share"]
+    for head, rs in by_head.items():
+        if len(rs) != share:
+            raise AssertionError(f"kv head {head} on {len(rs)} ranks, not "
+                                 f"{share}")
+        for other in rs[1:]:
+            for k, t in rs[0]["kv"].items():
+                if not torch.equal(t, other["kv"][k]):
+                    raise AssertionError(
+                        f"kv head {head}: {k} differs between ranks "
+                        f"{rs[0]['rank']} and {other['rank']}")
+                copies += 1
+    # each kv head's g q heads padded to a multiple of its ranks
+    H, K = ranks[0]["heads"]
+    g = H // K
+    want_pads = K * (-(-g // share) * share - g)
+    pads = [r["padded_heads"] for r in ranks]
+    if sum(pads) != want_pads or want_pads != sum(
+            h < 0 for r in ranks for h in r["q_heads"]):
+        raise AssertionError(f"padded heads {pads} a rank, expected "
+                             f"{want_pads} in all")
+    per_rank = [{k: v for k, v in r.items() if k != "kv"} for r in ranks]
+    line = dryrun_line(
+        "uneven_split", config=f"{UNEVEN_ARCH} FULL width, {UNEVEN_LAYERS} "
+        f"layers, train_4k B {UNEVEN_BATCH} S 4096, bf16, (data 1, model "
+        f"{UNEVEN_RANKS}) gloo ranks on the card", tolerance=BF16_TOL,
+        loss_one_device=float(ref["loss"]), one_device_grad_ms=ref["grad_ms"],
+        reference_s=ref_s, ranks_s=ranks_s, kv_leaves_bitwise=copies,
+        per_rank=per_rank)
+    emit(line)
+    return line
+
+
+def phase_dryrun(dev, readings: dict) -> dict:
+    """(a) the dry run of every cell on both production meshes, (b) its
+    prediction against what the earlier phases measured, (c) the uneven
+    head split at full width on UNEVEN_RANKS ranks."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    predictions = start_predictions()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            sweep = dryrun_sweep(Path(tmp))
+        for line in sweep:
+            emit(line)
+        against = dryrun_against_card(predictions, readings)
+    finally:
+        if predictions.poll() is None:   # (a) failed first
+            predictions.kill()
+            predictions.wait()
+    res = {"phase": "dryrun",
+           "sweep": [{k: v for k, v in line.items() if k != "records"}
+                     for line in sweep],
+           "against_card": against, "uneven_split": uneven_split(dev)}
     res["seconds"] = time.perf_counter() - t0
     return res
 
@@ -5075,6 +5537,45 @@ def k4_case(name, streams, dev, bw: float, floor: dict, finish_reps=0):
     return out
 
 
+PROFILE_WORKERS = 8   # processes that profile the full-width day's pairs
+
+
+def profile_one_pair(workload: str, server: str) -> None:
+    """One (workload, server) pair of a table build, profiled as
+    ``core.efficiency.build_table`` profiles it, into the profile cache."""
+    from repro_torch.configs.paper_models import paper_profile
+    from repro_torch.core.devices import SERVER_TYPES
+    from repro_torch.core.efficiency import (TABLE_QPS_TOL,
+                                             default_query_sizes,
+                                             profile_pair)
+
+    profile_pair(paper_profile(workload), SERVER_TYPES[server],
+                 default_query_sizes(), seed=0, engine="fast",
+                 use_cache=True, qps_tol=TABLE_QPS_TOL)
+
+
+def profile_pairs(spec) -> float:
+    """Profile every (workload, server) pair of ``spec``'s table in
+    PROFILE_WORKERS processes at once, into the profile cache that its
+    compile then reads (the same records, one pair a process call);
+    returns the seconds."""
+    import concurrent.futures
+    import itertools
+    import multiprocessing
+
+    from repro_torch.core.devices import SERVER_TYPES
+
+    servers = spec.servers or tuple(SERVER_TYPES)
+    pairs = list(itertools.product(spec.workload_names(), servers))
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            PROFILE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        for f in [pool.submit(profile_one_pair, w, s) for w, s in pairs]:
+            f.result()
+    return time.perf_counter() - t0
+
+
 def phase_cluster(dev, bw: float, probes) -> dict:
     """(a) K4 alone at bench_cluster's fleet shape and at a full-width
     day's longest chain, (b) the smoke event-core day (as it is, then with
@@ -5098,6 +5599,11 @@ def phase_cluster(dev, bw: float, probes) -> dict:
     res["a_day_shape"] = k4_case("day shape", k4_day_streams(), dev, bw,
                                  floor)
     res["a_floor_ns_per_step"] = floor
+
+    # every pair of the full-width day's table (the smoke day's among them)
+    # profiled at once into the profile cache, which the compiles then read
+    full = full_scale(get_scenario("baseline_day"), n_steps=FULL_STEPS)
+    profile_s = profile_pairs(full)
 
     # (b) the smoke event-core day
     spec = dataclasses.replace(
@@ -5143,7 +5649,6 @@ def phase_cluster(dev, bw: float, probes) -> dict:
     res["b_bench_smoke_reference_cpu"] = BENCH_SMOKE_DAY
 
     # (c) full width: all six workloads x all eleven server types
-    full = full_scale(get_scenario("baseline_day"), n_steps=FULL_STEPS)
     t0 = time.perf_counter()
     bridged = compile_scenario(full)
     compile_s = time.perf_counter() - t0
@@ -5171,6 +5676,7 @@ def phase_cluster(dev, bw: float, probes) -> dict:
                f"{len(bridged.table.workloads)} workloads x "
                f"{len(bridged.table.servers)} server types",
         "event_core_queries": FULL_CAP,
+        "profile_s": profile_s, "profile_workers": PROFILE_WORKERS,
         "compile_s": compile_s,
         "day_s": wall - log["check_s"], "check_s": log["check_s"],
         "k4_launches": launches, "k4_device_ms": log["k4_device_ms"],
@@ -5511,60 +6017,92 @@ def main() -> int:
     from repro_torch.configs.paper_models import rmc1, rmc3
 
     dev = torch.device("cuda")
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name: str, fn):
+        """``fn()``, its seconds kept in ``seconds`` and, where it returns
+        a phase's line, in the line."""
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t
+        if isinstance(out, dict):
+            out.setdefault("seconds", seconds[name])
+        return out
+
     # 3. kernel
-    k1 = phase_kernel(dev, bw, f32_rate, rmc1(True), dlrm_rm2.FULL,
-                      rmc3(True))
+    k1 = timed("kernel", lambda: phase_kernel(dev, bw, f32_rate, rmc1(True),
+                                              dlrm_rm2.FULL, rmc3(True)))
 
     # 4. serve (the DLRM path; the K1 count is reset inside, just before it)
-    serve_line = phase_serve(dev, rmc1(True))
+    serve_line = timed("serve", lambda: phase_serve(dev, rmc1(True)))
     emit(serve_line)
 
     # 5-6. the attention kernels alone
-    k3 = phase_decode_kernel(dev, bw)
+    k3 = timed("decode_kernel", lambda: phase_decode_kernel(dev, bw))
     emit(k3)
-    k2 = phase_attention_kernel(dev, bw)
+    k2 = timed("attention_kernel", lambda: phase_attention_kernel(dev, bw))
     emit(k2)
 
     # 7. the LM path (K3's count is reset inside, just before each cell)
-    lm = phase_lm(dev)
+    lm = timed("lm", lambda: phase_lm(dev))
     emit(lm)
 
     # 8. the other LM families' decode_32k (K3's count reset inside, just
     # before each step), then llama3.2-3b's train_4k
-    lm_configs = phase_lm_configs(dev, bw)
+    lm_configs = timed("lm_configs", lambda: phase_lm_configs(dev, bw))
     emit(lm_configs)
-    lm_train = phase_lm_train(dev)
+    lm_train = timed("lm_train", lambda: phase_lm_train(dev))
     emit(lm_train)
 
     # 9. the recsys slice (K1's count is reset inside, just before each path)
-    recsys = phase_recsys(dev, bw, f32_rate)
+    recsys = timed("recsys", lambda: phase_recsys(dev, bw, f32_rate))
     emit(recsys)
 
     # 10. training (K1's counts are reset inside, just before the train
     # cells), then launch.train_dlrm through the checkpointing Trainer (K1's
     # counts reset inside, just before run A)
-    train = phase_train(dev, bw, f32_rate)
+    train = timed("train", lambda: phase_train(dev, bw, f32_rate))
     emit(train)
-    trainer = phase_trainer(dev, bw, f32_rate)
+    trainer = timed("trainer", lambda: phase_trainer(dev, bw, f32_rate))
     emit(trainer)
 
     # 11. the distributed layer: rank processes on the card (each rank's
     # counts are reset inside, just before its main path)
-    dist = phase_dist(dev, bw, f32_rate)
+    dist = timed("dist", lambda: phase_dist(dev, bw, f32_rate))
     emit({k: dist[k] for k in ("phase", "ranks", "backend", "one_card",
                                "ranks_s", "nccl_s", "seconds")})
 
     # 12. the train and prefill cells on a mesh (each rank's counts are
     # reset inside, just before its main path)
-    dist_train = phase_dist_train(dev, bw, f32_rate)
+    dist_train = timed("dist_train",
+                       lambda: phase_dist_train(dev, bw, f32_rate))
     emit({k: dist_train[k] for k in ("phase", "ranks", "backend",
                                      "one_card", "ranks_s", "reference_s",
                                      "seconds")})
 
-    # 13. the cluster day (K4's count is reset inside, just before each day)
-    cluster = phase_cluster(dev, bw, probes)
+    # 13. the dry run of every cell on the production meshes, held to what
+    # the phases above measured, and the uneven head split on 8 ranks
+    readings = {
+        "lm_decode_32k": lm["decode_32k"]["memory"],
+        "lm_prefill_32k": lm["prefill_32k"]["memory"],
+        "lm_train_4k": lm_train["memory"],
+        "rm2_train_batch": next(c["memory"] for c in train["cells"]
+                                if c["arch"] == "dlrm-rm2"),
+        "ogb_products": next(c["memory"] for c in train["cells"]
+                             if c["shape"] == "ogb_products"),
+        "dist_rm2_train_batch": [r["memory"] for r in
+                                 dist_train["rm2"]["per_rank"]],
+        "dist_lm_train_4k": [r["memory"] for r in
+                             dist_train["llama_bf16"]["per_rank"]]}
+    dryrun = timed("dryrun", lambda: phase_dryrun(dev, readings))
+    emit({k: dryrun[k] for k in ("phase", "sweep", "seconds")})
+
+    # 14. the cluster day (K4's count is reset inside, just before each day)
+    cluster = timed("cluster", lambda: phase_cluster(dev, bw, probes))
     emit(cluster)
 
+    emit({"phase": "seconds", **seconds,
+          "total": time.perf_counter() - t_start})
     emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, lm_configs,
                                     recsys, train, trainer, dist, dist_train,
                                     cluster),

@@ -20,6 +20,8 @@ def _f32(shape, device):
 def normal_init(shape: Sequence[int], *, generator: torch.Generator,
                 device: torch.device, stddev: float = 0.02,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    if torch.device(device).type == "meta":  # the dry run: shapes, no draw
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     x = _f32(shape, device).normal_(0.0, stddev, generator=generator)
     return x.to(dtype)
 
@@ -27,6 +29,8 @@ def normal_init(shape: Sequence[int], *, generator: torch.Generator,
 def uniform_init(shape: Sequence[int], scale: float, *,
                  generator: torch.Generator, device: torch.device,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     x = _f32(shape, device).uniform_(-scale, scale, generator=generator)
     return x.to(dtype)
 

@@ -70,12 +70,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
     ``"cuda"`` (the default everywhere in the port) requires a card and
     raises without one: the port never moves work to the CPU unasked.
+    ``"meta"`` is the dry run's (``repro_torch.launch.dryrun``): tensors of
+    the card's shapes that hold no data and compute nothing.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} requested but no CUDA device is "
             "available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev

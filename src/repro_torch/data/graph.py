@@ -52,10 +52,12 @@ def _stable_argsort(keys: np.ndarray, n_keys: int) -> np.ndarray:
 
 
 def synthetic_graph(n_nodes: int, avg_degree: int, d_feat: int, n_classes: int,
-                    seed: int = 0) -> CSRGraph:
-    """Power-law (preferential-attachment-ish) synthetic graph in CSR."""
+                    seed: int = 0, n_edges: int | None = None) -> CSRGraph:
+    """Power-law (preferential-attachment-ish) synthetic graph in CSR, of
+    ``n_edges`` edges (``n_nodes * avg_degree`` by default)."""
     rng = np.random.default_rng(seed)
-    n_edges = n_nodes * avg_degree
+    if n_edges is None:
+        n_edges = n_nodes * avg_degree
     # power-law target popularity for edge endpoints
     pop = rng.zipf(1.3, n_edges * 2) % n_nodes
     src = pop[:n_edges].astype(np.int64)
@@ -136,11 +138,14 @@ def pack_graphs(feats, edges, max_nodes: int, max_edges: int):
 def cell_graph(cfg, dims: dict, seed: int) -> CSRGraph | None:
     """The synthetic graph a full or mini GNN cell draws from (None for a
     batched cell): ``dims["graph_nodes"]`` nodes at
-    ``dims["graph_degree"]`` edges a node, ``cfg``'s features and classes."""
+    ``dims["graph_degree"]`` edges a node (a full graph: exactly
+    ``dims["n_edges"]`` edges), ``cfg``'s features and classes."""
     if cfg.mode == "batched":
         return None
     return synthetic_graph(dims["graph_nodes"], dims["graph_degree"],
-                           cfg.d_feat, cfg.n_classes, seed=seed)
+                           cfg.d_feat, cfg.n_classes, seed=seed,
+                           n_edges=dims["n_edges"] if cfg.mode == "full"
+                           else None)
 
 
 def cell_batch(cfg, dims: dict, seed: int, graph: CSRGraph | None = None

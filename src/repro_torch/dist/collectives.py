@@ -1,9 +1,14 @@
 """The collectives of the distributed layer, in one place.
 
 Every dataflow of ``repro_torch.dist`` moves data between ranks only
-through these wrappers, so their ``calls`` are the port's record of
-collective traffic (the collectives a remat'ed block runs again in the
-backward included).  They use whatever backend the caller initialised the
+through these wrappers, so their ``calls`` and ``nbytes`` are the port's
+record of collective traffic (the collectives a remat'ed block runs again
+in the backward included).  ``nbytes`` counts a rank's bytes on the wire
+as the reference's dry run does (``_WIRE_FACTOR``: an all-reduce twice its
+result's bytes, a ring's reduce-scatter and all-gather; an all-gather its
+result's), counted while the step runs rather than read off a compiled
+graph; ``recording`` hands each call's kind, bytes and group to the dry
+run.  They use whatever backend the caller initialised the
 process group with; nothing here picks gloo or NCCL, and nothing copies a
 tensor to the host: gloo in torch 2.11 takes CUDA tensors for both
 (checked on an H100), so no collective is staged through host memory.
@@ -33,18 +38,43 @@ replicated tensor entered through ``enter``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
 calls = {"all_reduce": 0, "all_gather": 0}
+nbytes = {"all_reduce": 0, "all_gather": 0}
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# a rank's bytes on the wire per byte of the result (ring algorithms)
+_WIRE_FACTOR = {"all_reduce": 2, "all_gather": 1}
+_recorders: list = []
 
 
 def reset() -> None:
     """Set every count to 0."""
     for k in calls:
-        calls[k] = 0
+        calls[k] = nbytes[k] = 0
+
+
+@contextlib.contextmanager
+def recording(fn):
+    """Call ``fn(kind, wire_bytes, group)`` for each collective of the
+    enclosed calls."""
+    _recorders.append(fn)
+    try:
+        yield
+    finally:
+        _recorders.remove(fn)
+
+
+def _count(kind: str, result: torch.Tensor, group) -> None:
+    calls[kind] += 1
+    wire = _WIRE_FACTOR[kind] * result.numel() * result.element_size()
+    nbytes[kind] += wire
+    for fn in _recorders:
+        fn(kind, wire, group)
 
 
 def _wants_grad(x: torch.Tensor) -> bool:
@@ -72,7 +102,7 @@ class _Enter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         g = grad.contiguous().clone()
-        calls["all_reduce"] += 1
+        _count("all_reduce", g, ctx.group)
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
         return g, None
 
@@ -81,7 +111,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The elementwise ``op`` ("sum" or "max") of ``x`` over the ranks of
     ``group``.  Without autograd ``x`` is reduced in place and returned;
     under autograd (sum only) a new tensor whose gradient is the identity."""
-    calls["all_reduce"] += 1
+    _count("all_reduce", x, group)
     if _wants_grad(x):
         if op != "sum":
             raise NotImplementedError(f"all_reduce {op!r} under autograd")
@@ -139,9 +169,9 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     gradient yet (it raises under autograd)."""
     if _wants_grad(x):
         raise NotImplementedError("all_gather under autograd")
-    calls["all_gather"] += 1
     w = dist.get_world_size(group)
     flat = x.contiguous().reshape(1, -1)
     out = torch.empty((w, flat.shape[1]), dtype=x.dtype, device=x.device)
+    _count("all_gather", out, group)
     dist.all_gather_into_tensor(out, flat, group=group)
     return out.reshape(-1, *x.shape)

@@ -83,7 +83,9 @@ def dispatch_indices(topk: torch.Tensor, n_experts: int, capacity: int,
     # over ALL experts so that a window sees the ranks of the full
     # dispatch: a stable sort by expert, less each expert's first place
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=n_experts)
+    # bincount's counts (it has no meta kernel, which the dry run traces)
+    counts = torch.zeros(n_experts, dtype=flat.dtype, device=dev).index_add_(
+        0, flat, torch.ones_like(flat))
     first = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(flat)
     rank[order] = torch.arange(n * k, device=dev) - first[flat[order]]

@@ -22,12 +22,23 @@ parameter specs in the reference's order.
 ``local_shard`` is the port's: it gives a rank its block of each leaf of a
 whole tree, which is how a rank's state is made from the same numbers as a
 single-device run.
+
+Tensor parallelism keeps whole heads on a rank (``HeadSplit``).  Where
+the "model" ranks outnumber the kv heads, the reference's GSPMD splits
+the flat columns of ``wq`` (llama3.2-3b's 3,072 over 16 devices: 1.5
+heads a device); the port instead replicates each kv head on the ranks
+that share it and pads its group of q heads with zero heads to a
+multiple of them.  That is another layout of the same function, whose
+blocks ``local_shard(..., heads=)`` cuts.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
 from typing import Any, Callable
+
+import numpy as np
+import torch
 
 from repro_torch.common.types import ArchKind, TensorSpec
 from repro_torch.dist.logical import shard_index, shards
@@ -251,6 +262,148 @@ def opt_spec_tree(kind: ArchKind, opt_state, param_specs, strict: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# whole heads over the "model" ranks
+# ---------------------------------------------------------------------------
+
+_Q_LEAVES = ("wq", "bq", "wo")      # columns (wo: rows) of the q heads
+_KV_LEAVES = ("wk", "wv", "bk", "bv")  # columns of the kv heads
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """Whole attention heads over the ``ranks`` ranks of the "model" axes:
+    ``n_heads`` q heads in ``n_kv_heads`` groups of g = n_heads /
+    n_kv_heads.
+
+    - ``n_kv_heads >= ranks`` (a multiple of them): rank i holds kv heads
+      [i k, (i + 1) k), k = n_kv_heads / ranks, and their g k q heads;
+    - ``n_kv_heads < ranks`` (a divisor of them): kv head j is whole on
+      the ``share`` = ranks / n_kv_heads ranks [j share, (j + 1) share),
+      replicated, and its g q heads, padded with zero heads to
+      ceil(g / share) * share, are split over them in order.  A padded
+      head's ``wq`` columns and ``wo`` rows are zero, so it adds nothing,
+      and it takes no gradient (``pad_mask``).
+
+    ``HeadSplit.of`` raises for any other case, naming the config."""
+
+    n_heads: int
+    n_kv_heads: int
+    ranks: int
+
+    @classmethod
+    def of(cls, name: str, n_heads: int, n_kv_heads: int, ranks: int
+           ) -> "HeadSplit":
+        if n_heads % n_kv_heads:
+            raise ValueError(f"{name}: {n_heads} heads do not group over "
+                             f"{n_kv_heads} kv_heads")
+        if (n_kv_heads % ranks if n_kv_heads >= ranks
+                else ranks % n_kv_heads):
+            raise ValueError(f"{name}: {n_kv_heads} kv_heads neither split "
+                             f"over nor divide the {ranks} ranks of the "
+                             f"heads' axes")
+        return cls(n_heads, n_kv_heads, ranks)
+
+    @property
+    def group(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    @property
+    def share(self) -> int:
+        """Ranks that hold each kv head (1: no replication)."""
+        return max(1, self.ranks // self.n_kv_heads)
+
+    @property
+    def kv_local(self) -> int:
+        return max(1, self.n_kv_heads // self.ranks)
+
+    @property
+    def q_local(self) -> int:
+        """q heads a rank holds, padding included."""
+        return -(-self.group // self.share) * self.kv_local
+
+    @property
+    def padded(self) -> bool:
+        return self.q_local * self.ranks > self.n_heads
+
+    def kv_heads(self, i: int) -> list[int]:
+        """The kv heads rank i (its index over the heads' axes) holds."""
+        if self.share == 1:
+            return list(range(i * self.kv_local, (i + 1) * self.kv_local))
+        return [i // self.share]
+
+    def q_heads(self, i: int) -> list[int]:
+        """The q head in each of rank i's slots, -1 for a padded one."""
+        g = self.group
+        if self.share == 1:
+            return [j * g + t for j in self.kv_heads(i) for t in range(g)]
+        j, p, m = i // self.share, i % self.share, self.q_local
+        return [j * g + t if t < g else -1 for t in range(p * m, (p + 1) * m)]
+
+
+def head_leaf(names) -> str | None:
+    """"q" or "kv" for an attention leaf cut by heads, else None."""
+    last = names[-1] if names else ""
+    if "attn" not in names:
+        return None
+    return "q" if last in _Q_LEAVES else "kv" if last in _KV_LEAVES else None
+
+
+def _head_index(heads: list[int], hd: int):
+    """The flat columns of ``heads`` (-1: a padded head, column 0) and the
+    mask of the real ones."""
+    cols = np.array([max(h, 0) * hd + c for h in heads for c in range(hd)],
+                    dtype=np.int64)
+    real = np.repeat(np.array([h >= 0 for h in heads]), hd)
+    return cols, real
+
+
+def _head_dim_axis(names, ndim: int) -> int:
+    """The axis of a head-cut leaf that holds the heads: wo's rows, the
+    last axis of every other one."""
+    return ndim - 2 if names[-1] == "wo" else ndim - 1
+
+
+def head_block(leaf, names, split: HeadSplit, i: int, hd: int):
+    """Rank i's block of a whole attention leaf (``head_leaf(names)``):
+    the columns (``wo``: rows) of its heads, zero for a padded head.  A
+    ``TensorSpec`` comes back with the block's shape."""
+    kind = head_leaf(names)
+    heads = split.q_heads(i) if kind == "q" else split.kv_heads(i)
+    axis = _head_dim_axis(names, len(leaf.shape))
+    if isinstance(leaf, TensorSpec):
+        shape = list(leaf.shape)
+        shape[axis] = len(heads) * hd
+        return TensorSpec(tuple(shape), leaf.dtype)
+    cols, real = _head_index(heads, hd)
+    if isinstance(leaf, torch.Tensor):
+        out = leaf.index_select(axis,
+                                torch.as_tensor(cols, device=leaf.device))
+        if not real.all():
+            shape = [1] * out.dim()
+            shape[axis] = -1
+            out = out * torch.as_tensor(real, device=leaf.device).reshape(
+                shape).to(out.dtype)
+        return out.contiguous()
+    out = np.take(leaf, cols, axis=axis)
+    if not real.all():
+        shape = [1] * out.ndim
+        shape[axis] = -1
+        out = out * real.reshape(shape).astype(out.dtype)
+    return np.ascontiguousarray(out)
+
+
+def pad_mask(names, split: HeadSplit, i: int, hd: int, ndim: int):
+    """(axis, bool numpy mask of the head axis) of rank i's padded q-head
+    entries in a "q" leaf, or None where it holds no padding."""
+    if head_leaf(names) != "q" or not split.padded:
+        return None
+    _, real = _head_index(split.q_heads(i), hd)
+    if real.all():
+        return None
+    return _head_dim_axis(names, ndim), ~real
+
+
+# ---------------------------------------------------------------------------
 # a rank's block
 # ---------------------------------------------------------------------------
 
@@ -281,19 +434,31 @@ def _block(leaf, spec: Spec, mesh):
         index.append(slice(i * k, (i + 1) * k))
     local_shape(leaf.shape, spec, mesh)  # raises on a dimension that does not split
     block = leaf[tuple(index)]
-    return block.contiguous() if hasattr(block, "contiguous") else block
+    if not isinstance(block, torch.Tensor):
+        return block
+    if block.untyped_storage().nbytes() > block.numel() * block.element_size():
+        # a copy of the block alone: a view would keep the whole leaf alive
+        return block.clone(memory_format=torch.contiguous_format)
+    return block.contiguous()
 
 
-def local_shard(tree, spec_tree, mesh):
+def local_shard(tree, spec_tree, mesh, heads: tuple | None = None):
     """This rank's block of every leaf: a dimension bound to axes (a, b)
     is cut into size(a) * size(b) blocks, and the rank takes block i =
     idx(a) * size(b) + idx(b), major first (as ``seq_shard_index`` orders
     it).  Tensors come back contiguous; ``TensorSpec`` leaves come back
-    with their local shape."""
+    with their local shape.  ``heads=(split, head_dim)`` cuts an LM's
+    attention leaves by whole heads (``head_block``; the heads' axes are
+    their spec's) instead of by flat columns."""
     flat = dict(_flatten(spec_tree, is_leaf=lambda x: isinstance(x, Spec)))
 
     def one(path, leaf):
         spec = flat[path]
+        if heads is not None and head_leaf(_names(path)):
+            split, hd = heads
+            axes = [b for b in spec if b]
+            i = shard_index(mesh, axes[0]) if axes else 0
+            return head_block(leaf, _names(path), split, i, hd)
         if isinstance(leaf, TensorSpec):
             return TensorSpec(local_shape(leaf.shape, spec, mesh), leaf.dtype)
         return _block(leaf, spec, mesh)

@@ -164,6 +164,27 @@ class GradLaunch:
         return self._pairs(self._layout[3])
 
 
+def grad_scratch_bytes(n: int, n_rows: int, D: int, esize: int) -> int:
+    """The scratch of one call of K1's backward over ``n`` slots, ``n_rows``
+    rows of ``D`` elements of ``esize`` bytes: ``make_plan``'s layout in
+    ``csrc/embedding_bag_grad.cu`` (what ``repro_embedding_bag_grad_layout``
+    returns), computed on the host for the dry run's shape-only path."""
+    tile, digits, scan_tiles = 4096, 512, 64
+    L = 32 if D > 1 else 1
+    nv = D * esize // 16
+    if (D * esize) % 16 == 0 and nv <= 8:  # k1g_sum_async's lanes
+        L = 1
+        while L < nv:
+            L <<= 1
+    chunk_len = (64 if n >= 1 << 25 else 16) * L
+    tiles = -(-n // tile)
+    n_chunks = -(-n // chunk_len)
+    parts = (16, 4 * (tiles + 1), 8 * n, 8 * n, 4 * digits * tiles,
+             4 * digits * -(-tiles // scan_tiles), 4 * -(-n_rows // 32),
+             4 * 2 * n_chunks * D)
+    return sum((b + 255) & ~255 for b in parts)
+
+
 def embedding_bag_grad_cuda(grad: torch.Tensor, ids: torch.Tensor,
                             row_offsets: torch.Tensor | None,
                             n_rows: int, row_lo: int = 0) -> torch.Tensor:

@@ -36,7 +36,10 @@ D]: the gradient kernel's windowed instance drops every pair outside the
 window in its first stage.  Without grad the forward is called as it is.
 
 Which version runs is decided by where the caller put the tensors, never
-by what is installed: a CUDA tensor launches the kernel or raises.
+by what is installed: a CUDA tensor launches the kernel or raises.  A
+``meta`` tensor takes the shape-only path (``repro_torch.kernels.fake``):
+the kernel's outputs, its backward's scratch, and the work of one launch
+reported, with every slot counted live (a meta tensor holds no ids).
 """
 from __future__ import annotations
 
@@ -44,10 +47,12 @@ import torch
 
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import fake
 from repro_torch.kernels.embedding_bag.embedding_bag import (
     NO_WINDOW,
     embedding_bag_cuda,
     embedding_bag_grad_cuda,
+    grad_scratch_bytes,
 )
 from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_features_grad_ref,
@@ -74,9 +79,9 @@ def _check_table(table: torch.Tensor, ids: torch.Tensor) -> None:
         raise TypeError(f"ids must be int32, got {ids.dtype}")
     if table.device != ids.device:
         raise ValueError(f"table on {table.device} but ids on {ids.device}")
-    if table.device.type not in ("cpu", "cuda"):
+    if table.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {table.device}")
-    if table.device.type == "cuda":
+    if table.device.type != "cpu":
         if table.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"kernel takes float32 or bfloat16 tables, got "
                             f"{table.dtype}")
@@ -94,11 +99,25 @@ def _check_offsets(ids: torch.Tensor, row_offsets: torch.Tensor) -> None:
                          f"{ids.device}")
 
 
+def _fake_bag(table, ids, row_offsets, out_dtype) -> torch.Tensor:
+    """The shape-only launch: B * F * P * D adds; the ids, one row a slot
+    and the output moved once."""
+    out = torch.empty((*ids.shape[:-1], table.shape[1]), dtype=out_dtype,
+                      device=table.device)
+    slots = ids.numel() * table.shape[1]
+    fake.report("k1", flops=slots, dtype=torch.float32, nbytes=fake.nbytes(
+        ids, out) + slots * table.element_size() + (
+        0 if row_offsets is None else fake.nbytes(row_offsets)))
+    return out
+
+
 def _launch(table, ids, row_offsets=None) -> torch.Tensor:
     global launches
     if ids.numel() == 0 or table.shape[1] == 0:
         return torch.zeros((*ids.shape[:-1], table.shape[1]),
                            dtype=table.dtype, device=table.device)
+    if fake.is_fake(table):
+        return _fake_bag(table, ids, row_offsets, table.dtype)
     out = embedding_bag_cuda(table, ids, row_offsets)
     launches += 1
     return out
@@ -166,7 +185,7 @@ def embedding_bag_features(table: torch.Tensor, ids: torch.Tensor,
                          f"{tuple(table.shape)} and {tuple(ids.shape)}")
     _check_table(table, ids)
     _check_offsets(ids, row_offsets)
-    if table.device.type == "cuda" and not row_offsets.is_contiguous():
+    if table.device.type != "cpu" and not row_offsets.is_contiguous():
         raise ValueError("kernel takes contiguous row_offsets")
     window = _window_args(table, row_window, out_dtype)
     if _wants_grad(table):
@@ -207,6 +226,8 @@ def _bag_forward(table, ids, row_offsets, window) -> torch.Tensor:
     if ids.numel() == 0 or table.shape[1] == 0 or table.shape[0] == 0:
         return torch.zeros((B, F, table.shape[1]), dtype=out_dtype,
                            device=table.device)
+    if fake.is_fake(table):
+        return _fake_bag(table, ids, row_offsets, out_dtype)
     out = embedding_bag_cuda(table, ids, row_offsets, row_window=bounds,
                              out_dtype=out_dtype)
     if row_window is None:
@@ -247,9 +268,9 @@ def _check_grad(grad: torch.Tensor, ids: torch.Tensor, n_rows: int) -> None:
         raise ValueError(f"grad on {grad.device} but ids on {ids.device}")
     if ids.dtype != torch.int32:
         raise TypeError(f"ids must be int32, got {ids.dtype}")
-    if grad.device.type not in ("cpu", "cuda"):
+    if grad.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {grad.device}")
-    if grad.device.type == "cuda":
+    if grad.device.type != "cpu":
         if grad.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"kernel takes float32 or bfloat16 gradients, "
                             f"got {grad.dtype}")
@@ -278,11 +299,30 @@ def _launch_grad(grad: torch.Tensor, ids: torch.Tensor,
     if D == 0 or n_rows == 0:
         return torch.zeros((n_rows, D), dtype=grad.dtype, device=grad.device)
     grad = grad.contiguous()
+    if fake.is_fake(grad):
+        return _fake_grad(grad, ids, row_offsets, n_rows)
     if grad.data_ptr() % 16:  # the kernel's 16-byte row loads
         grad = grad.clone()
     out = embedding_bag_grad_cuda(grad, ids.contiguous(), row_offsets, n_rows,
                                   row_lo)
     grad_launches += 1
+    return out
+
+
+def _fake_grad(grad, ids, row_offsets, n_rows: int) -> torch.Tensor:
+    """The shape-only backward: its output and scratch allocated as
+    ``embedding_bag.GradLaunch`` allocates them; slots * D adds; the pooled
+    gradient and the ids read, the table gradient written, once."""
+    out = torch.empty((n_rows, grad.shape[1]), dtype=grad.dtype,
+                      device=grad.device)
+    scratch = torch.empty(grad_scratch_bytes(ids.numel(), n_rows,
+                                             grad.shape[1],
+                                             grad.element_size()),
+                          dtype=torch.uint8, device=grad.device)
+    del scratch
+    fake.report("k1_grad", flops=ids.numel() * grad.shape[1],
+                dtype=torch.float32, nbytes=fake.nbytes(grad, ids, out) + (
+                    0 if row_offsets is None else fake.nbytes(row_offsets)))
     return out
 
 

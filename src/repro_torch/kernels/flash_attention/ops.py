@@ -14,7 +14,9 @@ flops) and K2 at prefill lengths by tensor-core operations; the designs are
 in ``csrc/flash_decode.cu`` and ``csrc/flash_attention.cu``.
 
 Which version runs is decided by where the caller put the tensors, never
-by what is installed: a CUDA tensor launches the kernel or raises.  Each
+by what is installed: a CUDA tensor launches the kernel or raises, and a
+``meta`` tensor takes the shape-only path (``repro_torch.kernels.fake``:
+the outputs, and one launch's work reported).  Each
 wrapper call that launches adds one to ``launches[name]`` (K3's one call
 runs a split kernel and a small merge kernel).  ``bq``/``bk`` are the
 reference's tile arguments: the kernels choose their own tiles and mask
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fake
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.flash_attention import (
     MAX_HEAD_DIM,
@@ -61,7 +64,7 @@ def _check(q, k, v, name: str, kv_dtype=None) -> bool:
                          f"{v.device}")
     if q.device.type == "cpu":
         return False
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {q.device}")
     want_kv = q.dtype if kv_dtype is None else kv_dtype
     if not (k.dtype == v.dtype == want_kv) or q.dtype not in (
@@ -71,7 +74,7 @@ def _check(q, k, v, name: str, kv_dtype=None) -> bool:
                         f"{v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: kernel takes contiguous q, k, v")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if q.device.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: kernel takes 16-byte aligned q, k, v")
     return True
 
@@ -89,6 +92,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {hd} > {MAX_HEAD_DIM}")
     if q.numel() == 0:
+        return torch.empty_like(q)
+    if fake.is_fake(q):
+        B, Tq, H, _ = q.shape
+        pairs = Tq * k.shape[1]
+        if causal:  # query i sees keys j <= q_offset + i
+            pairs = sum(min(max(q_offset + i + 1, 0), k.shape[1])
+                        for i in range(Tq))
+        fake.report("k2", flops=4 * B * H * pairs * hd, dtype=q.dtype,
+                    nbytes=2 * fake.nbytes(q) + fake.nbytes(k, v))
         return torch.empty_like(q)
     out = flash_attention_cuda(q, k, v, causal=causal, q_offset=int(q_offset))
     launches["flash_attention"] += 1
@@ -121,6 +133,28 @@ def _check_decode(q, k, v, kv_len, kv_offset, bk, kv_dtype=None) -> bool:
     return True
 
 
+def _fake_decode(name: str, q, cache: tuple, kv_len: int, kv_offset: int,
+                 partials: bool = False):
+    """K3's shape-only launch over a cache slice of global rows
+    [kv_offset, kv_offset + S): 4 * B * H * live * hd operations over its
+    live rows (those below ``kv_len``), which with q are read once and the
+    output written once; the output, or the float32 partials."""
+    B, _, H, hd = q.shape
+    S, KVH = cache[0].shape[1], cache[0].shape[2]
+    live = min(max(kv_len - kv_offset, 0), S)
+    if partials:
+        G = H // KVH
+        out = tuple(torch.empty((B, KVH, G, n), dtype=torch.float32,
+                                device=q.device) for n in (1, 1, hd))
+    else:
+        out = torch.empty_like(q)
+    rows = sum(t.numel() // S * live * t.element_size() for t in cache)
+    written = fake.nbytes(*out) if partials else fake.nbytes(out)
+    fake.report(name, flops=4 * B * H * live * hd, dtype=q.dtype,
+                nbytes=fake.nbytes(q) + rows + written)
+    return out
+
+
 def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, kv_len: int, kv_offset: int = 0, bk: int = 512):
     """Per-(batch, kv-head, group) softmax partials over a KV slice.
@@ -134,6 +168,9 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _check_decode(q, k, v, kv_len, kv_offset, bk):
         return ref.flash_decode_partials_ref(q, k, v, kv_len=kv_len,
                                              kv_offset=kv_offset, bk=bk)
+    if fake.is_fake(q):
+        return _fake_decode("k3_partials", q, (k, v), kv_len, kv_offset,
+                            partials=True)
     out = flash_decode_partials_cuda(q, k, v, kv_len=int(kv_len),
                                      kv_offset=int(kv_offset))
     launches["flash_decode"] += 1
@@ -152,6 +189,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _check_decode(q, k, v, kv_len, kv_offset, bk):
         return ref.flash_decode_ref(q, k, v, kv_len=kv_len,
                                     kv_offset=kv_offset, bk=bk)
+    if fake.is_fake(q):
+        return _fake_decode("k3", q, (k, v), kv_len, kv_offset)
     out = flash_decode_cuda(q, k, v, kv_len=int(kv_len),
                             kv_offset=int(kv_offset))
     launches["flash_decode"] += 1
@@ -194,6 +233,8 @@ def flash_decode_int8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     if not _check_int8(q, kq, ks, vq, vs, kv_len, kv_offset, bk):
         return ref.flash_decode_int8_ref(q, kq, ks, vq, vs, kv_len=kv_len,
                                          kv_offset=kv_offset, bk=bk)
+    if fake.is_fake(q):
+        return _fake_decode("k3_int8", q, (kq, ks, vq, vs), kv_len, kv_offset)
     out = flash_decode_int8_cuda(q, kq, ks, vq, vs, kv_len=int(kv_len),
                                  kv_offset=int(kv_offset))
     launches["flash_decode_int8"] += 1
@@ -214,6 +255,9 @@ def flash_decode_int8_partials(q: torch.Tensor, kq: torch.Tensor,
     if not _check_int8(q, kq, ks, vq, vs, kv_len, kv_offset, bk):
         return ref.flash_decode_int8_partials_ref(
             q, kq, ks, vq, vs, kv_len=kv_len, kv_offset=kv_offset, bk=bk)
+    if fake.is_fake(q):
+        return _fake_decode("k3_int8_partials", q, (kq, ks, vq, vs), kv_len,
+                            kv_offset, partials=True)
     out = flash_decode_int8_partials_cuda(q, kq, ks, vq, vs,
                                           kv_len=int(kv_len),
                                           kv_offset=int(kv_offset))

@@ -58,6 +58,7 @@ class Mesh:
                                             mesh_dim_names=axis_names)
         rank = dist.get_rank()
         self.coords = dict(zip(axis_names, _unravel(rank, shape)))
+        self._blocks = {}
         self._groups = {(a,): self.device_mesh.get_group(a)
                         for a in axis_names}
         # every set of two or more axes: the groups of ranks that share the
@@ -81,6 +82,33 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    def block_group(self, axis: str, size: int):
+        """The group of the ranks that share this rank's coordinates on the
+        other axes and whose ``axis`` coordinate lies in its block of
+        ``size`` consecutive ones (the ranks that hold one replicated kv
+        head of an uneven head split).  The first call for an (axis, size)
+        creates every such group on every rank, so all ranks make it in
+        one order, as ``new_group`` requires."""
+        key = (axis, size)
+        if key not in self._blocks:
+            n = self.shape[axis]
+            if n % size:
+                raise ValueError(f"{n} {axis} ranks do not tile blocks of "
+                                 f"{size}")
+            rank, mine = dist.get_rank(), None
+            rest = [a for a in self.axis_names if a != axis]
+            for fixed in itertools.product(
+                    *(range(self.shape[a]) for a in rest)):
+                for b in range(n // size):
+                    ranks = [_ravel({**dict(zip(rest, fixed)),
+                                     axis: b * size + k}, self)
+                             for k in range(size)]
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        mine = g
+            self._blocks[key] = mine
+        return self._blocks[key]
 
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""

@@ -15,9 +15,12 @@ one device.  The reference's mesh becomes an explicit device:
   cells do.  The batch is the shape's unless the caller states a cut with
   ``batch=``, and an LM's depth its config's unless the caller states one
   with ``n_layers=``; nothing shrinks either silently.  A full-graph GNN
-  cell draws a synthetic graph of the shape's nodes at ``round(E / N)``
-  edges a node (``dims``; ogb_products: 25, so 61,225,725 edges of the
-  shape's 61,859,140).
+  cell draws a synthetic graph of the shape's nodes and edges (``dims``;
+  on a mesh both padded to a multiple of the ranks, as the reference pads
+  them);
+- ``device="meta"`` is the card's cell on tensors that hold no data: the
+  dry run's (``repro_torch.launch.dryrun``), which builds it without a
+  card and traces one step of it.
 
 LM decode is one token at ``pos = S - 1`` against an S-long cache passed
 in the batch; prefill fills a fresh cache from position 0.  A recsys serve
@@ -48,10 +51,16 @@ distributed layer, as the reference's mesh cells, with the rules of
   ``param_spec_tree`` (and, training, the optimizer state of those
   blocks, which ``opt_spec_tree`` mirrors leaf for leaf), the tokens
   shard over the data axes, and the loss is the vocab-parallel
-  ``ce_loss``.  Prefill returns this rank's vocabulary slice of the last
-  logits (``P(dp, "model")``) and a cache of its batch block and its
-  kv_heads (``P(None, dp, None, "model", None)``), whole along the
-  sequence;
+  ``ce_loss``.  The attention leaves are cut by whole heads (``heads``, a
+  ``dist.sharding.HeadSplit``): where the "model" ranks outnumber the kv
+  heads, as the production meshes' 16 do for llama3.2-3b, qwen2-7b and
+  deepseek-67b, each kv head is whole on the ranks that share it and its
+  q heads are padded with zero heads to a multiple of them;
+  ``value_and_grad`` gives a padded head a zero gradient and sums a
+  replicated kv head's gradient over its ranks (``Mesh.block_group``).
+  Prefill returns this rank's vocabulary slice of the last logits
+  (``P(dp, "model")``) and a cache of its batch block and its kv heads,
+  whole along the sequence;
 - a decode cell (``decode_32k``, ``long_500k``) binds ``kv_seq`` to
   ``kv_seq_axes(B)`` and, below batch 16, "batch" to None; its batch specs
   hold only this rank's cache slice (``kv_cache_spec``) and token block.
@@ -63,9 +72,10 @@ distributed layer, as the reference's mesh cells, with the rules of
   batch specs this rank's batch block; training, the tables' gradient is
   K1's backward through the rank's row window;
 - a GNN cell keeps its parameters whole on every rank: ``full_graph_sm``
-  and ``ogb_products`` shard the edge list over every axis
-  (``dist.gnn.apply_full_sharded``; the node count padded to a multiple of
-  the ranks, as the reference pads it), ``molecule`` its graphs over the
+  and ``ogb_products`` shard their nodes and edge list over every axis,
+  as the reference's batch specs do (the loss gathers the nodes'
+  features, labels and mask, then runs ``dist.gnn.apply_full_sharded``),
+  ``molecule`` its graphs over the
   data axes (``apply_batched_sharded``) and ``minibatch_lg`` its seeds
   over the data axes (data-parallel).
 
@@ -81,27 +91,36 @@ one-device step is the mesh step's oracle.
 
 ``batch_spec_tree`` gives each batch leaf's ``Spec``; ``local_batch``
 cuts a whole batch to this rank's block, and ``run`` (and
-``value_and_grad``) enters the cell's binding (``logical.axis_rules``).
+``value_and_grad``) enters the cell's binding (``logical.axis_rules``), as
+``run_cell(cell, fn)`` does for any ``fn``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import types
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.common.tree import tree_leaves, tree_unflatten
+from repro_torch.common.tree import (
+    tree_leaves,
+    tree_map_with_path,
+    tree_unflatten,
+)
 from repro_torch.common.types import ArchKind, ShapeSpec, TensorSpec, resolve_device
 from repro_torch.configs.registry import get_arch
 from repro_torch.dist import collectives, logical
 from repro_torch.dist import gnn as dist_gnn
 from repro_torch.dist.sharding import (
     P,
+    head_leaf,
     kv_cache_spec,
     kv_seq_axes,
+    local_shape,
     local_shard,
     logical_rules,
+    pad_mask,
     param_spec_tree,
 )
 from repro_torch.models import RECSYS_MODELS
@@ -139,6 +158,7 @@ class CellProgram:
     rules: dict | None = None             # the logical binding of a mesh
     batch_spec_tree: dict | None = None   # Spec of each batch leaf
     grad_axes: tuple = ()  # mesh axes a train cell's gradients sum over
+    heads: Any = None      # an LM's HeadSplit over its tensor-parallel ranks
 
     @property
     def is_lm(self) -> bool:
@@ -171,8 +191,10 @@ class CellProgram:
         are whole on every rank)."""
         if self.mesh is None or not self.rules.get("model"):
             return params
+        heads = None if self.heads is None else (self.heads,
+                                                 self.cfg.head_dim)
         return local_shard(params, param_spec_tree(self.kind, params),
-                           self.mesh)
+                           self.mesh, heads=heads)
 
     def train_state(self, model):
         """A train state of ``model`` (an LM's parameter tree, whose leaves
@@ -210,7 +232,38 @@ class CellProgram:
             grads = collectives.reduce_grads(
                 list(grads), tree_leaves(param_spec_tree(self.kind, params)),
                 self.mesh, self.grad_axes)
+        if self.heads is not None:
+            grads = self._head_grads(params, list(grads))
         return loss.detach(), tree_unflatten(params, grads)
+
+    def _head_grads(self, params, grads: list) -> list:
+        """The uneven head split's gradients (``HeadSplit``): a padded q
+        head's entries take a zero gradient (it is no parameter, so the
+        update leaves it and its optimizer state at zero), and a
+        replicated kv head's gradient is summed over the ranks that share
+        it, each holding its own q heads' share; that sum comes last, so
+        every copy takes the same update and stays bitwise equal."""
+        split = self.heads
+        i = logical.shard_index(self.mesh, self.rules["heads"])
+        paths = []
+        tree_map_with_path(lambda path, _: paths.append(path), params)
+        out = []
+        for path, g in zip(paths, grads):
+            names = [k for k in path if isinstance(k, str)]
+            kind = head_leaf(names)
+            if kind == "q":
+                pad = pad_mask(names, split, i, self.cfg.head_dim, g.dim())
+                if pad is not None:
+                    axis, mask = pad
+                    index = torch.as_tensor(mask.nonzero()[0],
+                                            device=g.device)
+                    g = g.index_fill(axis, index, 0)
+            elif kind == "kv" and split.share > 1:
+                g = collectives.all_reduce(
+                    g.contiguous(), self.mesh.block_group(
+                        self.rules["heads"], split.share))
+            out.append(g)
+        return out
 
     def train_step(self, state, batch):
         """Loss and gradients, then the optimizer's in-place update of the
@@ -246,11 +299,16 @@ def _pad_to(n: int, mult: int) -> int:
     return -(-n // mult) * mult
 
 
+def _full_size(device: torch.device) -> bool:
+    """The card's sizes (FULL config, the shape's batch) on a card and on
+    the dry run's ``meta`` device; SMOKE's on the CPU."""
+    return device.type in ("cuda", "meta")
+
 
 def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
              batch: int | None, n_layers: int | None, mesh,
              multi_pod: bool) -> CellProgram:
-    on_card = device.type == "cuda"
+    on_card = _full_size(device)
     cfg = arch.FULL if on_card else arch.SMOKE
     B = shape["global_batch"] if on_card else SMOKE_BATCH
     S = shape["seq_len"] if on_card else SMOKE_SEQ
@@ -258,14 +316,19 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
         B = batch
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    step = opt = loss_fn = None
+    step = opt = loss_fn = heads = None
     dp = _dp_axes(multi_pod)
+    if mesh is not None and shape.step != "decode":
+        heads = tf_lib.head_split(cfg, logical.shards("model", mesh))
+        if shape.step == "train" and heads.share > 1:
+            # made here, on every rank in one order, not inside a step
+            mesh.block_group("model", heads.share)
     # the cache prefill fills: this rank's batch block and kv_heads
     cache_specs = tf_lib.kv_cache_specs(cfg, B, S)
-    cache_spec = P(None, dp, None, "model", None)
     if mesh is not None and shape.step == "prefill":
-        cache_specs = local_shard(cache_specs, {k: cache_spec for k in
-                                                cache_specs}, mesh)
+        cache_specs = {k: TensorSpec((v.shape[0], *local_shape(
+            v.shape[1:3], P(dp, None), mesh), heads.kv_local, v.shape[4]),
+            v.dtype) for k, v in cache_specs.items()}
 
     if shape.step == "train":
         batch_specs = tf_lib.input_specs(cfg, B, S)
@@ -315,7 +378,7 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
                        step_fn=step, batch_specs=batch_specs,
                        init_fn=tf_lib.init, opt=opt, loss_fn=loss_fn,
                        mesh=mesh, rules=rules, batch_spec_tree=spec_tree,
-                       grad_axes=grad_axes)
+                       grad_axes=grad_axes, heads=heads)
 
 
 def recsys_train_cell(cfg, batch: int, device: torch.device, *, lr: float,
@@ -342,7 +405,7 @@ def _recsys_batch_spec_tree(batch_specs: dict, dp) -> dict:
 
 def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
                  batch: int | None, mesh, multi_pod: bool) -> CellProgram:
-    on_card = device.type == "cuda"
+    on_card = _full_size(device)
     cfg = arch.FULL if on_card else arch.SMOKE
     B = shape["batch"] if on_card else SMOKE_RECSYS_BATCH
     dp = _dp_axes(multi_pod)
@@ -401,7 +464,7 @@ def _recsys_cell(arch, shape: ShapeSpec, device: torch.device,
 
 def _gnn_cell(arch, shape: ShapeSpec, device: torch.device,
               batch: int | None, mesh, multi_pod: bool) -> CellProgram:
-    on_card = device.type == "cuda"
+    on_card = _full_size(device)
     cfg = arch.SHAPE_CONFIGS[shape.name] if on_card else arch.SMOKE
     if mesh is not None and not on_card:
         # the shape's mode at the SMOKE widths: a CPU mesh runs the
@@ -413,13 +476,14 @@ def _gnn_cell(arch, shape: ShapeSpec, device: torch.device,
     graph = (shape["n_nodes"], round(shape["n_edges"] / shape["n_nodes"]))
     if cfg.mode == "full":
         N, deg = graph if on_card else SMOKE_GNN_FULL
+        E = shape["n_edges"] if on_card else N * deg
         if batch is not None:
             raise ValueError("a full-graph cell trains on the whole graph; "
                              "it takes no batch")
-        if mesh is not None:  # the edges split over every rank
-            N = _pad_to(N, mesh.size)
+        if mesh is not None:  # nodes and edges split over every rank
+            N, E = _pad_to(N, mesh.size), _pad_to(E, mesh.size)
         dims = {"graph_nodes": N, "graph_degree": deg, "n_nodes": N,
-                "n_edges": N * deg}
+                "n_edges": E}
         B = N
     elif cfg.mode == "mini":
         B = shape.get("batch_nodes", 1024) if on_card else SMOKE_GNN_BATCH
@@ -455,20 +519,26 @@ def _gnn_cell(arch, shape: ShapeSpec, device: torch.device,
 
 def _gnn_mesh(cfg, dims: dict, batch_specs: dict, mesh, dp):
     """(loss, batch spec tree, gradient axes) of a GNN cell on a mesh: the
-    full graph's edges over every axis (every other leaf whole; the loss
-    whole on every rank, so no gradient sum), the packed graphs or the
-    minibatch's seeds over the data axes (a block loss, its gradient
-    summed over them)."""
+    full graph's nodes and edges over every axis, as the reference's
+    batch specs (the loss gathers the nodes' features, labels and mask
+    whole, then takes its edge block; the loss whole on every rank, so no
+    gradient sum), the packed graphs or the minibatch's seeds over the
+    data axes (a block loss, its gradient summed over them)."""
     if cfg.mode == "full":
         axes = tuple(mesh.axis_names)
-        spec_tree = {k: P(*[None] * len(v.shape))
+        spec_tree = {k: P(axes, *[None] * (len(v.shape) - 1))
                      for k, v in batch_specs.items()}
         spec_tree["edges"] = P(None, axes)
 
         def loss(model, b):
+            group = mesh.group(axes)
+            feats, labels = (collectives.all_gather(b[k], group).flatten(0, 1)
+                             for k in ("feats", "labels"))
+            mask = collectives.all_gather(b["label_mask"].to(torch.uint8),
+                                          group).flatten().bool()
             return dist_gnn.apply_full_sharded(
-                model.tree(), b["feats"], b["edges"], b["labels"],
-                b["label_mask"], cfg, mesh, dims["n_nodes"])
+                model.tree(), feats, b["edges"], labels, mask, cfg, mesh,
+                dims["n_nodes"])
 
         return loss, spec_tree, ()
     spec_tree = {k: P(dp, *[None] * (len(v.shape) - 1))
@@ -490,15 +560,25 @@ def _gnn_mesh(cfg, dims: dict, batch_specs: dict, mesh, dp):
 
 def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda",
                *, batch: int | None = None, n_layers: int | None = None,
-               mesh=None, multi_pod: bool = False) -> CellProgram:
+               mesh=None, multi_pod: bool = False,
+               cfg_override=None) -> CellProgram:
     """The cell ``shape_name`` of ``arch_id`` on ``device``; ``batch``
     replaces the cell's batch and ``n_layers`` an LM's depth (the cuts a
     card needs).  ``mesh``: this rank's ``Mesh``, the cell then on the
     distributed layer (module docstring; ``multi_pod``: the ("pod",
-    "data", "model") rules)."""
+    "data", "model") rules).  ``cfg_override`` replaces the config the
+    cell takes (an LM's, a recsys or a GNN config: FULL, SMOKE on the CPU,
+    a GNN shape's ``SHAPE_CONFIGS`` entry), as the reference's replaces
+    FULL for the dry run's depth correction."""
     dev = resolve_device(device)
     arch = get_arch(arch_id)
     shape = next(s for s in arch.SHAPES if s.name == shape_name)
+    if cfg_override is not None:
+        arch = types.SimpleNamespace(
+            ARCH_ID=arch.ARCH_ID, KIND=arch.KIND, SHAPES=arch.SHAPES,
+            FULL=cfg_override, SMOKE=cfg_override,
+            SHAPE_CONFIGS={s.name: cfg_override for s in arch.SHAPES}
+            if arch.KIND == ArchKind.GNN else None)
     if n_layers is not None and arch.KIND not in (ArchKind.LM_DENSE,
                                                   ArchKind.LM_MOE):
         raise ValueError(f"{arch_id}: n_layers cuts an LM's depth only")
@@ -507,3 +587,10 @@ def build_cell(arch_id: str, shape_name: str, device: str | torch.device = "cuda
     if arch.KIND == ArchKind.GNN:
         return _gnn_cell(arch, shape, dev, batch, mesh, multi_pod)
     return _lm_cell(arch, shape, dev, batch, n_layers, mesh, multi_pod)
+
+
+def run_cell(cell: CellProgram, fn: Callable):
+    """``fn()`` under the cell's logical binding (a plain call without a
+    mesh), as the reference's ``run_cell``."""
+    with cell.binding():
+        return fn()

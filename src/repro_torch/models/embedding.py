@@ -141,9 +141,11 @@ def _chunked_uniform(cfg: EmbeddingConfig, lo: int, hi: int,
     """Rows [lo, hi) of a U(-1, 1) table drawn in INIT_CHUNK_ROWS-row
     chunks, chunk c from a generator seeded with one draw of ``generator``
     plus c."""
+    table = torch.empty((hi - lo, cfg.dim), dtype=cfg.dtype, device=device)
+    if table.device.type == "meta":  # the dry run: shapes, no draw
+        return table
     seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                              device=generator.device))
-    table = torch.empty((hi - lo, cfg.dim), dtype=cfg.dtype, device=device)
     g = torch.Generator(device=device)
     for c in range(lo // INIT_CHUNK_ROWS, -(-hi // INIT_CHUNK_ROWS)):
         c0 = c * INIT_CHUNK_ROWS

@@ -37,10 +37,13 @@ is the sequence-sharded decode.
 Tensor parallelism follows ``repro_torch.dist.sharding.param_spec_tree``'s
 placements where "heads" (and "kv_heads", "ffn", "vocab", all on the same
 mesh axes) is bound, as a train or prefill cell on a mesh binds it: a
-rank holds wq/wk/wv (and bq/bk/bv) column blocks of whole heads and
-kv_heads (GQA groups stay whole, heads splitting contiguously), wo's
-matching row block, w_gate/w_up's column and w_down's row block of the
-FFN, and its vocabulary rows of ``embed`` (its columns of ``lm_head``).
+rank holds wq/wk/wv (and bq/bk/bv) columns of whole heads and kv_heads
+and wo's matching rows (``head_split``: GQA groups whole where the
+kv_heads split over the ranks; where the ranks outnumber the kv_heads,
+each kv head replicated on the ranks that share it and its q heads,
+padded with zero heads to a multiple of them, split over them),
+w_gate/w_up's column and w_down's row block of the FFN, and its
+vocabulary rows of ``embed`` (its columns of ``lm_head``).
 Each column-parallel input passes through ``collectives.enter`` (the
 gradient summed over the group), each row-parallel product through one
 ``all_reduce`` of its float32 partial, rounded to the activations' dtype
@@ -72,6 +75,7 @@ from repro_torch.dist.decode import (
 )
 from repro_torch.dist.loss import cast_grad, ce_loss
 from repro_torch.dist.moe import moe_apply
+from repro_torch.dist.sharding import HeadSplit
 from repro_torch.models.layers import (
     AttentionConfig,
     MoEConfig,
@@ -200,35 +204,48 @@ def params_from_reference(tree, *, device: torch.device) -> dict:
     return tree_from_numpy(tree, device)
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked pytree, as views."""
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked pytree, as views from one
+    ``torch.unbind`` a leaf: the backward stacks the layers' gradients
+    into each leaf once, where a view ``t[i]`` a layer would add a
+    zero-filled leaf-sized gradient a layer (bytes quadratic in depth)."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def head_split(cfg: LMConfig, ranks: int) -> HeadSplit:
+    """How ``cfg``'s heads lie on ``ranks`` tensor-parallel ranks
+    (``repro_torch.dist.sharding.HeadSplit``); raises, naming the config,
+    where no whole-head split exists."""
+    return HeadSplit.of(cfg.name, cfg.n_heads, cfg.n_kv_heads, ranks)
 
 
 def _tensor_parallel(cfg: LMConfig):
-    """(group, ranks) of the mesh axes "heads" is bound to, or (None, 1)
-    without tensor parallelism.  Raises when "kv_heads", "ffn" or "vocab"
-    is bound elsewhere, or when the heads, kv_heads, FFN width (a dense
-    model's, or a MoE model's shared expert) or vocabulary do not split
-    over the ranks."""
+    """(group, head split, this rank's index over the heads' axes) of the
+    mesh axes "heads" is bound to, or (None, None, 0) without tensor
+    parallelism.  Raises when "kv_heads", "ffn" or "vocab" is bound
+    elsewhere, when the heads have no whole-head split over the ranks
+    (``head_split``), or when the FFN width (a dense model's, or a MoE
+    model's shared expert) or the vocabulary does not split over them."""
     axes = logical.bound_axes("heads")
     if not axes:
-        return None, 1
+        return None, None, 0
     for name in ("kv_heads", "ffn", "vocab"):
         if logical.bound_axes(name) != axes:
             raise ValueError(f'"{name}" is bound to '
                              f"{logical.bound_axes(name)}, not to the heads' "
                              f"{axes}")
-    w = logical.shards(axes, logical.current_mesh())
+    mesh = logical.current_mesh()
+    w = logical.shards(axes, mesh)
+    split = head_split(cfg, w)
     ffn = cfg.d_ff if cfg.moe is None else cfg.moe.shared_width
-    for name, n in (("heads", cfg.n_heads), ("kv_heads", cfg.n_kv_heads),
-                    ("ffn", ffn), ("vocab", cfg.vocab)):
+    for name, n in (("ffn", ffn), ("vocab", cfg.vocab)):
         if n % w:
             raise ValueError(f"{cfg.name}: {n} {name} do not split over the "
                              f"{w} ranks of {axes}")
-    return logical.group(axes), w
+    return logical.group(axes), split, logical.shard_index(mesh, axes)
 
 
 def _enter(x, group):
@@ -250,7 +267,7 @@ class _Float32Product(torch.autograd.Function):
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
         x2 = x.reshape(-1, x.shape[-1])
-        if x.device.type == "cuda":
+        if x.device.type != "cpu":  # the card's (and the dry run's) path
             out = torch.mm(x2, w, out_dtype=torch.float32)
         else:
             out = x2.float() @ w.float()
@@ -289,11 +306,11 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
     Returns (x, cache_l, aux): aux is the MoE router's load-balance loss,
     None for a dense block."""
     B, T, _ = x.shape
-    tp, w = _tensor_parallel(cfg)
+    tp, split, _ = _tensor_parallel(cfg)
     attn_cfg = cfg.attn
     if tp is not None:
-        attn_cfg = dataclasses.replace(attn_cfg, n_heads=cfg.n_heads // w,
-                                       n_kv_heads=cfg.n_kv_heads // w)
+        attn_cfg = dataclasses.replace(attn_cfg, n_heads=split.q_local,
+                                       n_kv_heads=split.kv_local)
         want = attn_cfg.n_heads * cfg.head_dim
         if params_l["attn"]["wq"].shape[-1] != want:
             raise ValueError(f"wq holds {params_l['attn']['wq'].shape[-1]} "
@@ -480,13 +497,13 @@ def _hidden(params, tokens: torch.Tensor, cfg: LMConfig, cache, pos):
         with logical.rebind(binding):
             return _block_apply(params_l, x, cos, sin, cfg)
 
-    for i in range(cfg.n_layers):
-        params_l = _layer(params["blocks"], i)
+    caches = None if cache is None else _layers(cache, cfg.n_layers)
+    for i, params_l in enumerate(_layers(params["blocks"], cfg.n_layers)):
         if remat:
             x, _, aux_l = checkpoint(block, params_l, x, cos, sin, cfg,
                                      use_reentrant=False)
         else:
-            cache_l = None if cache is None else _layer(cache, i)
+            cache_l = None if caches is None else caches[i]
             x, _, aux_l = _block_apply(params_l, x, cos, sin, cfg,
                                        cache_l=cache_l, pos=pos0)
         if aux_l is not None:

@@ -55,6 +55,12 @@ in one launch, 8 streams of 150,000 jobs (a full-width day's shape), a
 launch repeated, ``fleet_fifo_finish(device="cuda")``, and a missing
 library raising.
 
+The dry run's shape-only path (``repro_torch.kernels.fake``) leaves the
+card's alone: each K1, K1-backward and K3 entry on CUDA tensors still
+launches its kernel (its count moves by one, nothing is reported), and the
+host copy of K1's backward scratch plan (``grad_scratch_bytes``) equals the
+kernel's own layout at five shapes.
+
 Imports neither jax nor the reference, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.  Without
 a card every test skips.  Tolerances are those of tests/test_kernels.py:
@@ -1276,3 +1282,96 @@ def test_k4_missing_library_raises(cuda_device, monkeypatch):
         _k4_streams(6, [(3, 10, False)] * 4), cuda_device)
     with pytest.raises(OSError, match="no library"):
         fleet_fifo(ready, dur, offsets, ks, free0)
+
+
+# ---------------------------------------------------------------------------
+# the shape-only path leaves the card's path alone
+# ---------------------------------------------------------------------------
+
+
+def _entry_calls(device):
+    g = torch.Generator().manual_seed(0)
+    table = torch.randn(40, 16, generator=g).to(device)
+    ids = torch.randint(-1, 10, (5, 3, 4), generator=g,
+                        dtype=torch.int32).to(device)
+    off = torch.tensor([0, 10, 20], dtype=torch.int64, device=device)
+    grad = torch.randn(5, 3, 16, generator=g).to(device)
+    q = torch.randn(2, 1, 4, 128, generator=g).to(device, torch.bfloat16)
+    k = torch.randn(2, 64, 2, 128, generator=g).to(device, torch.bfloat16)
+    kq, ks, vq, vs = _int8_cache(3, 2, 64, 2, 128, device)
+    return {
+        "hot_embedding_bag": (k1_ops, "launches", lambda: hot_embedding_bag(
+            table, ids[:, 0].contiguous())),
+        "embedding_bag_features": (k1_ops, "launches",
+                                   lambda: embedding_bag_features(
+                                       table, ids, off)),
+        "embedding_bag_features window": (
+            k1_ops, "window_launches", lambda: embedding_bag_features(
+                table[10:30], ids, off, row_window=(10, 30),
+                out_dtype=torch.float32)),
+        "hot_embedding_bag_grad": (
+            k1_ops, "grad_launches", lambda: hot_embedding_bag_grad(
+                grad[:, 0].contiguous(), ids[:, 0].contiguous(), 40)),
+        "embedding_bag_features_grad window": (
+            k1_ops, "grad_window_launches",
+            lambda: embedding_bag_features_grad(grad, ids, off, 20,
+                                                row_window=(10, 30))),
+        "flash_decode": (k3_ops, "flash_decode", lambda: flash_decode(
+            q, k, k, kv_len=50)),
+        "flash_decode_int8": (k3_ops, "flash_decode_int8",
+                              lambda: flash_decode_int8(
+                                  q, kq, ks, vq, vs, kv_len=50)),
+        "flash_decode_int8_partials": (
+            k3_ops, "flash_decode_int8_partials",
+            lambda: flash_decode_int8_partials(q, kq, ks, vq, vs, kv_len=50,
+                                               kv_offset=10)),
+    }
+
+
+@pytest.mark.parametrize("name", ["hot_embedding_bag",
+                                  "embedding_bag_features",
+                                  "embedding_bag_features window",
+                                  "hot_embedding_bag_grad",
+                                  "embedding_bag_features_grad window",
+                                  "flash_decode", "flash_decode_int8",
+                                  "flash_decode_int8_partials"])
+def test_cuda_tensor_still_launches(cuda_device, name):
+    """Each entry with a shape-only path for the dry run's meta tensors
+    still launches its kernel on CUDA tensors (its count moves by one) and
+    reports nothing to the dry run's recorders."""
+    from repro_torch.kernels import fake
+
+    module, counter, call = _entry_calls(cuda_device)[name]
+
+    def count():
+        if module is k3_ops:
+            return k3_ops.launches[counter]
+        return getattr(k1_ops, counter)
+
+    before = count()
+    seen = []
+    with fake.recording(lambda *r: seen.append(r)):
+        out = call()
+    torch.cuda.synchronize()
+    assert count() == before + 1 and not seen
+    for t in out if isinstance(out, tuple) else (out,):
+        assert t.is_cuda
+
+
+@pytest.mark.parametrize("n,H,D,dtype", [
+    (1, 1, 1, 0), (4096 * 3 + 5, 1000, 18, 0), (65536 * 26 * 64, 130_000_384,
+                                                 64, 1),
+    ((1 << 25) + 7, 80_000_000, 32, 0), (777, 2**27 - 3, 300, 1)])
+def test_k1_grad_scratch_bytes_match_the_kernel_plan(cuda_device, n, H, D,
+                                                     dtype):
+    """``grad_scratch_bytes`` (the dry run's host copy of the backward's
+    scratch plan) equals the kernel's own layout."""
+    import ctypes
+
+    from repro_torch.kernels.embedding_bag.embedding_bag import (
+        _grad_kernel, grad_scratch_bytes)
+
+    _, layout_fn, _ = _grad_kernel()
+    layout = (ctypes.c_int64 * 4)()
+    assert layout_fn(n, H, D, dtype, layout) == 0
+    assert grad_scratch_bytes(n, H, D, 4 if dtype == 0 else 2) == layout[0]

@@ -160,13 +160,23 @@ def test_moe_drops_tokens_as_one_device_under_data_sharding(results):
                 close(got["grads"][group][k], want[group][k], SUM_TOL)
 
 
+# (FULL config's kv heads, their ranks a kv head and q heads a rank on 16
+# "model" ranks; a kv-head count whose split must still raise)
+UNEVEN = {"llama3.2-3b": (2, 2, 3), "qwen2-7b": (4, 2, 7),
+          "deepseek-67b": (2, 4, 6)}
+
+
 @pytest.mark.parametrize("arch_id,what", [
     ("llama3.2-3b", "24 heads"), ("qwen2-7b", "28 heads"),
     ("deepseek-67b", "8 kv_heads")])
 def test_tensor_parallel_refuses_heads_that_do_not_split(arch_id, what):
     """On the production mesh's 16 "model" ranks these FULL configs'
-    heads or kv_heads do not split: the block raises, naming them (the
-    reference's GSPMD would pad the split)."""
+    heads (``what``) do not split evenly: each kv head is replicated on
+    the ranks that share it and its q heads padded to a multiple of them
+    (``HeadSplit``).  A kv-head count that neither splits over nor
+    divides the ranks still raises, naming the config."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_arch
     from repro_torch.dist import logical
     from repro_torch.dist.sharding import logical_rules
@@ -174,10 +184,19 @@ def test_tensor_parallel_refuses_heads_that_do_not_split(arch_id, what):
     from torch_dist_train_util import RankMesh
 
     arch = get_arch(arch_id)
+    share, q_local, bad_kv = UNEVEN[arch_id]
     mesh = RankMesh({"data": 16, "model": 16}, {"data": 0, "model": 0})
     with logical.axis_rules(mesh, logical_rules(arch.KIND)):
-        with pytest.raises(ValueError, match=what):
-            tf._tensor_parallel(arch.FULL)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(logical, "group", lambda axes: None)
+            _, split, i = tf._tensor_parallel(arch.FULL)
+        assert (split.share, split.q_local, i) == (share, q_local, 0)
+        assert split.kv_local == 1
+        bad = dataclasses.replace(arch.FULL, n_kv_heads=bad_kv,
+                                  n_heads=bad_kv * 8)
+        with pytest.raises(ValueError, match=f"{arch.FULL.name}: {bad_kv} "
+                           "kv_heads neither split"):
+            tf._tensor_parallel(bad)
 
 
 def test_row_parallel_bf16_partials_round_once():

@@ -70,3 +70,15 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each module of ``src/repro/`` has one of the same path in the port
+    (``launch/dryrun.py`` was the last); ``analysis/`` is the reference's
+    static-analysis tooling, which reads sources and runs over the port's
+    as they are (ROADMAP queue 1), so it has none."""
+    ref = ROOT / "src" / "repro"
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if p.relative_to(ref).parts[0] != "analysis"
+                     and not (PORT / p.relative_to(ref)).exists())
+    assert not missing, missing

@@ -511,3 +511,78 @@ def recsys_gnn_rank(rank: int, cases: dict, qr: dict) -> dict:
             "cases": {name: train_step_case(mesh, False, **case)
                       for name, case in cases.items()},
             "qr": qr_grad_case(mesh, qr)}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dist_uneven.py: the uneven head split
+# ---------------------------------------------------------------------------
+
+
+def uneven_case(mesh, arch_id: str, overrides: dict, params, tokens) -> dict:
+    """One train step and one prefill of ``arch_id``'s SMOKE config with
+    ``overrides`` (its heads) on the mesh, from the whole parameters and
+    tokens: this rank's gradient blocks, parameters and optimizer state
+    after the step, prefill logits and cache, and where its heads lie; or
+    the message of the error ``build_cell`` raised."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dist import logical
+    from repro_torch.launch.steps import build_cell
+
+    cfg = dataclasses.replace(get_arch(arch_id).SMOKE, **overrides)
+    try:
+        cell = build_cell(arch_id, "train_4k", "cpu", mesh=mesh,
+                          cfg_override=cfg)
+    except ValueError as e:
+        return {"error": str(e)}
+    state = _cell_state(cell, params)
+    local = cell.local_batch({"tokens": torch.as_tensor(tokens)})
+    loss, grads = cell.value_and_grad(state, local)
+    state, _ = cell.run(state, local)
+    pre = build_cell(arch_id, "prefill_32k", "cpu", mesh=mesh,
+                     cfg_override=cfg)
+    out = pre.run(pre.local_params(tree_map(torch.clone, params)),
+                  pre.local_batch({"tokens": torch.as_tensor(tokens)}))
+    i = logical.shard_index(mesh, cell.rules["heads"])
+    return {"loss": float(loss), "grads": _tree_np(grads),
+            "params": _tree_np(cell.params(state)),
+            "opt": _tree_np({k: state["opt"][k] for k in ("m", "v")}),
+            "logits": _np(out["logits"]),
+            "cache": {k: _np(v) for k, v in out["cache"].items()},
+            "q_heads": cell.heads.q_heads(i),
+            "kv_heads": cell.heads.kv_heads(i), "share": cell.heads.share}
+
+
+def uneven_rank(rank: int, cases: dict, shape, axes=("data", "model")
+                ) -> dict:
+    """Every ``uneven_case`` on one mesh."""
+    mesh = _mesh(tuple(shape), axes)
+    return {"coords": dict(mesh.coords),
+            "cases": {name: uneven_case(mesh, **case)
+                      for name, case in cases.items()}}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dryrun.py: the collectives of one step on real ranks
+# ---------------------------------------------------------------------------
+
+
+def collectives_rank(rank: int, cells: list) -> dict:
+    """One step of each (arch, shape, config) cell on a (2, 2) mesh, from
+    ``dryrun``'s state and batch (a seeded draw, zeros): the collectives'
+    calls and per-rank bytes."""
+    from repro_torch.dist import collectives
+    from repro_torch.launch.dryrun import _batch
+    from repro_torch.launch.steps import build_cell
+
+    mesh = _mesh()
+    out = {}
+    for arch_id, shape, cfg in cells:
+        cell = build_cell(arch_id, shape, "cpu", mesh=mesh, cfg_override=cfg)
+        state = cell.init_state(torch.Generator().manual_seed(0))
+        batch = _batch(cell)
+        collectives.reset()
+        cell.run(state, batch)
+        out[f"{arch_id}|{shape}"] = {"calls": dict(collectives.calls),
+                                     "nbytes": dict(collectives.nbytes)}
+    return out

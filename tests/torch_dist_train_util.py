@@ -24,9 +24,10 @@ class RankMesh:
         return int(np.prod(list(self.shape.values())))
 
 
-def block(tree, specs, shape: dict, coords: dict):
-    """A rank's block of every leaf of a whole numpy tree."""
-    return local_shard(tree, specs, RankMesh(shape, coords))
+def block(tree, specs, shape: dict, coords: dict, heads=None):
+    """A rank's block of every leaf of a whole numpy tree (``heads``:
+    ``local_shard``'s whole-head cut of the attention leaves)."""
+    return local_shard(tree, specs, RankMesh(shape, coords), heads=heads)
 
 
 def assemble(blocks: list, specs, shape: dict, coords: list):
