@@ -161,14 +161,17 @@ Phases, one JSON line each:
                the logits at the bf16 tolerance and, fed the single-device
                pool, at 1e-4; (b) llama3.2-3b FULL's long_500k (B 1, S
                524,288, a random int8 cache of 31 GB) sequence-sharded over
-               ("data", "model"): a rank holds 262,144 rows and the
-               replicated weights; one step with K3's int8 partials counted
-               from 0 (28 a rank), again with every partials call held to
-               its plain version (planted faults: the next row's scales, a
-               wrong kv_offset), the new token's K/V row on exactly one
-               rank and no other row moved, K3's partials and the
-               all-gather timed, then the step in f32 at 2 of 28 layers
-               (FULL width; a cut) against one device's at 1e-3; (c) the
+               ("data", "model") and tensor-parallel over "model": a rank
+               holds 262,144 rows of every kv head and its block of the
+               weights; one step with K3's int8 partials (28 a rank, all 24
+               heads) and the collectives counted from 0 (a layer: the
+               packed head gather, the partials' merge, two all-reduces),
+               again with every partials call held to its plain version
+               (planted faults: the next row's scales, a wrong kv_offset),
+               the new token's K/V row on exactly one rank and no other row
+               moved, its vocabulary slice of the logits, parameter GB and
+               peak, K3's partials and the all-gather timed, then the step
+               in f32 (FULL) against one device's at 1e-3; (c) the
                olmoe MoE layer (FULL, f32, 4,096 tokens, experts split
                32/32), the vocab-parallel loss on logits [2, 4096, 128256]
                split in halves, GraphSAGE full_graph_sm (edges over both
@@ -218,7 +221,8 @@ Phases, one JSON line each:
                cells the phases above ran, at their cuts (llama3.2-3b
                decode_32k B 16, prefill_32k B 1, train_4k B 4; dlrm-rm2
                train_batch; ogb_products; dist_train's rm2 and llama
-               cells on (data 1, model 2)): its arguments within 512
+               cells and dist's tensor-parallel long_500k on (data 1,
+               model 2)): its arguments within 512
                bytes a tensor of what making the state and batch added to
                the caching allocator's requested bytes, and to its
                allocated bytes within that plus 1 MiB a tensor past 1 MiB
@@ -233,6 +237,14 @@ Phases, one JSON line each:
                the planted fault of an unsummed kv head must fail), the
                padded heads and their moments exactly zero after the
                step, each kv head's copies and moments bitwise equal;
+               then in the same ranks its tensor-parallel decode_32k,
+               FULL width, 2 layers, B 16, a random int8 cache of 32,768
+               rows (4,096 a rank, every kv head): K3's int8 partials and
+               the collectives counted from 0 (2, and 4 all-gathers and 5
+               all-reduces, a rank), every partials call against its
+               plain version, the gathered logits against one device's
+               in f32 at 1e-3 (the slices out of order must fail) and in
+               bf16 within 3e-2 of the largest logit;
  14. cluster - kernel K4 (the fleet FIFO solver) and the Hercules cluster
                day through ``repro_torch.serving.scenarios``: (a) K4 at
                benchmarks/bench_cluster.py's fleet shape (512 streams, k in
@@ -3402,16 +3414,28 @@ def slice_sums(cache: dict, skip: int | None) -> list:
     return out
 
 
+def vocab_slice(whole, local, mesh):
+    """This rank's "model" block of the last axis of one device's
+    ``whole`` logits, the slice its vocab-parallel ``local`` holds."""
+    n, i = local.shape[-1], mesh.axis_index("model")
+    return whole[..., i * n:(i + 1) * n]
+
+
 def long_rank(rank: int, mesh, dev, bw: float, ref: dict) -> dict:
-    """(b) on one rank: its 262,144 rows of the 524,288-row int8 cache and
-    the replicated weights; the long_500k step on the mesh (K3's int8
-    partials counted from 0), again with every partials call held to its
-    plain version, the new row against the single-device one, the step's
-    time, K3's partials alone and the all-gather; then the f32 witness."""
+    """(b) on one rank: its 262,144 rows of the 524,288-row int8 cache
+    (every kv head) and its block of the weights (12 of the 24 q heads, 4
+    of the 8 kv heads, half the FFN and the vocabulary); the
+    tensor-parallel long_500k step on the mesh (K3's int8 partials and the
+    collectives counted from 0), again with every partials call held to
+    its plain version, the new row against the single-device one, the
+    step's time, parameter GB and peak, its memory against the dry run
+    (phase ``dryrun`` (b)), K3's partials alone and the all-gather; then
+    the f32 witness."""
     import dataclasses
 
     import torch
 
+    from repro_torch.common.tree import tree_leaves
     from repro_torch.dist import collectives, logical
     from repro_torch.dist.decode import seq_shard_index
     from repro_torch.kernels.flash_attention import ops, ref as k3_ref
@@ -3423,15 +3447,19 @@ def long_rank(rank: int, mesh, dev, bw: float, ref: dict) -> dict:
     cfg, S = cell.cfg, cell.seq_len
     s_loc = cell.batch_specs["cache"]["k"].shape[2]
     off = seq_shard_index(mesh, cell.rules["kv_seq"]) * s_loc
+    m0 = mem()
     params = cell.init_state(torch.Generator(dev).manual_seed(LONG_SEED))
     cache = long_cache(cfg, 1, S, off, off + s_loc, LONG_SEED, dev)
     token = ref["token"].to(dev)
+    growth = mem() - m0
     batch = {"token": token, "cache": cache}
     pos = S - 1
     owner = off <= pos < off + s_loc
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     before = slice_sums(cache, pos - off if owner else None)
+    torch.cuda.empty_cache()
+    base = mem()
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 1e9
     # the main path: one step, counts from 0
@@ -3440,12 +3468,18 @@ def long_rank(rank: int, mesh, dev, bw: float, ref: dict) -> dict:
     logits = cell.run(params, batch)["logits"]
     torch.cuda.synchronize()
     launches = ops.launches["flash_decode_int8_partials"]
-    gathers = collectives.calls["all_gather"]
+    calls = dict(collectives.calls)
     step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != cfg.n_layers or gathers != cfg.n_layers:
+    step_mem = mem_reading(growth, tree_leaves(params) + list(cache.values())
+                           + [token], base, mem_peak())
+    # a layer: one packed gather of the token's heads, one merge of the
+    # partials, the wo and FFN all-reduces; the embedding's all-reduce
+    want_calls = {"all_gather": 2 * cfg.n_layers,
+                  "all_reduce": 2 * cfg.n_layers + 1}
+    if launches != cfg.n_layers or calls != want_calls:
         raise AssertionError(f"long_500k step: {launches} K3 partials and "
-                             f"{gathers} all-gathers for {cfg.n_layers} "
-                             "layers")
+                             f"collectives {calls} for {cfg.n_layers} "
+                             f"layers, not {want_calls}")
     if not bool(torch.isfinite(logits.float()).all()):
         raise AssertionError("long_500k: non-finite logits")
     # again, every partials call held to its plain version
@@ -3455,21 +3489,25 @@ def long_rank(rank: int, mesh, dev, bw: float, ref: dict) -> dict:
     if not bool(torch.equal(again, logits)):
         raise AssertionError("long_500k: the checked step differs")
     # the cache: the new row on the rank that holds pos, nothing else moved;
-    # layer 0's row bitwise one device's (the same input), the deeper
-    # layers' reported (the bf16 residual stream drifts with the merge's
-    # rounding; the f32 witness below holds them)
+    # layer 0's row against one device's (the same input, but a rank's
+    # column blocks of wk and wv need not round as the whole product:
+    # bitwise or within BF16_TOL dequantised), the deeper layers' reported
+    # (the bf16 residual stream drifts with the merge's rounding; the f32
+    # witness below holds them)
     after = slice_sums(cache, pos - off if owner else None)
     if after != before:
         raise AssertionError("long_500k: a row other than pos changed")
-    row_err = None
+    row_err = row0_bitwise = row0_err = None
     if owner:
         # copies: a view would keep the whole slice alive after the cache
         row = {k: v[:, :, pos - off].clone() for k, v in cache.items()}
         want = {k: v.to(dev) for k, v in ref["new_row"].items()}
-        for k in ("k", "v", "ks", "vs"):
-            if not bool(torch.equal(row[k][0], want[k][0])):
-                raise AssertionError(f"long_500k: layer 0's new {k} row "
-                                     "differs from one device's")
+        row0_bitwise = all(bool(torch.equal(row[k][0], want[k][0]))
+                           for k in ("k", "v", "ks", "vs"))
+        row0_err = max(check(f"long_500k layer 0's new {k} row",
+                             row[k][0].float() * row[sc][0],
+                             want[k][0].float() * want[sc][0], BF16_TOL)
+                       for k, sc in (("k", "ks"), ("v", "vs")))
         row_err = {k: drift(row[k], want[k]) for k in row}
     # times: the step (every rank), K3's partials on layer 0's slice alone
     # and its plain version (one rank at a time), the all-gather
@@ -3506,12 +3544,15 @@ def long_rank(rank: int, mesh, dev, bw: float, ref: dict) -> dict:
     res = {"rank": rank, "coords": mesh.coords, "rows": [off, off + s_loc],
            "cache_gb": sum(t.numel() * t.element_size()
                            for t in cache.values()) / 1e9,
-           "build_s": build_s, "launches": launches, "all_gathers": gathers,
+           "params_gb": tree_gb(params), "memory": step_mem,
+           "build_s": build_s, "launches": launches, "collectives": calls,
            "k3_vs_plain_max_abs_err_per_call": max(errs),
            "k3_checked_calls": len(errs), "tolerance": BF16_TOL,
-           "logits_drift_from_one_device": drift(logits, ref["logits"].to(
-               dev)),
+           "logits_drift_from_one_device": drift(logits, vocab_slice(
+               ref["logits"], logits, mesh).to(dev)),
            "new_row_owner": owner, "new_row_drift": row_err,
+           "layer0_row_bitwise_one_device": row0_bitwise,
+           "layer0_row_max_abs_err": row0_err,
            "step_ms": step_ms, "base_gb": base_gb,
            "step_peak_gb": step_peak_gb, **times,
            "partials_max_abs_err": partial_err,
@@ -3525,8 +3566,10 @@ def long_rank(rank: int, mesh, dev, bw: float, ref: dict) -> dict:
     # f32 tolerance, every layer's new row and the logits held to one
     # device's
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    params = tf_lib.init(cfg32, device=dev,
-                         generator=torch.Generator(dev).manual_seed(LONG_SEED))
+    params = cell.local_params(tf_lib.init(
+        cfg32, device=dev,
+        generator=torch.Generator(dev).manual_seed(LONG_SEED)))
+    torch.cuda.empty_cache()
     cache = long_cache(cfg32, 1, S, off, off + s_loc, LONG_SEED, dev)
     errs32 = []
     torch.cuda.reset_peak_memory_stats()
@@ -3555,7 +3598,8 @@ def long_rank(rank: int, mesh, dev, bw: float, ref: dict) -> dict:
                   "tolerance_per_call": ATTN_F32_TOL,
                   "logits_max_abs_err": check(
                       "long_500k f32 sharded logits", logits32,
-                      ref["logits_f32"].to(dev), F32_PATH_TOL),
+                      vocab_slice(ref["logits_f32"], logits32, mesh).to(dev),
+                      F32_PATH_TOL),
                   "logits_tolerance": F32_PATH_TOL}
     del params, cache
     torch.cuda.empty_cache()
@@ -3860,7 +3904,8 @@ def phase_dist(dev, bw: float, f32_rate: float) -> dict:
                    "launches": sum(r["launches"] for r in rm2)},
            "long_500k": {"config": "llama3.2-3b FULL, long_500k (B 1, S "
                                    "524,288, int8 cache) over (data 1, "
-                                   "model 2): kv_seq = (data, model)",
+                                   "model 2): kv_seq = (data, model), the "
+                                   "weights tensor-parallel over model",
                          "reference_cache_gb": refs["long"]["cache_gb"],
                          "reference_params_gb": refs["long"]["params_gb"],
                          "reference_peak_gb": refs["long"]["peak_gb"],
@@ -3868,6 +3913,10 @@ def phase_dist(dev, bw: float, f32_rate: float) -> dict:
                          "reference_step_ms": refs["long"]["step_ms"],
                          "reference_s": t_ref["long"], "per_rank": long,
                          "launches": sum(r["launches"] for r in long),
+                         "params_gb_per_rank": [r["params_gb"]
+                                                for r in long],
+                         "step_peak_gb_per_rank": [r["step_peak_gb"]
+                                                   for r in long],
                          "new_row_owners": sum(r["new_row_owner"]
                                                for r in long)},
            "modules": {"per_rank": mods, "reference_s": t_ref["modules"]},
@@ -4906,6 +4955,7 @@ DRYRUN_CELLS = {
     "dist_lm_train_4k": ("llama3.2-3b", "train_4k",
                          {"batch": DT_LM_BATCH, "n_layers": DT_LM_LAYERS},
                          True),
+    "dist_long_500k": ("llama3.2-3b", "long_500k", {"batch": 1}, True),
 }
 PREDICT = """
 import json, sys
@@ -4923,8 +4973,10 @@ for key, (arch, shape, cuts, on_mesh) in cells.items():
 print(json.dumps(out))
 """
 # (c): qwen2-7b at FULL width, 28 heads and 4 kv heads over 8 "model"
-# ranks: a kv head on 2 ranks, 7 q heads padded to 8, 4 a rank
+# ranks: a kv head on 2 ranks, 7 q heads padded to 8, 4 a rank; its
+# train_4k at UNEVEN_BATCH, then its decode_32k at TP_DECODE_BATCH
 UNEVEN_ARCH, UNEVEN_LAYERS, UNEVEN_BATCH, UNEVEN_RANKS = "qwen2-7b", 2, 1, 8
+TP_DECODE_BATCH = 16   # decode_32k cut 128 -> 16: batch over data 1
 UNEVEN_SEED = 61
 
 
@@ -5071,6 +5123,136 @@ def no_kv_sum():
         steps.collectives = saved
 
 
+def tp_decode_cell(dev, mesh=None):
+    from repro_torch.launch.steps import build_cell
+
+    return build_cell(UNEVEN_ARCH, "decode_32k", dev, batch=TP_DECODE_BATCH,
+                      n_layers=UNEVEN_LAYERS, mesh=mesh)
+
+
+def tp_decode_token(cfg, dev):
+    import torch
+
+    return torch.randint(0, cfg.vocab, (TP_DECODE_BATCH, 1), device=dev,
+                         dtype=torch.int32, generator=torch.Generator(
+                             dev).manual_seed(UNEVEN_SEED + 1))
+
+
+def tp_decode_f32(cell, dev, rank=None):
+    """(c)'s decode_32k parameters in f32 (this rank's block, drawn one
+    rank at a time, on a mesh) and their config."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tf_lib
+
+    cfg32 = dataclasses.replace(cell.cfg, dtype=torch.float32)
+
+    def draw():
+        params = cell.local_params(tf_lib.init(
+            cfg32, device=dev,
+            generator=torch.Generator(dev).manual_seed(UNEVEN_SEED)))
+        torch.cuda.empty_cache()
+        return params
+
+    return (draw() if rank is None else solo(rank, draw)), cfg32
+
+
+def tp_decode_reference(dev) -> dict:
+    """(c)'s decode_32k on one device: the weights and the random int8
+    cache drawn from UNEVEN_SEED, one step's logits and host time; then
+    the step in f32 on the same cache."""
+    import torch
+
+    from repro_torch.models import transformer as tf_lib
+
+    cell = tp_decode_cell(dev)
+    params = cell.init_state(torch.Generator(dev).manual_seed(UNEVEN_SEED))
+    batch = {"token": tp_decode_token(cell.cfg, dev),
+             "cache": long_cache(cell.cfg, cell.batch, cell.seq_len, 0,
+                                 cell.seq_len, UNEVEN_SEED, dev)}
+    logits = cell.run(params, batch)["logits"]
+    out = {"logits": logits.cpu(), "params_gb": tree_gb(params),
+           "step_ms": host_ms(lambda: cell.run(params, batch), reps=3)}
+    del params, logits
+    torch.cuda.empty_cache()
+    params, cfg32 = tp_decode_f32(cell, dev)
+    with torch.inference_mode():
+        out["logits_f32"] = tf_lib.decode_step(
+            params, batch["token"], batch["cache"], cell.seq_len - 1,
+            cfg32)[0].cpu()
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_decode_rank(rank: int, mesh, dev) -> dict:
+    """(c)'s decode_32k on one rank: its block of the weights (4 q slots,
+    its kv head, an eighth of the FFN and the vocabulary) and its 4,096 of
+    the 32,768 cache rows, every kv head, drawn as one device draws them;
+    one step with K3's int8 partials and the collectives counted from 0,
+    again with every partials call held to its plain version; then the
+    step in f32, each partials call held at ATTN_F32_TOL.  Returns its
+    vocabulary slices of both steps' logits for the parent's check."""
+    import torch
+
+    from repro_torch.dist import collectives, logical
+    from repro_torch.dist.decode import seq_shard_index
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as tf_lib
+
+    cell = tp_decode_cell(dev, mesh)
+    cfg, S = cell.cfg, cell.seq_len
+    s_loc = cell.batch_specs["cache"]["k"].shape[2]
+    off = seq_shard_index(mesh, cell.rules["kv_seq"]) * s_loc
+    params = cell.init_state(torch.Generator(dev).manual_seed(UNEVEN_SEED))
+    batch = {"token": tp_decode_token(cfg, dev),
+             "cache": long_cache(cfg, cell.batch, S, off, off + s_loc,
+                                 UNEVEN_SEED, dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: one step, counts from 0
+    ops.launches["flash_decode_int8_partials"] = 0
+    collectives.reset()
+    logits = cell.run(params, batch)["logits"]
+    torch.cuda.synchronize()
+    launches = ops.launches["flash_decode_int8_partials"]
+    calls = dict(collectives.calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_calls = {"all_gather": 2 * cfg.n_layers,
+                  "all_reduce": 2 * cfg.n_layers + 1}
+    if launches != cfg.n_layers or calls != want_calls:
+        raise AssertionError(f"{UNEVEN_ARCH} decode_32k rank {rank}: "
+                             f"{launches} K3 partials and collectives "
+                             f"{calls} for {cfg.n_layers} layers, not "
+                             f"{want_calls}")
+    errs = []
+    with checked_int8_partials(errs, BF16_TOL):
+        again = cell.run(params, batch)["logits"]
+    if not bool(torch.equal(again, logits)):
+        raise AssertionError(f"{UNEVEN_ARCH} decode_32k rank {rank}: the "
+                             "checked step differs")
+    step_ms = host_ms(lambda: cell.run(params, batch), reps=3)
+    res = {"rows": [off, off + s_loc], "launches": launches,
+           "collectives": calls, "k3_vs_plain_max_abs_err_per_call":
+           max(errs), "k3_checked_calls": len(errs),
+           "params_gb": tree_gb(params), "peak_gb": peak_gb,
+           "step_ms": step_ms, "logits": logits.cpu()}
+    del params, logits, again
+    torch.cuda.empty_cache()
+    params, cfg32 = tp_decode_f32(cell, dev, rank)
+    errs32 = []
+    with torch.inference_mode(), logical.axis_rules(mesh, cell.rules), \
+            checked_int8_partials(errs32, ATTN_F32_TOL):
+        res["logits_f32"] = tf_lib.decode_step(
+            params, batch["token"], batch["cache"], S - 1, cfg32)[0].cpu()
+    res["k3_vs_plain_max_abs_err_per_call_f32"] = max(errs32)
+    del params, batch
+    torch.cuda.empty_cache()
+    return res
+
+
 def uneven_rank(rank: int, dev_type: str, path: str) -> dict:
     """(c) on one rank: its block of qwen2-7b's parameters (its 4 q heads,
     padded ones zero, and its kv head, whole) drawn as one device draws
@@ -5121,24 +5303,30 @@ def uneven_rank(rank: int, dev_type: str, path: str) -> dict:
             continue
         axis, mask = pad
         idx = torch.as_tensor(mask.nonzero()[0], device=dev)
-        for tree, tname in ((state["params"], "params"),
-                            (state["opt"]["m"], "m"), (state["opt"]["v"], "v")):
-            leaf = tree["blocks"]["attn"][key]
-            if leaf.index_select(axis, idx).count_nonzero():
-                raise AssertionError(f"{name}: padded {key} {tname} not zero "
-                                     f"after the step")
+        # a comprehension: no loop variable keeps a tree alive after it
+        nonzero = [tname for tname, tree in (
+            ("params", state["params"]), ("m", state["opt"]["m"]),
+            ("v", state["opt"]["v"]))
+            if tree["blocks"]["attn"][key].index_select(
+                axis, idx).count_nonzero()]
+        if nonzero:
+            raise AssertionError(f"{name}: padded {key} {nonzero} not zero "
+                                 f"after the step")
         if key == "wq":
             padded = int(mask.sum()) // cell.cfg.head_dim
     kv = {f"{tree}.{k}": t[k].cpu() for tree, t in (
         ("params", attn), ("m", state["opt"]["m"]["blocks"]["attn"]),
         ("v", state["opt"]["v"]["blocks"]["attn"]))
         for k in ("wk", "wv", "bk", "bv")}
+    del state, b, params, attn, t
+    torch.cuda.empty_cache()
     return {"rank": rank, "coords": mesh.coords, "share": cell.heads.share,
             "heads": [cell.cfg.n_heads, cell.cfg.n_kv_heads],
             "q_heads": cell.heads.q_heads(i),
             "kv_heads": cell.heads.kv_heads(i), "loss": float(loss),
             "loss_err": loss_err, "grad_err_relative_to_leaf_max": worst,
-            "padded_heads": padded, "kv": kv}
+            "padded_heads": padded, "kv": kv,
+            "decode": tp_decode_rank(rank, mesh, dev)}
 
 
 def uneven_split(dev) -> dict:
@@ -5147,7 +5335,12 @@ def uneven_split(dev) -> dict:
     ranks on the card, (data 1, model 8): one device's gradients first,
     handed to the ranks through a file; each rank's loss and gradient
     blocks at BF16_TOL; the padded heads zero after the step; each kv
-    head's copies bitwise equal on the two ranks that hold it."""
+    head's copies bitwise equal on the two ranks that hold it.  Then, in
+    the same ranks, its tensor-parallel decode_32k at batch
+    TP_DECODE_BATCH: the gathered logits against one device's step in f32
+    at F32_PATH_TOL and in bf16 within BF16_TOL of the largest logit,
+    every K3 partials call against its plain version, the collectives
+    counted a layer."""
     import tempfile
 
     import torch
@@ -5158,6 +5351,7 @@ def uneven_split(dev) -> dict:
     ref = lm_train_reference(dev, UNEVEN_ARCH, UNEVEN_LAYERS, UNEVEN_BATCH,
                              torch.bfloat16, UNEVEN_SEED)
     torch.cuda.empty_cache()
+    dec = tp_decode_reference(dev)
     ref_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "ref.pt")
@@ -5192,7 +5386,8 @@ def uneven_split(dev) -> dict:
             h < 0 for r in ranks for h in r["q_heads"]):
         raise AssertionError(f"padded heads {pads} a rank, expected "
                              f"{want_pads} in all")
-    per_rank = [{k: v for k, v in r.items() if k != "kv"} for r in ranks]
+    per_rank = [{k: v for k, v in r.items() if k not in ("kv", "decode")}
+                for r in ranks]
     line = dryrun_line(
         "uneven_split", config=f"{UNEVEN_ARCH} FULL width, {UNEVEN_LAYERS} "
         f"layers, train_4k B {UNEVEN_BATCH} S 4096, bf16, (data 1, model "
@@ -5201,6 +5396,48 @@ def uneven_split(dev) -> dict:
         reference_s=ref_s, ranks_s=ranks_s, kv_leaves_bitwise=copies,
         per_rank=per_rank)
     emit(line)
+    # the decode: the ranks' vocabulary slices, in "model" order, against
+    # one device's logits: in f32 at F32_PATH_TOL (the slices out of order
+    # must fail), in bf16 within BF16_TOL of the largest logit (the bf16
+    # path rounds its attention and partial sums elsewhere than one
+    # device; K3 itself is held per call above)
+    decode = [r["decode"] for r in sorted(ranks,
+                                          key=lambda r: r["coords"]["model"])]
+    whole, whole32 = (torch.cat([d.pop(k) for d in decode], dim=-1)
+                      for k in ("logits", "logits_f32"))
+    err32 = check(f"{UNEVEN_ARCH} decode_32k gathered f32 logits", whole32,
+                  dec["logits_f32"], F32_PATH_TOL)
+    n = whole32.shape[-1] // UNEVEN_RANKS
+    must_fail(f"{UNEVEN_ARCH} decode_32k, the slices out of order",
+              torch.cat([whole32[:, n:], whole32[:, :n]], dim=-1),
+              dec["logits_f32"], F32_PATH_TOL)
+    err = drift(whole, dec["logits"])
+    scale = float(dec["logits"].float().abs().max())
+    if err > BF16_TOL * scale:
+        raise AssertionError(f"{UNEVEN_ARCH} decode_32k gathered bf16 "
+                             f"logits: max abs err {err} past {BF16_TOL} x "
+                             f"max |want| {scale}")
+    past = int(((whole.float() - dec["logits"].float()).abs() > BF16_TOL + (
+        BF16_TOL * dec["logits"].float().abs())).sum())
+    dline = dryrun_line(
+        "tp_decode", config=f"{UNEVEN_ARCH} FULL width, {UNEVEN_LAYERS} "
+        f"layers, decode_32k B {TP_DECODE_BATCH} S 32768 int8 cache, bf16, "
+        f"(data 1, model {UNEVEN_RANKS}): the weights tensor-parallel, the "
+        f"cache's sequence over model, gloo ranks on the card",
+        tolerance=BF16_TOL, logits_max_abs_err=err, logits_max_abs=scale,
+        logits_past_elementwise_bf16_tol=past,
+        logits_elements=whole.numel(), f32_logits_max_abs_err=err32,
+        f32_tolerance=F32_PATH_TOL,
+        k3_vs_plain_max_abs_err_per_call_f32=max(
+            d["k3_vs_plain_max_abs_err_per_call_f32"] for d in decode),
+        one_device_params_gb=dec["params_gb"],
+        one_device_step_ms=dec["step_ms"],
+        launches=sum(d["launches"] for d in decode),
+        k3_vs_plain_max_abs_err_per_call=max(
+            d["k3_vs_plain_max_abs_err_per_call"] for d in decode),
+        per_rank=decode)
+    emit(dline)
+    line["tp_decode"] = dline
     return line
 
 
@@ -5700,7 +5937,7 @@ def phase_cluster(dev, bw: float, probes) -> dict:
 def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                    lm: dict, lm_configs: dict, recsys: dict, train: dict,
                    trainer: dict, dist: dict, dist_train: dict,
-                   cluster: dict) -> list[dict]:
+                   dryrun: dict, cluster: dict) -> list[dict]:
     """The summary of every kernel: where it replaces a TPU kernel, its
     launches on the paths driven here, its error and its times."""
     import torch
@@ -5714,6 +5951,7 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     fb = cluster["a_fleet_bench"]
     w = dist["rm2"]["per_rank"]
     lg = dist["long_500k"]["per_rank"]
+    tpd = dryrun["uneven_split"]["tp_decode"]
     dt = dist_train["rm2"]["per_rank"]
     day = cluster["a_day_shape"]
     decode_src = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
@@ -5927,11 +6165,18 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
         "replaces": "src/repro/kernels/flash_attention/flash_decode.py:76 "
                     "(flash_decode_partials on a shard of the "
                     "sequence-sharded cache, src/repro/dist/decode.py:66)",
-        "launches": dist["long_500k"]["launches"],
-        "launches_note": "the long_500k step on the mesh, both ranks, "
-                         "counted from 0: one launch a layer a rank",
-        "max_abs_err": max(r["k3_vs_plain_max_abs_err_per_call"]
-                           for r in lg),
+        "launches": dist["long_500k"]["launches"] + tpd["launches"],
+        "launches_note": "the tensor-parallel decode steps on a mesh, each "
+                         "counted from 0: one launch a layer a rank, over "
+                         "all the heads",
+        "launches_by_path": {
+            "dist long_500k, llama3.2-3b, 2 ranks":
+                dist["long_500k"]["launches"],
+            f"dryrun (c) decode_32k, {UNEVEN_ARCH}, {UNEVEN_RANKS} ranks":
+                tpd["launches"]},
+        "max_abs_err": max([r["k3_vs_plain_max_abs_err_per_call"]
+                            for r in lg]
+                           + [tpd["k3_vs_plain_max_abs_err_per_call"]]),
         "ms": lg[0]["partials_ms"], "plain_ms": lg[0]["partials_plain_ms"],
         "bound_ms": lg[0]["bound_ms"], "bound_by": lg[0]["bound_by"],
         "library_ms": None,
@@ -6093,7 +6338,9 @@ def main() -> int:
         "dist_rm2_train_batch": [r["memory"] for r in
                                  dist_train["rm2"]["per_rank"]],
         "dist_lm_train_4k": [r["memory"] for r in
-                             dist_train["llama_bf16"]["per_rank"]]}
+                             dist_train["llama_bf16"]["per_rank"]],
+        "dist_long_500k": [r["memory"] for r in
+                           dist["long_500k"]["per_rank"]]}
     dryrun = timed("dryrun", lambda: phase_dryrun(dev, readings))
     emit({k: dryrun[k] for k in ("phase", "sweep", "seconds")})
 
@@ -6105,7 +6352,7 @@ def main() -> int:
           "total": time.perf_counter() - t_start})
     emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, lm_configs,
                                     recsys, train, trainer, dist, dist_train,
-                                    cluster),
+                                    dryrun, cluster),
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

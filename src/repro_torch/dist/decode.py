@@ -4,14 +4,26 @@ Counterpart of ``repro.dist.decode``.  The long-context decode cells
 (``decode_32k``, ``long_500k``) keep the KV cache sequence-sharded: each
 rank holds rows [i * S_local, (i + 1) * S_local) of the S-long cache, i
 its block along the "kv_seq" axes (``repro_torch.dist.sharding.
-kv_seq_axes``).  Each rank runs K3's partials on its own slice, passing its
-global base ``kv_offset`` so that a ``kv_len`` ending inside a shard masks
-right and a shard wholly past it contributes the empty partial (m = -1e30,
-l = 0, o = 0); one ``all_gather`` of the partials over the seq group (a
-[B, KVH, G, hd + 2] float32 block a rank, whatever S is) and the same
-``lse_combine`` the kernel merges its splits with give every rank the
-attention.  The merge is permutation-invariant, so the gather's order
-never matters.
+kv_seq_axes``), with every kv head.  Each rank runs K3's partials on its
+own slice, passing its global base ``kv_offset`` so that a ``kv_len``
+ending inside a shard masks right and a shard wholly past it contributes
+the empty partial (m = -1e30, l = 0, o = 0); one ``all_gather`` of the
+partials over the seq group (a [B, KVH, G, hd + 2] float32 block a rank,
+whatever S is) and the same ``lse_combine`` the kernel merges its splits
+with give every rank the attention.  The merge is permutation-invariant,
+so the gather's order never matters.
+
+A decode cell on a mesh is also tensor-parallel over "model", as the
+reference's is: a rank holds its block of every weight, so it projects
+only its q heads and kv heads (``dist.sharding.HeadSplit``), while its
+cache slice holds every kv head.  ``gather_heads`` makes the whole
+token: one ``all_gather`` over the heads' group of this rank's q heads
+and new k/v rows, packed, put back in global head order (a padded q
+slot dropped, a replicated kv head taken once).  The attention then
+runs K3's partials for all H heads on the slice, as the reference's
+``flash_decode_sharded`` does with its q gathered by GSPMD, and
+``own_heads`` gives back this rank's heads of the merged output, zero in
+a padded slot, for the row-parallel ``wo``.
 
 ``decode_attention`` and ``decode_attention_int8`` are the model-facing
 entries: with a mesh bound and a non-empty "kv_seq" rule they take the
@@ -21,6 +33,8 @@ model the slice's global base, for the cache write.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from repro_torch.dist import collectives, logical
 from repro_torch.kernels.flash_attention.ops import (
@@ -59,6 +73,53 @@ def _merge(q: torch.Tensor, m, l, o, mesh, seq_axes) -> torch.Tensor:
     _, l_c, o_c = lse_combine(m_all, l_all, o_all, axis=0)
     out = (o_c / l_c.clamp_min(1e-30)).to(q.dtype)
     return out.reshape(B, 1, H, hd)
+
+
+def whole_heads(slots: torch.Tensor, split, kv: bool = False
+                ) -> torch.Tensor:
+    """Every rank's head slots [B, T, ranks * n_local, hd], in rank order,
+    as the global heads [B, T, n, hd] of ``split`` (a ``HeadSplit``): the
+    q slots (``q_local`` a rank) less their padding, or the kv slots
+    (``kv``, ``kv_local`` a rank) with a replicated head taken from the
+    first rank that holds it.  Contiguous, as K3 takes its q."""
+    B, T, _, hd = slots.shape
+    groups = slots.reshape(B, T, split.n_kv_heads, -1, hd)
+    heads = groups[:, :, :, 0] if kv else groups[:, :, :, :split.group]
+    return heads.reshape(B, T, -1, hd).contiguous()
+
+
+def own_heads(out: torch.Tensor, split, i: int) -> torch.Tensor:
+    """Rank i's q slots [B, T, q_local, hd] (``split.q_heads(i)``) of an
+    output of all the heads [B, T, H, hd], zero in a padded slot."""
+    B, T, _, hd = out.shape
+    groups = out.reshape(B, T, split.n_kv_heads, split.group, hd)
+    pad = split.group_slots - split.group
+    if pad:
+        groups = F.pad(groups, (0, 0, 0, pad))
+    slots = groups.reshape(B, T, -1, hd)
+    return slots[:, :, i * split.q_local:(i + 1) * split.q_local]
+
+
+def gather_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, split,
+                 i: int, group) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The whole token from every rank's heads: q [B, T, q_local, hd] and
+    the new k/v rows [B, T, kv_local, hd] of this rank (block i of
+    ``split`` over the heads' ``group``), packed into one ``all_gather``
+    over the group, come back as q [B, T, H, hd] and k/v [B, T, KVH, hd]
+    in global head order."""
+    if dist.get_group_rank(group, dist.get_rank()) != i:
+        raise ValueError(f"rank {dist.get_rank()} is rank "
+                         f"{dist.get_group_rank(group, dist.get_rank())} of "
+                         f"the heads' group, not its head block {i}")
+    B, T, _, hd = q.shape
+    everyone = collectives.all_gather(torch.cat([q, k, v], dim=2), group)
+    # [W, B, T, slots, hd] -> [B, T, W, slots, hd], the ranks in order
+    q, k, v = everyone.permute(1, 2, 0, 3, 4).split(
+        [split.q_local, split.kv_local, split.kv_local], dim=3)
+    return (whole_heads(q.reshape(B, T, -1, hd), split),
+            whole_heads(k.reshape(B, T, -1, hd), split, kv=True),
+            whole_heads(v.reshape(B, T, -1, hd), split, kv=True))
 
 
 def flash_decode_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -339,6 +339,14 @@ class HeadSplit:
         j, p, m = i // self.share, i % self.share, self.q_local
         return [j * g + t if t < g else -1 for t in range(p * m, (p + 1) * m)]
 
+    @property
+    def group_slots(self) -> int:
+        """q slots one kv head's group takes over the ranks: its g heads,
+        padded with zero heads to a multiple of the ranks that share it.
+        Taken over the ranks in order, the slots are the kv heads' groups
+        in order, each padded at its end."""
+        return self.q_local * self.ranks // self.n_kv_heads
+
 
 def head_leaf(names) -> str | None:
     """"q" or "kv" for an attention leaf cut by heads, else None."""

@@ -61,12 +61,15 @@ distributed layer, as the reference's mesh cells, with the rules of
   Prefill returns this rank's vocabulary slice of the last logits
   (``P(dp, "model")``) and a cache of its batch block and its kv heads,
   whole along the sequence;
-- a decode cell (``decode_32k``, ``long_500k``) binds ``kv_seq`` to
-  ``kv_seq_axes(B)`` and, below batch 16, "batch" to None; its batch specs
-  hold only this rank's cache slice (``kv_cache_spec``) and token block.
-  Its weights are whole on every rank: the tensor-parallel names
-  ("model", "heads", "kv_heads", "ffn", "vocab", "expert") are bound to
-  None;
+- a decode cell (``decode_32k``, ``long_500k``) keeps the LM's rules and
+  binds ``kv_seq`` to ``kv_seq_axes(B)`` and, below batch 16, "batch" to
+  None, as the reference's does.  Its state is a prefill cell's: this
+  rank's block of every weight by ``param_spec_tree`` and the whole-head
+  ``heads``; its batch specs hold only this rank's cache slice
+  (``kv_cache_spec``: its rows, every kv head) and token block.  The
+  step gathers the token's heads over "model" for the sequence-sharded
+  attention (``repro_torch.dist.decode``) and returns this rank's
+  vocabulary slice of the logits;
 - a recsys cell binds "model" (and "batch" over the data axes); its state
   holds only this rank's rows of each embedding table (``row_shard``), its
   batch specs this rank's batch block; training, the tables' gradient is
@@ -186,10 +189,10 @@ class CellProgram:
 
     def local_params(self, params):
         """This rank's block of a whole LM parameter tree
-        (``param_spec_tree``'s placements; the tree itself without a mesh
-        or where "model" is unbound, as in a decode cell, whose weights
-        are whole on every rank)."""
-        if self.mesh is None or not self.rules.get("model"):
+        (``param_spec_tree``'s placements, attention leaves by whole heads,
+        the same in a train, prefill or decode cell; the tree itself
+        without a mesh)."""
+        if self.mesh is None:
             return params
         heads = None if self.heads is None else (self.heads,
                                                  self.cfg.head_dim)
@@ -286,11 +289,6 @@ class CellProgram:
             return self.step_fn(state, batch)
 
 
-# the LM's tensor-parallel logical names, unbound in a decode cell, whose
-# weights are whole on every rank (see the module docstring)
-_LM_TP_NAMES = ("model", "heads", "kv_heads", "ffn", "vocab", "expert")
-
-
 def _dp_axes(multi_pod: bool) -> tuple[str, ...]:
     return ("pod", "data") if multi_pod else ("data",)
 
@@ -318,7 +316,7 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     step = opt = loss_fn = heads = None
     dp = _dp_axes(multi_pod)
-    if mesh is not None and shape.step != "decode":
+    if mesh is not None:
         heads = tf_lib.head_split(cfg, logical.shards("model", mesh))
         if shape.step == "train" and heads.share > 1:
             # made here, on every rank in one order, not inside a step
@@ -362,7 +360,6 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
     if mesh is not None:
         rules = logical_rules(arch.KIND, multi_pod)
         if shape.step == "decode":
-            rules.update({name: None for name in _LM_TP_NAMES})
             rules["kv_seq"] = kv_seq_axes(B, multi_pod)
             if B < 16:
                 rules["batch"] = None  # batch 1: token replicated, KV seq-sharded

@@ -52,8 +52,14 @@ partial would be rounded on each rank and again after the sum), the
 token embedding through ``sharded_row_gather``, and
 the logits are this rank's vocabulary slice, which the vocab-parallel
 ``ce_loss`` takes.  Under ``remat`` the checkpointed block runs its
-collectives again in the backward.  A decode cell leaves those names
-unbound: its weights are whole on every rank.
+collectives again in the backward.  A decode cell on a mesh binds those
+names and "kv_seq" together, as the reference's does: its weights are
+this rank's blocks, but its cache slice holds every kv head along its
+rows, so the block gathers the token's q heads and new k/v rows over the
+heads' ranks in one ``all_gather`` (``dist.decode.gather_heads``), the
+rank whose slice holds ``pos`` writes the whole new row, the attention
+runs over all heads, and each rank keeps its own heads of the output
+for its ``wo`` rows.
 """
 from __future__ import annotations
 
@@ -71,7 +77,9 @@ from repro_torch.dist import collectives, logical
 from repro_torch.dist.decode import (
     decode_attention,
     decode_attention_int8,
+    gather_heads,
     kv_shard,
+    own_heads,
 )
 from repro_torch.dist.loss import cast_grad, ce_loss
 from repro_torch.dist.moe import moe_apply
@@ -228,7 +236,10 @@ def _tensor_parallel(cfg: LMConfig):
     parallelism.  Raises when "kv_heads", "ffn" or "vocab" is bound
     elsewhere, when the heads have no whole-head split over the ranks
     (``head_split``), or when the FFN width (a dense model's, or a MoE
-    model's shared expert) or the vocabulary does not split over them."""
+    model's shared expert) or the vocabulary does not split over them.
+    "kv_seq" may share the heads' axes (a decode cell binds both to
+    "model"): the heads' group is then also part of the cache's seq
+    group, and ``_block_apply`` gathers the token's heads over it."""
     axes = logical.bound_axes("heads")
     if not axes:
         return None, None, 0
@@ -301,12 +312,13 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
     """One transformer block. cache_l: {"k","v"(,"ks","vs")} [B, S, KVH, *]
     views, written in place at ``pos``, or None.  Under a "heads" binding
     the block runs this rank's heads and FFN columns (module docstring);
-    the cache then holds this rank's kv_heads.
+    the cache then holds this rank's kv_heads, or, under "kv_seq" too,
+    every kv head of this rank's sequence slice.
 
     Returns (x, cache_l, aux): aux is the MoE router's load-balance loss,
     None for a dense block."""
     B, T, _ = x.shape
-    tp, split, _ = _tensor_parallel(cfg)
+    tp, split, tp_i = _tensor_parallel(cfg)
     attn_cfg = cfg.attn
     if tp is not None:
         attn_cfg = dataclasses.replace(attn_cfg, n_heads=split.q_local,
@@ -336,6 +348,19 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
             raise ValueError("a sequence-sharded cache is read only by the "
                              "flash decode (decode_impl='flash', one token "
                              "at an int pos)")
+        gathered = tp is not None and bool(logical.bound_axes("kv_seq"))
+        if gathered:
+            # the slice holds every kv head: the whole token, gathered
+            if not flash:
+                raise ValueError("a tensor-parallel decode over a "
+                                 "sequence-sharded cache needs the flash "
+                                 "decode")
+            if cache_l["k"].shape[2] != cfg.n_kv_heads:
+                raise ValueError(f"the cache slice holds "
+                                 f"{cache_l['k'].shape[2]} kv heads; a "
+                                 f"sequence-sharded one holds all "
+                                 f"{cfg.n_kv_heads}")
+            q, k, v = gather_heads(q, k, v, split, tp_i, tp)
 
         def write(name, t):
             """Rows [pos, pos + T) of the cache, where this slice holds
@@ -369,6 +394,8 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
             kc, vc = cache_l["k"], cache_l["v"]
             attn = decode_attention(q, kc, vc, kv_len=pos + 1) if flash \
                 else attn_fn(q, kc, vc, q_offset=pos, chunk=cfg.attn_chunk)
+        if gathered:
+            attn = own_heads(attn, split, tp_i)
     else:
         attn = attn_fn(q, k, v, q_offset=0, chunk=cfg.attn_chunk)
     x = x + _row_parallel(attn.reshape(B, T, -1), params_l["attn"]["wo"], tp)

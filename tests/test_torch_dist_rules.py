@@ -230,22 +230,22 @@ def test_binding_constrain_and_resolve(mesh_results):
 
 
 def test_build_cell_decode_wiring(mesh_results):
-    """The reference's launch wiring (tests/test_distributed.py:226-234):
-    decode cells on a mesh flip to the flash decode and bind kv_seq; batch
-    1 unbinds "batch".  The LM's weights stay replicated in this slice, so
-    its tensor-parallel names are unbound; the cache specs are the rank's
+    """The reference's launch wiring (tests/test_distributed.py:226-234,
+    ``repro.launch.steps`` :194-201): decode cells on a mesh flip to the
+    flash decode, keep the LM's tensor-parallel names on "model" and bind
+    kv_seq; batch 1 unbinds "batch".  The cache specs are the rank's
     slice (SMOKE's S = 32 over the seq shards)."""
     _, out = mesh_results
     for res in out:
         c = res["cells"]["long_500k"]
         assert c["decode_impl"] == "flash"
         assert c["kv_seq"] == ("data", "model")
-        assert c["batch"] is None and c["model"] is None
+        assert c["batch"] is None and c["model"] == "model"
         assert c["cache_k"][1:3] == (1, 32 // 4) and c["token"] == (1, 1)
         c32 = res["cells"]["decode_32k"]
         assert c32["decode_impl"] == "flash"
         assert c32["kv_seq"] == ("model",)
-        assert c32["batch"] == ("data",)
+        assert c32["batch"] == ("data",) and c32["model"] == "model"
         assert c32["cache_k"][1:3] == (64, 32 // 2)
         assert c32["token"] == (64, 1)
 

@@ -21,7 +21,8 @@ Four gloo ranks on a (2, 2) ("data", "model") mesh
   tokens, dispatch positions from every rank's top-k ids) is what makes
   the dropped tokens the reference's: a rank routing its 32 tokens alone
   would drop others, which the test also shows;
-- a decode cell's ``init_state`` on the mesh keeps its weights whole."""
+- a decode cell's ``init_state`` on the mesh gives a rank the prefill
+  cell's weight blocks."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -110,16 +111,18 @@ def test_prefill_on_mesh_matches_reference(results):
 
 
 def test_decode_cell_on_mesh_keeps_whole_weights(results):
-    """A decode cell's tensor-parallel names are unbound: its
-    ``init_state`` on the mesh gives every rank the whole weights, which
-    the prefill cell splits."""
+    """A decode cell is tensor-parallel as the prefill cell is (the name
+    is an earlier slice's, whose decode weights were whole): its
+    ``init_state`` on the mesh gives every rank its "model" block of the
+    attention weights, the prefill cell's shapes."""
     cfg = j_steps.build_cell("llama3.2-3b", "prefill_32k", mesh=None).cfg
+    q_cols = cfg.n_heads * cfg.head_dim // MESH["model"]
+    kv_cols = cfg.n_kv_heads * cfg.head_dim // MESH["model"]
     for r in results["ranks"]:
         shapes = r["decode_shapes"]
-        assert shapes["wq"] == (cfg.n_layers, cfg.d_model,
-                                cfg.n_heads * cfg.head_dim)
-        assert shapes["wo"] == (cfg.n_layers, cfg.n_heads * cfg.head_dim,
-                                cfg.d_model)
+        assert shapes["wq"] == (cfg.n_layers, cfg.d_model, q_cols)
+        assert shapes["wk"] == (cfg.n_layers, cfg.d_model, kv_cols)
+        assert shapes["wo"] == (cfg.n_layers, q_cols, cfg.d_model)
 
 
 def _dropped(topk, capacity):

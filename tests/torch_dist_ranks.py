@@ -10,6 +10,7 @@ without them, and the tests that need the card reuse none of it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -471,7 +472,7 @@ def lm_prefill_moe_rank(rank: int, prefill: dict, moe: dict) -> dict:
     from repro_torch.launch.steps import build_cell
 
     mesh = _mesh()
-    # a decode cell's state on the mesh: its weights whole on every rank
+    # a decode cell's state on the mesh: this rank's weight blocks
     decode = build_cell(prefill["arch_id"], "decode_32k", "cpu", mesh=mesh,
                         batch=16).init_state(torch.Generator().manual_seed(0))
     return {"coords": dict(mesh.coords),
@@ -559,6 +560,112 @@ def uneven_rank(rank: int, cases: dict, shape, axes=("data", "model")
     mesh = _mesh(tuple(shape), axes)
     return {"coords": dict(mesh.coords),
             "cases": {name: uneven_case(mesh, **case)
+                      for name, case in cases.items()}}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dist_tp_decode.py: the tensor-parallel decode cells
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _recorded_decode(attn: list, partial_heads: list):
+    """Record each layer's attention output of this rank's heads and the q
+    heads each K3 partials call takes."""
+    from repro_torch.dist import decode as dd
+    from repro_torch.models import transformer as tf_lib
+
+    own = tf_lib.own_heads
+    saved_p = {name: getattr(dd, name) for name in (
+        "flash_decode_partials", "flash_decode_int8_partials")}
+
+    def recorded(*args):
+        out = own(*args)
+        attn.append(_np(out))
+        return out
+
+    def counting(fn):
+        def wrapped(q, *args, **kw):
+            partial_heads.append(q.shape[2])
+            return fn(q, *args, **kw)
+        return wrapped
+
+    tf_lib.own_heads = recorded
+    for name, fn in saved_p.items():
+        setattr(dd, name, counting(fn))
+    try:
+        yield
+    finally:
+        tf_lib.own_heads = own
+        for name, fn in saved_p.items():
+            setattr(dd, name, fn)
+
+
+def tp_decode_case(mesh, arch_id: str, overrides: dict, params, steps: dict
+                   ) -> dict:
+    """Every decode step of ``steps`` ((layout, kv_quant) -> its batch:
+    token, whole cache, positions) on the mesh: the cell of ``arch_id``'s
+    SMOKE config with ``overrides`` (its heads), this rank's block of the
+    parameters, its slice of the cache; at ``S - 1`` through the cell's
+    step, inside the cache through ``decode_step`` under the cell's
+    binding.  Each step's logits, its cache slice before and after, its
+    attention outputs, the q heads each K3 partials call took and the
+    collectives' calls; or the message of the error ``build_cell``
+    raised."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dist import collectives, logical
+    from repro_torch.dist.decode import kv_shard
+    from repro_torch.launch.steps import build_cell, run_cell
+    from repro_torch.models import transformer as tf_lib
+
+    out = {}
+    for (layout, kv_quant), step in steps.items():
+        cfg = dataclasses.replace(get_arch(arch_id).SMOKE,
+                                  kv_quant=kv_quant, **overrides)
+        try:
+            cell = build_cell(arch_id, layout, "cpu", mesh=mesh,
+                              batch=step["token"].shape[0],
+                              cfg_override=cfg)
+        except ValueError as e:
+            return {"error": str(e)}
+        local = cell.local_params(tree_map(torch.clone, params))
+        i = logical.shard_index(mesh, cell.rules["heads"])
+        for pos in step["positions"]:
+            batch = cell.local_batch({
+                "token": torch.as_tensor(step["token"]),
+                "cache": {k: torch.from_numpy(v).clone()
+                          for k, v in step["cache"].items()}})
+            before = {k: _np(v) for k, v in batch["cache"].items()}
+            attn, heads = [], []
+            collectives.reset()
+            with _recorded_decode(attn, heads):
+                if pos == cell.seq_len - 1:
+                    res = cell.run(local, batch)
+                else:
+                    with torch.inference_mode():
+                        res = run_cell(cell, lambda: dict(zip(
+                            ("logits", "cache"), tf_lib.decode_step(
+                                local, batch["token"], batch["cache"], pos,
+                                cell.cfg))))
+            off = run_cell(cell, lambda: kv_shard(
+                batch["cache"]["k"].shape[2]))[0]
+            out[(layout, kv_quant, pos)] = {
+                "logits": _np(res["logits"]), "before": before,
+                "after": {k: _np(v) for k, v in res["cache"].items()},
+                "attn": attn, "partial_heads": heads, "offset": off,
+                "calls": dict(collectives.calls),
+                "q_heads": cell.heads.q_heads(i),
+                "rules": dict(cell.rules)}
+    return {"steps": out}
+
+
+def tp_decode_rank(rank: int, cases: dict, shape, axes=("data", "model")
+                   ) -> dict:
+    """Every ``tp_decode_case`` on one mesh."""
+    mesh = _mesh(tuple(shape), axes)
+    return {"coords": dict(mesh.coords),
+            "cases": {name: tp_decode_case(mesh, **case)
                       for name, case in cases.items()}}
 
 
