@@ -3475,7 +3475,8 @@ def long_rank(rank: int, mesh, dev, bw: float, ref: dict) -> dict:
     # a layer: one packed gather of the token's heads, one merge of the
     # partials, the wo and FFN all-reduces; the embedding's all-reduce
     want_calls = {"all_gather": 2 * cfg.n_layers,
-                  "all_reduce": 2 * cfg.n_layers + 1}
+                  "all_reduce": 2 * cfg.n_layers + 1,
+                  "reduce_scatter": 0, "gather": 0}
     if launches != cfg.n_layers or calls != want_calls:
         raise AssertionError(f"long_500k step: {launches} K3 partials and "
                              f"collectives {calls} for {cfg.n_layers} "
@@ -4370,13 +4371,19 @@ def rm2_train_rank(rank: int, mesh, dev, bw: float, f32_rate: float) -> dict:
 
 
 def lm_train_cell(dev, arch_id: str, layers: int, batch: int, dtype,
-                  mesh=None):
+                  mesh=None, seq_shard: bool = False):
     import dataclasses
 
+    from repro_torch.configs.registry import get_arch
     from repro_torch.launch.steps import build_cell
 
+    over = None
+    if seq_shard:  # the config build_cell takes on dev, sequence-parallel
+        arch = get_arch(arch_id)
+        over = dataclasses.replace(arch.SMOKE if dev.type == "cpu"
+                                   else arch.FULL, seq_shard=True)
     cell = build_cell(arch_id, "train_4k", dev, batch=batch, n_layers=layers,
-                      mesh=mesh)
+                      mesh=mesh, cfg_override=over)
     # the dtype only sets the parameters' (the forward computes in theirs)
     return dataclasses.replace(cell, cfg=dataclasses.replace(cell.cfg,
                                                              dtype=dtype))
@@ -4422,19 +4429,27 @@ def load_ref(path: str):
 
 
 def lm_train_rank(rank: int, mesh, dev, ref: dict, arch_id: str,
-                  layers: int, batch: int, dtype, tol: float) -> dict:
-    """(b) or (c) on one rank: its block of the parameters (heads, FFN
-    columns or experts, vocabulary rows) drawn as one device draws them,
-    one gradient pass held leaf by leaf (this rank's block) and in loss to
-    one device at ``tol``, the collectives counted from 0; the planted
-    fault of a missing ``enter`` must fail; one step timed."""
+                  layers: int, batch: int, dtype, tol: float,
+                  seq_shard: bool = False) -> dict:
+    """(b), (c) or, with ``seq_shard``, (b') or (c') on one rank: its block
+    of the parameters (heads, FFN columns or experts, vocabulary rows)
+    drawn as one device draws them, one gradient pass held leaf by leaf
+    (this rank's block) and in loss to one device at ``tol``, the
+    collectives counted from 0; the planted fault of a missing ``enter``
+    must fail, or with ``seq_shard`` (the residual stream a rank's
+    sequence block) the leaves replicated over "model" (the norms, a
+    router) are also held alone, and leaving out their sum over "model"
+    must fail; one step timed."""
+    import dataclasses
+
     import torch
 
     from repro_torch.common.tree import tree_leaves
     from repro_torch.dist import collectives
     from repro_torch.dist.sharding import local_shard, param_spec_tree
 
-    cell = lm_train_cell(dev, arch_id, layers, batch, dtype, mesh=mesh)
+    cell = lm_train_cell(dev, arch_id, layers, batch, dtype, mesh=mesh,
+                         seq_shard=seq_shard)
     m0 = mem()
     state = cell.init_state(torch.Generator(dev).manual_seed(ref["seed"]))
     b = cell.local_batch({"tokens": ref["tokens"].to(dev)})
@@ -4451,14 +4466,33 @@ def lm_train_rank(rank: int, mesh, dev, ref: dict, arch_id: str,
     grad_ms = (time.perf_counter() - t0) * 1e3
     calls = dict(collectives.calls)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    name = f"{arch_id} {dtype} on the mesh"
+    name = f"{arch_id} {dtype} on the mesh" + (", seq_shard" if seq_shard
+                                               else "")
     loss_err = check(f"{name} loss", loss.cpu(), ref["loss"], tol)
     worst = leaf_checks(f"{name} gradient", tree_leaves(grads), want, tol)
-    del grads
-    with no_enter():
-        _, bad = cell.value_and_grad(state, b)
-    must_raise(f"{name}, a missing enter", lambda: leaf_checks(
-        f"{name} gradient", tree_leaves(bad), want, tol))
+    extra = {}
+    if seq_shard:
+        rep = [i for i, s in enumerate(specs) if "model" not in tuple(s)]
+        pick = lambda leaves: [leaves[i] for i in rep]  # noqa: E731
+        extra = {"replicated_leaves": len(rep),
+                 "replicated_grad_err_relative_to_leaf_max": leaf_checks(
+                     f"{name} replicated gradient",
+                     pick(tree_leaves(grads)), pick(want), tol),
+                 "grad_axes": cell.grad_axes}
+        del grads
+        fault = dataclasses.replace(cell, grad_axes=tuple(
+            a for a in cell.grad_axes if a != "model"))
+        _, bad = fault.value_and_grad(state, b)
+        must_raise(f"{name}, the norms' sum over model left out",
+                   lambda: leaf_checks(f"{name} replicated gradient",
+                                       pick(tree_leaves(bad)), pick(want),
+                                       tol))
+    else:
+        del grads
+        with no_enter():
+            _, bad = cell.value_and_grad(state, b)
+        must_raise(f"{name}, a missing enter", lambda: leaf_checks(
+            f"{name} gradient", tree_leaves(bad), want, tol))
     del bad, want
     torch.cuda.empty_cache()
     before = mem()
@@ -4471,7 +4505,7 @@ def lm_train_rank(rank: int, mesh, dev, ref: dict, arch_id: str,
            "grad_err_relative_to_leaf_max": worst, "tolerance": tol,
            "leaves": len(specs), "params_gb": tree_gb(state["params"]),
            "grad_ms": grad_ms, "step_ms": step_ms, "peak_gb": peak,
-           "memory": step_mem, "collectives": calls}
+           "memory": step_mem, "collectives": calls, **extra}
     del state, b
     torch.cuda.empty_cache()
     return res
@@ -4577,7 +4611,7 @@ def prefill_rank(rank: int, mesh, dev, ref: dict) -> dict:
             f"prefill on the mesh, {key} cache {k}", got[k], want[k], tol)
             for k in ("ks", "vs"))
         saved = tf._tp_sum
-        tf._tp_sum = lambda x, group: x
+        tf._tp_sum = lambda x, group, seq=False: x
         try:
             bad = cell.run(params, b)["logits"].cpu()
         finally:
@@ -4801,9 +4835,10 @@ def gnn_train_rank(rank: int, mesh, dev, dev_type: str, refs: dict) -> dict:
 
 def dist_train_rank(rank: int, dev_type: str, bw: float, f32_rate: float,
                     paths: dict) -> dict:
-    """One rank of the dist_train phase: (a)-(d) on a (1, DIST_RANKS)
-    ("data", "model") mesh over the card, (e) on the meshes of
-    DT_GNN_MESH; each reference loaded from the file ``paths`` names."""
+    """One rank of the dist_train phase: (a)-(d), (b') and (c') on a (1,
+    DIST_RANKS) ("data", "model") mesh over the card, (e) on the meshes
+    of DT_GNN_MESH; each reference loaded from the file ``paths``
+    names."""
     import torch
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -4820,9 +4855,17 @@ def dist_train_rank(rank: int, dev_type: str, bw: float, f32_rate: float,
             ("llama_bf16", lambda: lm_train_rank(
                 rank, mesh, dev, refs["llama_bf16"], "llama3.2-3b",
                 DT_LM_LAYERS, DT_LM_BATCH, torch.bfloat16, BF16_TOL)),
+            ("llama_seq_bf16", lambda: lm_train_rank(
+                rank, mesh, dev, refs["llama_bf16"], "llama3.2-3b",
+                DT_LM_LAYERS, DT_LM_BATCH, torch.bfloat16, BF16_TOL,
+                seq_shard=True)),
             ("olmoe_f32", lambda: lm_train_rank(
                 rank, mesh, dev, refs["olmoe_f32"], "olmoe-1b-7b",
                 DT_MOE_LAYERS, DT_MOE_BATCH, torch.float32, SUM_TOL)),
+            ("olmoe_seq_f32", lambda: lm_train_rank(
+                rank, mesh, dev, refs["olmoe_f32"], "olmoe-1b-7b",
+                DT_MOE_LAYERS, DT_MOE_BATCH, torch.float32, SUM_TOL,
+                seq_shard=True)),
             ("prefill", lambda: prefill_rank(rank, mesh, dev,
                                              refs["prefill"])),
             ("gnn", lambda: gnn_train_rank(rank, mesh, dev, dev_type,
@@ -4842,10 +4885,13 @@ def phase_dist_train(dev, bw: float, f32_rate: float) -> dict:
     """The train and prefill cells on a mesh: the single-device references
     first (each freed before the next), then DIST_RANKS rank processes on
     the card over gloo run (a) dlrm-rm2 FULL train_batch row-sharded, (b)
-    llama3.2-3b FULL-width train_4k tensor-parallel in bf16, (c)
-    olmoe-1b-7b FULL-width train_4k expert- and tensor-parallel, (d)
-    llama3.2-3b prefill_32k and (e) GraphSAGE's full_graph_sm and molecule.
-    A rank that fails fails the phase."""
+    llama3.2-3b FULL-width train_4k tensor-parallel in bf16 and (b') the
+    same with ``seq_shard`` (the residual stream a rank's sequence block),
+    (c) olmoe-1b-7b FULL-width train_4k expert- and tensor-parallel and
+    (c') with ``seq_shard``, (d) llama3.2-3b prefill_32k and (e)
+    GraphSAGE's full_graph_sm and molecule.  (b') and (c') are held to
+    the one-device references of (b) and (c).  A rank that fails fails
+    the phase."""
     import tempfile
 
     import torch
@@ -4895,18 +4941,26 @@ def phase_dist_train(dev, bw: float, f32_rate: float) -> dict:
                    "grad_window_launches": sum(r["grad_window_launches"]
                                                for r in rm2)}}
     emit(dt_line("rm2_train", **res["rm2"]))
-    for key, config in (
-            ("llama_bf16", f"llama3.2-3b FULL width, {DT_LM_LAYERS} layers, "
-                           f"train_4k B {DT_LM_BATCH} S 4096, bf16, (1, 2)"),
-            ("olmoe_f32", f"olmoe-1b-7b FULL width, {DT_MOE_LAYERS} layers, "
-                          f"train_4k B {DT_MOE_BATCH} S 4096, f32, (1, 2)")):
-        ref = refs[key]
+    llama = (f"llama3.2-3b FULL width, {DT_LM_LAYERS} layers, train_4k B "
+             f"{DT_LM_BATCH} S 4096, bf16, (1, 2)")
+    olmoe = (f"olmoe-1b-7b FULL width, {DT_MOE_LAYERS} layers, train_4k B "
+             f"{DT_MOE_BATCH} S 4096, f32, (1, 2)")
+    for key, ref_key, config in (
+            ("llama_bf16", "llama_bf16", llama),
+            ("llama_seq_bf16", "llama_bf16", llama + ", seq_shard"),
+            ("olmoe_f32", "olmoe_f32", olmoe),
+            ("olmoe_seq_f32", "olmoe_f32", olmoe + ", seq_shard")):
+        ref = refs[ref_key]
         res[key] = {"config": config, "loss_one_device": float(ref["loss"]),
                     "one_device_grad_ms": ref["grad_ms"],
                     "one_device_step_ms": ref["step_ms"],
                     "one_device_peak_gb": ref["peak_gb"],
                     "params_gb": ref["params_gb"],
                     "per_rank": [r[key] for r in ranks]}
+        if key != ref_key:  # beside the same cell without seq_shard
+            res[key]["without_seq_shard"] = [
+                {k: r[ref_key][k] for k in ("grad_ms", "step_ms", "peak_gb",
+                                            "collectives")} for r in ranks]
         emit(dt_line(key, **res[key]))
     res["prefill"] = {"config": f"llama3.2-3b FULL, prefill_32k, "
                                 f"{DT_PREFILL_LAYERS} layers, batch 1, (1, 2)"
@@ -4955,10 +5009,14 @@ DRYRUN_CELLS = {
     "dist_lm_train_4k": ("llama3.2-3b", "train_4k",
                          {"batch": DT_LM_BATCH, "n_layers": DT_LM_LAYERS},
                          True),
+    "dist_lm_seq_train_4k": ("llama3.2-3b", "train_4k",
+                             {"batch": DT_LM_BATCH, "n_layers": DT_LM_LAYERS,
+                              "seq_shard": True}, True),
     "dist_long_500k": ("llama3.2-3b", "long_500k", {"batch": 1}, True),
 }
 PREDICT = """
-import json, sys
+import dataclasses, json, sys
+from repro_torch.configs.registry import get_arch
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.steps import build_cell
@@ -4967,9 +5025,39 @@ for key, (arch, shape, cuts, on_mesh) in cells.items():
     if on_mesh and mesh is None:
         dryrun.fake_world(2)
         mesh = make_debug_mesh(1, 2, device_type="cpu")
+    over = None
+    if cuts.pop("seq_shard", False):
+        over = dataclasses.replace(get_arch(arch).FULL, seq_shard=True)
     rec = dryrun.trace_cell(build_cell(arch, shape, "meta",
-                                       mesh=mesh if on_mesh else None, **cuts))
+                                       mesh=mesh if on_mesh else None,
+                                       cfg_override=over, **cuts))
     out[key] = rec["memory"]
+print(json.dumps(out))
+"""
+# (a): deepseek-67b's train_4k and prefill_32k on both production meshes,
+# with and without seq_shard (the 256-rank train_4k fits only with it)
+SEQ_DRYRUN = """
+import dataclasses, json
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch import dryrun
+out = []
+for mesh in ("single", "multi"):
+    for shape in ("train_4k", "prefill_32k"):
+        for seq in (False, True):
+            cfg = dataclasses.replace(get_arch("deepseek-67b").FULL,
+                                      seq_shard=seq)
+            rec = dryrun.run_cell_dryrun("deepseek-67b", shape, mesh,
+                                         save=False, verbose=False,
+                                         cfg_override=cfg)
+            out.append({"mesh": mesh, "shape": shape, "seq_shard": seq,
+                        **{k: rec[k] for k in (
+                            "n_devices", "collectives",
+                            "collective_bytes_per_device", "t_collective_s",
+                            "bottleneck", "time_trace_s")},
+                        "argument_gb": rec["memory"]["argument_size_bytes"]
+                        / 1e9,
+                        "peak_gb": rec["memory"]["peak_memory_bytes"] / 1e9,
+                        "temp_gb": rec["memory"]["temp_size_bytes"] / 1e9})
 print(json.dumps(out))
 """
 # (c): qwen2-7b at FULL width, 28 heads and 4 kv heads over 8 "model"
@@ -5037,6 +5125,37 @@ def start_predictions() -> subprocess.Popen:
         [sys.executable, "-c", PREDICT, json.dumps(DRYRUN_CELLS)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=str(SRC)))
+
+
+def start_seq_dryrun() -> subprocess.Popen:
+    """SEQ_DRYRUN in a process of its own (fake worlds of 256 and 512),
+    started to run beside (a)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", SEQ_DRYRUN], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+
+
+def seq_dryrun_line(proc: subprocess.Popen) -> dict:
+    """(a)'s deepseek-67b line: each record of SEQ_DRYRUN; with seq_shard
+    the arguments must be those without, and train_4k must fit a rank's
+    CARD_BYTES on both meshes."""
+    stdout, stderr = proc.communicate(timeout=2 * DRYRUN_BUDGET_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"the seq_shard dry run failed:\n"
+                             f"{stderr[-3000:]}")
+    recs = json.loads(stdout.strip().splitlines()[-1])
+    key = lambda r: (r["mesh"], r["shape"])  # noqa: E731
+    plain = {key(r): r for r in recs if not r["seq_shard"]}
+    for r in recs:
+        if r["seq_shard"]:
+            if r["argument_gb"] != plain[key(r)]["argument_gb"]:
+                raise AssertionError(f"{key(r)}: seq_shard changed the "
+                                     f"arguments")
+            if r["shape"] == "train_4k" and r["peak_gb"] * 1e9 > CARD_BYTES:
+                raise AssertionError(f"{key(r)}: {r['peak_gb']} GB a rank "
+                                     f"with seq_shard")
+    return dryrun_line("seq_shard", arch="deepseek-67b", records=recs)
 
 
 def dryrun_against_card(predictions: subprocess.Popen,
@@ -5221,7 +5340,8 @@ def tp_decode_rank(rank: int, mesh, dev) -> dict:
     calls = dict(collectives.calls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want_calls = {"all_gather": 2 * cfg.n_layers,
-                  "all_reduce": 2 * cfg.n_layers + 1}
+                  "all_reduce": 2 * cfg.n_layers + 1,
+                  "reduce_scatter": 0, "gather": 0}
     if launches != cfg.n_layers or calls != want_calls:
         raise AssertionError(f"{UNEVEN_ARCH} decode_32k rank {rank}: "
                              f"{launches} K3 partials and collectives "
@@ -5442,26 +5562,34 @@ def uneven_split(dev) -> dict:
 
 
 def phase_dryrun(dev, readings: dict) -> dict:
-    """(a) the dry run of every cell on both production meshes, (b) its
-    prediction against what the earlier phases measured, (c) the uneven
-    head split at full width on UNEVEN_RANKS ranks."""
+    """(a) the dry run of every cell on both production meshes, and of
+    deepseek-67b's train_4k and prefill_32k with seq_shard beside it, (b)
+    its prediction against what the earlier phases measured, (c) the
+    uneven head split at full width on UNEVEN_RANKS ranks."""
     import tempfile
 
     t0 = time.perf_counter()
     predictions = start_predictions()
+    seq = start_seq_dryrun()
     try:
         with tempfile.TemporaryDirectory() as tmp:
             sweep = dryrun_sweep(Path(tmp))
         for line in sweep:
             emit(line)
+        seq_line = seq_dryrun_line(seq)
+        emit(seq_line)
         against = dryrun_against_card(predictions, readings)
     finally:
-        if predictions.poll() is None:   # (a) failed first
-            predictions.kill()
-            predictions.wait()
+        for proc in (predictions, seq):
+            if proc.poll() is None:   # (a) failed first
+                proc.kill()
+                proc.wait()
     res = {"phase": "dryrun",
            "sweep": [{k: v for k, v in line.items() if k != "records"}
                      for line in sweep],
+           "seq_shard": [{k: r[k] for k in ("mesh", "shape", "seq_shard",
+                                            "argument_gb", "peak_gb")}
+                         for r in seq_line["records"]],
            "against_card": against, "uneven_split": uneven_split(dev)}
     res["seconds"] = time.perf_counter() - t0
     return res
@@ -6339,6 +6467,8 @@ def main() -> int:
                                  dist_train["rm2"]["per_rank"]],
         "dist_lm_train_4k": [r["memory"] for r in
                              dist_train["llama_bf16"]["per_rank"]],
+        "dist_lm_seq_train_4k": [r["memory"] for r in
+                                 dist_train["llama_seq_bf16"]["per_rank"]],
         "dist_long_500k": [r["memory"] for r in
                            dist["long_500k"]["per_rank"]]}
     dryrun = timed("dryrun", lambda: phase_dryrun(dev, readings))

@@ -26,7 +26,9 @@ Under autograd the window uses the router's top-k weights and the tokens
 partially, so both pass through ``collectives.enter`` on their way into
 it (their gradient summed over "model"); the router itself and its aux
 loss run whole on every rank, which gives every rank the router's whole
-gradient, counted once.
+gradient, counted once.  Under an LM's sequence parallelism the tokens
+arrive as this rank's sequence blocks instead, and are gathered
+(``moe_apply``'s ``seq_batch``).
 
 Routing keeps the reference's global semantics where "batch" is bound to
 data axes of more than one rank (each rank holding its block of the
@@ -123,14 +125,15 @@ def _data_axes() -> tuple:
     return ()
 
 
-def _route(params, x: torch.Tensor, cfg: MoEConfig, data_axes: tuple):
-    """``moe_router`` over every data rank's tokens: this rank's (topk_idx,
-    topk_weight) and the aux loss of all the tokens, the same on every
-    rank (its gradient that of this rank's tokens' share)."""
-    if not data_axes:
+def _route(params, x: torch.Tensor, cfg: MoEConfig, axes: tuple):
+    """``moe_router`` over the tokens of every rank of ``axes`` (the data
+    axes, and "model" where the ranks hold sequence blocks): this rank's
+    (topk_idx, topk_weight) and the aux loss of all the tokens, the same
+    on every rank (its gradient that of this rank's tokens' share)."""
+    if not axes:
         return moe_router(params, x, cfg)
-    group = logical.group(data_axes)
-    n_all = x.shape[0] * logical.shards(data_axes, logical.current_mesh())
+    group = logical.group(axes)
+    n_all = x.shape[0] * logical.shards(axes, logical.current_mesh())
     logits = x.to(cfg.router_dtype) @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     topk_w, topk_idx = torch.topk(probs, cfg.top_k, dim=-1)
@@ -179,25 +182,29 @@ def moe_apply_grouped(params, x: torch.Tensor, cfg: MoEConfig, *,
 
 def _routed(params, x: torch.Tensor, x_in: torch.Tensor, cfg: MoEConfig, *,
             e_start: int = 0, e_count: int | None = None,
-            capacity: int | None = None, expert_base: int = 0, group=None):
+            capacity: int | None = None, expert_base: int = 0, widen=None,
+            route_axes: tuple = ()):
     """``moe_apply_grouped`` with the router fed ``x`` and the experts
-    ``x_in`` (x itself, or x entered into the "model" ``group``, whose
-    top-k weights then enter it too)."""
+    ``x_in``: x itself, or ``widen(x)``, x entered into the "model" group
+    or its sequence blocks gathered over it, whose top-k ids and weights
+    are then widened too.  The router runs over the ranks of the data axes
+    and ``route_axes``."""
     e_pad = cfg.n_experts_padded
     if e_count is None:
         e_count = e_pad
-    n, d = x.shape
+    d = x.shape[1]
+    n = x_in.shape[0]
     data_axes = _data_axes()
     if capacity is None:
         n_all = n * (logical.shards(data_axes, logical.current_mesh())
                      if data_axes else 1)
         capacity = expert_capacity(n_all, cfg)
 
-    topk_idx, topk_w, aux = _route(params, x, cfg, data_axes)
+    topk_idx, topk_w, aux = _route(params, x, cfg, data_axes + route_axes)
+    if widen is not None:
+        topk_idx, topk_w = widen(topk_idx), widen(topk_w)
     slot_of = _slots(topk_idx, cfg, capacity, e_start, e_count, data_axes)
     buf_token, buf_valid = _buffers(slot_of, e_count * capacity)
-    if group is not None:
-        topk_w = collectives.enter(topk_w, group)
     x = x_in
 
     # gather tokens into the [e, capacity, d] buffers (zero for empty slots)
@@ -222,12 +229,26 @@ def _routed(params, x: torch.Tensor, x_in: torch.Tensor, cfg: MoEConfig, *,
     return torch.einsum("nk,nkd->nd", w, rows), aux
 
 
-def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
+def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *,
+              seq_batch: int | None = None):
     """The MoE layer: routed experts (grouped dispatch over the whole
     padded expert range, expert-parallel when a "model" axis is bound, the
     expert stacks then this rank's window) plus the always-on shared
     expert (whole, or this rank's tensor-parallel columns of it).  x: [N,
-    d] -> ([N, d], aux_loss)."""
+    d] -> ([N, d], aux_loss).
+
+    ``seq_batch`` (a "model" axis bound): x is this rank's sequence block
+    of each of ``seq_batch`` sequences, [seq_batch * T / W, d] row-major,
+    the W "model" ranks holding the blocks in order (an LM's residual
+    stream under sequence parallelism), and so is the output.  The router
+    then runs on the block, its sums over the "model" ranks too, and its
+    top-k ids and weights and the tokens are gathered along the sequence
+    (``collectives.gather``), so that every rank's expert window sees its
+    data block's tokens in the one-device order; the window's partial
+    output, the tensor-parallel shared expert's added, is summed by a
+    ``reduce_scatter`` into this rank's block.  The router's gradient is
+    then its block's share, summed over "model" with the norms'
+    (``collectives.reduce_grads``)."""
     axis = logical.model_axis_name()
     if axis is None:
         out, aux = moe_apply_grouped(params, x, cfg)
@@ -244,9 +265,21 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
                          f"window of {e_pad} over {w} ranks")
     e_count = e_pad // w
     e_start = logical.shard_index(mesh, axis) * e_count
-    x_in = collectives.enter(x, group)
+    d = x.shape[1]
+    if seq_batch is None:
+        def widen(t):
+            return collectives.enter(t, group)
+        route_axes = ()
+    else:
+        def widen(t):
+            whole = collectives.gather(t.reshape(seq_batch, -1, t.shape[-1]),
+                                       group, 1)
+            return whole.reshape(-1, t.shape[-1])
+        route_axes = logical.as_axes(axis)
+    x_in = widen(x)
     out, aux = _routed(params, x, x_in, cfg, e_start=e_start,
-                       e_count=e_count, expert_base=e_start, group=group)
+                       e_count=e_count, expert_base=e_start, widen=widen,
+                       route_axes=route_axes)
     shared_cols = params["shared"]["w_gate"].shape[-1] if cfg.n_shared else 0
     if shared_cols and shared_cols * w == cfg.shared_width and w > 1:
         # tensor-parallel shared expert: its partial joins the window's
@@ -256,7 +289,11 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
         raise ValueError(f"shared expert of {shared_cols} columns is neither "
                          f"whole ({cfg.shared_width}) nor a block of it "
                          f"over {w} ranks")
-    out = collectives.all_reduce(out.contiguous(), group)
+    if seq_batch is None:
+        out = collectives.all_reduce(out.contiguous(), group)
+    else:
+        out = collectives.reduce_scatter(out.reshape(seq_batch, -1, d),
+                                         group, 1).reshape(-1, d)
     if shared_cols:
         out = out + apply_swiglu(params["shared"], x)
     return out, aux

@@ -41,14 +41,19 @@ def _model_group():
     return logical.group(logical.model_axis_name())
 
 
-def sharded_row_gather(table_shard: torch.Tensor, rows: torch.Tensor
-                       ) -> torch.Tensor:
+def sharded_row_gather(table_shard: torch.Tensor, rows: torch.Tensor,
+                       scatter_dim: int | None = None) -> torch.Tensor:
     """Rows of a row-sharded table: ``rows`` (global row ids, any int
     shape, each in [0, W * R)) -> ``rows.shape + (dim,)`` in the table's
     dtype, the same on every rank of the "model" group.  Each rank reads
     the rows it owns and zeros elsewhere; the ``all_reduce`` adds exactly
-    one non-zero term a row, so the result is the rows themselves.
-    Without a binding, a plain gather from the whole table."""
+    one non-zero term a row, so the result is the rows themselves.  With
+    ``scatter_dim`` a ``reduce_scatter`` along that dimension of ``rows``
+    takes the all-reduce's place: this rank gets its block of the rows
+    (an LM's sequence block under sequence parallelism), and each rank's
+    table gradient is still that of its own rows for every row, since
+    the backward all-gathers the blocks' cotangents.  Without a binding,
+    a plain gather from the whole table."""
     if logical.model_axis_name() is None:
         return F.embedding(rows.long(), table_shard)
     lo, hi = row_window(table_shard)
@@ -56,6 +61,8 @@ def sharded_row_gather(table_shard: torch.Tensor, rows: torch.Tensor
     mine = (rows >= lo) & (rows < hi)
     out = F.embedding((rows - lo).clamp(0, hi - lo - 1), table_shard)
     out = out * mine[..., None].to(out.dtype)
+    if scatter_dim is not None:
+        return collectives.reduce_scatter(out, _model_group(), scatter_dim)
     return collectives.all_reduce(out.contiguous(), _model_group())
 
 

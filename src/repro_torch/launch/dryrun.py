@@ -36,7 +36,8 @@ A record, per rank ("per_device" in the reference's keys):
 - ``collective_bytes_per_device`` and ``collectives`` (bytes by kind,
   ``_count``s): a rank's bytes on the wire, counted by
   ``repro_torch.dist.collectives`` while the step runs (all-reduce twice
-  and all-gather once its result's bytes), not read off a compiled graph;
+  and all-gather once its result's bytes, reduce-scatter once its
+  operand's), not read off a compiled graph;
 - ``memory``: ``argument_size_bytes`` (the rank's state and batch),
   ``output_size_bytes`` (``alias_size_bytes`` of it the arguments the
   step updates in place), ``temp_size_bytes`` (the peak less the

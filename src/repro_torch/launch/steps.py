@@ -61,6 +61,12 @@ distributed layer, as the reference's mesh cells, with the rules of
   Prefill returns this rank's vocabulary slice of the last logits
   (``P(dp, "model")``) and a cache of its batch block and its kv heads,
   whole along the sequence;
+- a ``seq_shard`` config binds "residual_seq" to "model", as the
+  reference's ``build_cell`` does: a train or prefill step then runs
+  sequence-parallel (``repro_torch.models.transformer``), and a train
+  cell's ``grad_axes`` hold "model" too, which sums every leaf
+  replicated over it (the norms, a MoE router) over its ranks; a decode
+  step's one token keeps the all-reduce form;
 - a decode cell (``decode_32k``, ``long_500k``) keeps the LM's rules and
   binds ``kv_seq`` to ``kv_seq_axes(B)`` and, below batch 16, "batch" to
   None, as the reference's does.  Its state is a prefill cell's: this
@@ -359,6 +365,8 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
     grad_axes = ()
     if mesh is not None:
         rules = logical_rules(arch.KIND, multi_pod)
+        if cfg.seq_shard:
+            rules["residual_seq"] = "model"
         if shape.step == "decode":
             rules["kv_seq"] = kv_seq_axes(B, multi_pod)
             if B < 16:
@@ -369,6 +377,10 @@ def _lm_cell(arch, shape: ShapeSpec, device: torch.device,
         else:
             spec_tree = {"tokens": P(dp, None)}
             grad_axes = dp if shape.step == "train" else ()
+            with logical.axis_rules(mesh, rules):
+                if grad_axes and tf_lib.sequence_split(S):
+                    # the norms' (and a router's) block shares summed
+                    grad_axes += logical.as_axes(rules["residual_seq"])
         batch_specs = local_shard(batch_specs, spec_tree, mesh)
     return CellProgram(arch_id=arch.ARCH_ID, shape=shape, kind=arch.KIND,
                        cfg=cfg, device=device, batch=B, seq_len=S,

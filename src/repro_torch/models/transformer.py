@@ -60,6 +60,21 @@ heads' ranks in one ``all_gather`` (``dist.decode.gather_heads``), the
 rank whose slice holds ``pos`` writes the whole new row, the attention
 runs over all heads, and each rank keeps its own heads of the output
 for its ``wo`` rows.
+
+``seq_shard`` (Megatron-style sequence parallelism): a cell of such a
+config binds "residual_seq" to "model", and where a step's T splits over
+the "model" ranks (``sequence_split``) the residual stream between and
+inside the blocks is this rank's sequence block [B, T / W, d]: the
+token embedding's sum is reduce-scattered into it, the norms run on it,
+each column-parallel input is gathered along T (``collectives.gather``,
+in ``enter``'s place), each row-parallel product's float32 partials are
+reduce-scattered (``collectives.reduce_scatter``, in the
+``all_reduce``'s place) and then rounded, the MoE layer gathers and
+reduce-scatters likewise, and the final norm's output is gathered for
+the head.  So the checkpointed block keeps a 1/W block of its input.
+The norms (and a MoE router) then see only this rank's tokens, and their
+gradients are summed over "model" by the cell (``collectives.
+reduce_grads``).
 """
 from __future__ import annotations
 
@@ -118,6 +133,11 @@ class LMConfig:
     # "chunked" is the online-softmax loop over KV chunks
     attn_impl: str = "naive"
     attn_chunk: int = 1024
+    # shard the residual stream between blocks by sequence over the "model"
+    # axis (Megatron-style sequence parallelism): each tensor-parallel
+    # all-reduce becomes a reduce-scatter and an all-gather, and the
+    # activations a block keeps are 1/TP of the sequence
+    seq_shard: bool = False
     # KV-cache quantization: "none" | "int8" (per token and head, symmetric)
     kv_quant: str = "none"
     # one-token decode attention: "naive" or "flash" (kernel K3)
@@ -259,13 +279,55 @@ def _tensor_parallel(cfg: LMConfig):
     return logical.group(axes), split, logical.shard_index(mesh, axes)
 
 
-def _enter(x, group):
-    return x if group is None else collectives.enter(x, group)
+def sequence_split(T: int) -> bool:
+    """Whether a step over T tokens runs sequence-parallel: "residual_seq"
+    is bound (a ``seq_shard`` cell on a mesh), to the heads' axes, and T
+    splits over its more than one rank.  Otherwise (decode's one token, a
+    length that is not a multiple) the residual stream stays whole on
+    every rank, the all-reduce form: the same values, as the reference's
+    constraint changes only the layout."""
+    axes = logical.bound_axes("residual_seq")
+    if not axes:
+        return False
+    if axes != logical.bound_axes("heads"):
+        raise ValueError(f'"residual_seq" is bound to {axes}, not to the '
+                         f"heads' {logical.bound_axes('heads')}")
+    w = logical.shards(axes, logical.current_mesh())
+    return w > 1 and T % w == 0
 
 
-def _tp_sum(x, group):
-    return x if group is None else collectives.all_reduce(x.contiguous(),
-                                                          group)
+def _enter(x, group, seq: bool = False):
+    """x as the input of this rank's column-parallel work: x itself on one
+    device, entered (``collectives.enter``) where it is replicated, its
+    sequence blocks gathered (``collectives.gather``) where it is this
+    rank's block ([B, T / W, ...])."""
+    if group is None:
+        return x
+    if seq:
+        return collectives.gather(x, group, 1)
+    return collectives.enter(x, group)
+
+
+def _tp_sum(x, group, seq: bool = False):
+    """The sum of the ranks' partials x [B, T, ...]: whole on every rank,
+    or this rank's sequence block of it under ``seq``."""
+    if group is None:
+        return x
+    if seq:
+        return collectives.reduce_scatter(x, group, 1)
+    return collectives.all_reduce(x.contiguous(), group)
+
+
+def _residual(x, T: int, seq: bool):
+    """The reference's constraint of the residual stream to ("batch",
+    "residual_seq", "embed"), as a check: ``x`` is this rank's batch block
+    and, under ``seq``, its sequence block of a [B, T, d] stream."""
+    mesh = logical.current_mesh()
+    if mesh is None:
+        return x
+    B = x.shape[0] * logical.shards(logical.bound_axes("batch"), mesh)
+    return logical.constrain(x, ("batch", "residual_seq" if seq else None,
+                                 "embed"), shape=(B, T, x.shape[2]))
 
 
 class _Float32Product(torch.autograd.Function):
@@ -296,29 +358,35 @@ class _Float32Product(torch.autograd.Function):
         return dx, dw
 
 
-def _row_parallel(x, w, group):
-    """x @ w with the contraction split over ``group`` (x and w this rank's
-    blocks): the float32 partials summed by one ``all_reduce`` and rounded
-    to x's dtype once."""
+def _row_parallel(x, w, group, seq: bool = False):
+    """x [B, T, k] @ w with the contraction split over ``group`` (x and w
+    this rank's blocks): the float32 partials summed by one ``all_reduce``
+    (under ``seq`` a ``reduce_scatter`` into this rank's sequence block)
+    and rounded to x's dtype once."""
     if group is None:
         return x @ w
     if x.dtype == torch.float32:
-        return _tp_sum(x @ w, group)
-    return _tp_sum(_Float32Product.apply(x, w), group).to(x.dtype)
+        return _tp_sum(x @ w, group, seq)
+    return _tp_sum(_Float32Product.apply(x, w), group, seq).to(x.dtype)
 
 
 def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
-                 pos=None):
+                 pos=None, seq: bool = False):
     """One transformer block. cache_l: {"k","v"(,"ks","vs")} [B, S, KVH, *]
     views, written in place at ``pos``, or None.  Under a "heads" binding
     the block runs this rank's heads and FFN columns (module docstring);
     the cache then holds this rank's kv_heads, or, under "kv_seq" too,
-    every kv head of this rank's sequence slice.
+    every kv head of this rank's sequence slice.  ``seq``: x (and the
+    block's output) is this rank's sequence block [B, T / W, d]
+    (``sequence_split``).
 
     Returns (x, cache_l, aux): aux is the MoE router's load-balance loss,
     None for a dense block."""
     B, T, _ = x.shape
     tp, split, tp_i = _tensor_parallel(cfg)
+    if seq:
+        T *= logical.shards(logical.bound_axes("residual_seq"),
+                            logical.current_mesh())
     attn_cfg = cfg.attn
     if tp is not None:
         attn_cfg = dataclasses.replace(attn_cfg, n_heads=split.q_local,
@@ -328,7 +396,7 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
             raise ValueError(f"wq holds {params_l['attn']['wq'].shape[-1]} "
                              f"columns; this rank's heads need {want}")
     h = apply_rmsnorm(params_l["ln1"], x)
-    q, k, v = qkv_projection(params_l["attn"], _enter(h, tp), attn_cfg)
+    q, k, v = qkv_projection(params_l["attn"], _enter(h, tp, seq), attn_cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -398,15 +466,17 @@ def _block_apply(params_l, x, cos, sin, cfg: LMConfig, cache_l=None,
             attn = own_heads(attn, split, tp_i)
     else:
         attn = attn_fn(q, k, v, q_offset=0, chunk=cfg.attn_chunk)
-    x = x + _row_parallel(attn.reshape(B, T, -1), params_l["attn"]["wo"], tp)
+    x = _residual(x + _row_parallel(attn.reshape(B, T, -1),
+                                    params_l["attn"]["wo"], tp, seq), T, seq)
     h2 = apply_rmsnorm(params_l["ln2"], x)
     if cfg.moe is None:
-        p, h2 = params_l["ffn"], _enter(h2, tp)
+        p, h2 = params_l["ffn"], _enter(h2, tp, seq)
         hidden = F.silu(h2 @ p["w_gate"]) * (h2 @ p["w_up"])
-        return x + _row_parallel(hidden, p["w_down"], tp), cache_l, None
-    out, aux = moe_apply(params_l["ffn"], h2.reshape(B * T, cfg.d_model),
-                         cfg.moe)
-    return x + out.reshape(B, T, cfg.d_model), cache_l, aux
+        out, aux = _row_parallel(hidden, p["w_down"], tp, seq), None
+    else:
+        out, aux = moe_apply(params_l["ffn"], h2.reshape(-1, cfg.d_model),
+                             cfg.moe, seq_batch=B if seq else None)
+    return _residual(x + out.reshape(x.shape), T, seq), cache_l, aux
 
 
 def _attention(q, k, v, *, q_offset, chunk=None):
@@ -487,28 +557,37 @@ def _vocab_group(cfg: LMConfig):
     return logical.group(axes)
 
 
-def _embed_tokens(params, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def _embed_tokens(params, tokens: torch.Tensor, cfg: LMConfig,
+                  seq: bool = False) -> torch.Tensor:
     # tied or not, the table is vocab-row-sharded under a "vocab" binding
-    # (the reference's masked local gather and psum, for its tied table)
+    # (the reference's masked local gather and psum, for its tied table);
+    # under ``seq`` the sum is reduce-scattered into this rank's sequence
+    # block
     if _vocab_group(cfg) is not None:
         from repro_torch.dist.sharded_embedding import sharded_row_gather
 
-        return sharded_row_gather(params["embed"], tokens)
+        return sharded_row_gather(params["embed"], tokens,
+                                  scatter_dim=1 if seq else None)
     return params["embed"][tokens]
 
 
-def _lm_logits(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def _lm_logits(params, x: torch.Tensor, cfg: LMConfig,
+               seq: bool = False) -> torch.Tensor:
     """x [..., d] -> logits [..., V], or this rank's vocabulary slice of
-    them under a "vocab" binding (the head column-sharded)."""
+    them under a "vocab" binding (the head column-sharded); under ``seq``
+    x [B, T / W, d] is this rank's sequence block, gathered along T for
+    the head."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return _enter(x, _vocab_group(cfg)) @ head
+    return _enter(x, _vocab_group(cfg), seq) @ head
 
 
-def _hidden(params, tokens: torch.Tensor, cfg: LMConfig, cache, pos):
+def _hidden(params, tokens: torch.Tensor, cfg: LMConfig, cache, pos,
+            seq: bool = False):
     """Embedding and every block: tokens [B, T] -> (x [B, T, d], the sum
-    of the blocks' aux losses, f32)."""
+    of the blocks' aux losses, f32); under ``seq`` x is this rank's
+    sequence block [B, T / W, d]."""
     B, T = tokens.shape
-    x = _embed_tokens(params, tokens, cfg)
+    x = _residual(_embed_tokens(params, tokens, cfg, seq), T, seq)
     pos0 = 0 if pos is None else pos
     positions = pos0 + torch.arange(T, device=tokens.device)
     cos, sin = rope_angles(positions[None, :], cfg.head_dim, cfg.rope_theta)
@@ -522,7 +601,7 @@ def _hidden(params, tokens: torch.Tensor, cfg: LMConfig, cache, pos):
         # the recompute runs in the backward, on the autograd engine's
         # thread for a CUDA graph: under the binding of the forward
         with logical.rebind(binding):
-            return _block_apply(params_l, x, cos, sin, cfg)
+            return _block_apply(params_l, x, cos, sin, cfg, seq=seq)
 
     caches = None if cache is None else _layers(cache, cfg.n_layers)
     for i, params_l in enumerate(_layers(params["blocks"], cfg.n_layers)):
@@ -532,7 +611,7 @@ def _hidden(params, tokens: torch.Tensor, cfg: LMConfig, cache, pos):
         else:
             cache_l = None if caches is None else caches[i]
             x, _, aux_l = _block_apply(params_l, x, cos, sin, cfg,
-                                       cache_l=cache_l, pos=pos0)
+                                       cache_l=cache_l, pos=pos0, seq=seq)
         if aux_l is not None:
             aux = aux + aux_l
     return x, aux
@@ -545,10 +624,14 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig, *, cache=None,
     model).
 
     cache: stacked {"k","v"} [L, B, S, KVH, hd] (+ "ks","vs" for int8),
-    written in place from position ``pos``, or None."""
-    x, aux = _hidden(params, tokens, cfg, cache, pos)
+    written in place from position ``pos``, or None.  Sequence-parallel
+    (``sequence_split``), the final norm runs on this rank's block, which
+    is then gathered along the sequence for the head, so that the logits
+    (this rank's vocabulary slice) cover every position."""
+    seq = sequence_split(tokens.shape[1])
+    x, aux = _hidden(params, tokens, cfg, cache, pos, seq)
     x = apply_rmsnorm(params["final_norm"], x)
-    return _lm_logits(params, x, cfg), cache, aux
+    return _lm_logits(params, x, cfg, seq), cache, aux
 
 
 def lm_loss(params, batch, cfg: LMConfig) -> torch.Tensor:
@@ -564,7 +647,13 @@ def lm_loss(params, batch, cfg: LMConfig) -> torch.Tensor:
 
 
 def _last_logits(params, tokens, cache, pos, cfg):
-    x, _ = _hidden(params, tokens, cfg, cache, pos)
+    seq = sequence_split(tokens.shape[1])
+    x, _ = _hidden(params, tokens, cfg, cache, pos, seq)
+    if seq:
+        # the last position is the last row of the last rank's block: each
+        # rank's last row gathered for the head, not the whole sequence
+        x = apply_rmsnorm(params["final_norm"], x[:, -1:])
+        return _lm_logits(params, x, cfg, seq)[:, -1]
     x = apply_rmsnorm(params["final_norm"], x[:, -1])
     return _lm_logits(params, x, cfg)
 

@@ -219,8 +219,11 @@ def test_attention_over_all_heads_padded_slots_zero(results, name, layout,
             assert np.abs(a[:, :, ~pad]).max() > 0
         padded += int(pad.any())
         if cfg.moe is None:
+            # the one token keeps the all-reduce form: no reduce-scatter
+            # or sequence gather
             assert g["calls"] == {"all_gather": 2 * L,
-                                  "all_reduce": 2 * L + 1}
+                                  "all_reduce": 2 * L + 1,
+                                  "reduce_scatter": 0, "gather": 0}
     assert padded == (mesh["data"] * mesh["model"] // 2
                       if name in ("pad", "bias_dp") else 0)
 

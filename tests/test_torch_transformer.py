@@ -99,9 +99,10 @@ def test_new_lm_configs_match_reference(arch_id):
                                                  jarch.KIND.value)
     assert [s.name for s in tarch.SHAPES] == [s.name for s in jarch.SHAPES]
     for jc, tc in ((jarch.FULL, tarch.FULL), (jarch.SMOKE, tarch.SMOKE)):
+        # unroll_layers is an XLA lowering choice: the port's layer loop is
+        # Python, and its dry run counts every op of every layer
         assert {f.name for f in dataclasses.fields(tc)} == \
-            {f.name for f in dataclasses.fields(jc)} - {"seq_shard",
-                                                        "unroll_layers"}
+            {f.name for f in dataclasses.fields(jc)} - {"unroll_layers"}
         for f in dataclasses.fields(tc):
             if f.name in ("dtype", "moe"):
                 continue

@@ -693,3 +693,190 @@ def collectives_rank(rank: int, cells: list) -> dict:
         out[f"{arch_id}|{shape}"] = {"calls": dict(collectives.calls),
                                      "nbytes": dict(collectives.nbytes)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dist_seq_shard.py: the sequence-parallel residual stream
+# ---------------------------------------------------------------------------
+
+
+def seq_collectives_case(mesh, arrays: dict) -> dict:
+    """``reduce_scatter`` and ``gather`` under autograd over the "model"
+    group (2 ranks) and the whole world (4), along each dimension: this
+    rank's outputs, its input gradients of sum(out * c) (``c`` this rank's
+    cotangent) and the counts each forward and backward took."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+
+    out = {}
+    for axes in (("model",), ("data", "model")):
+        group = mesh.group(axes)
+        members = dist.get_process_group_ranks(group)
+        for dim in range(3):
+            for op in ("reduce_scatter", "gather"):
+                x = torch.from_numpy(arrays[f"{op}_x"][dist.get_rank()]
+                                     ).clone().requires_grad_(True)
+                if op == "gather":
+                    x = x.narrow(dim, 0, x.shape[dim] // len(members)
+                                 ).detach().requires_grad_(True)
+                collectives.reset()
+                y = getattr(collectives, op)(x, group, dim)
+                fwd = dict(collectives.calls), dict(collectives.nbytes)
+                c = torch.from_numpy(arrays[f"{op}_c"][dist.get_rank()])
+                if op == "reduce_scatter":
+                    c = c.narrow(dim, dist.get_group_rank(
+                        group, dist.get_rank()) * y.shape[dim], y.shape[dim])
+                g, = torch.autograd.grad((y * c).sum(), x)
+                out[(len(members), dim, op)] = {
+                    "members": members, "y": _np(y), "grad": _np(g),
+                    "fwd_calls": fwd[0], "fwd_bytes": fwd[1],
+                    "calls": dict(collectives.calls),
+                    "nbytes": dict(collectives.nbytes)}
+    return out
+
+
+def seq_train_case(mesh, arch_id: str, overrides: dict, params, tokens
+                   ) -> dict:
+    """One train step of ``arch_id``'s SMOKE config with ``overrides`` on
+    the mesh, with seq_shard and without: the loss, this rank's gradient
+    blocks (and, with seq_shard, those of a cell whose gradient axes leave
+    "model" out: the planted fault of the norms' sum left out), its
+    parameters before the step and its moments after, the rules, the
+    gradient axes and the collectives of the gradient pass."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dist import collectives
+    from repro_torch.launch.steps import build_cell
+
+    out = {}
+    for seq in (False, True):
+        cfg = dataclasses.replace(get_arch(arch_id).SMOKE, seq_shard=seq,
+                                  **overrides)
+        cell = build_cell(arch_id, "train_4k", "cpu", mesh=mesh,
+                          cfg_override=cfg)
+        state = _cell_state(cell, params)
+        local = cell.local_batch({"tokens": torch.as_tensor(tokens)})
+        before = _tree_np(cell.params(state))
+        collectives.reset()
+        loss, grads = cell.value_and_grad(state, local)
+        res = {"loss": float(loss), "grads": _tree_np(grads),
+               "calls": dict(collectives.calls),
+               "nbytes": dict(collectives.nbytes),
+               "rules": dict(cell.rules), "grad_axes": cell.grad_axes,
+               "params": before}
+        if seq:
+            fault = dataclasses.replace(cell, grad_axes=tuple(
+                a for a in cell.grad_axes if a != "model"))
+            res["fault_grads"] = _tree_np(fault.value_and_grad(state,
+                                                               local)[1])
+        state, step = cell.run(state, local)
+        res["step_loss"] = float(step["loss"])
+        res["opt"] = _tree_np({k: state["opt"][k] for k in ("m", "v")})
+        out[seq] = res
+    return out
+
+
+def seq_infer_case(mesh, arch_id: str, params, tokens) -> dict:
+    """prefill_32k and a decode_32k step (B 4 on the CPU: batch
+    replicated, the cache over "model") with seq_shard and without: this
+    rank's logits slice and cache block, and the collectives' calls."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dist import collectives
+    from repro_torch.launch.steps import build_cell
+
+    out = {}
+    for seq in (False, True):
+        cfg = dataclasses.replace(get_arch(arch_id).SMOKE, seq_shard=seq)
+        pre = build_cell(arch_id, "prefill_32k", "cpu", mesh=mesh,
+                         cfg_override=cfg)
+        collectives.reset()
+        p = pre.run(pre.local_params(tree_map(torch.clone, params)),
+                    pre.local_batch({"tokens": torch.as_tensor(tokens)}))
+        p_calls = dict(collectives.calls)
+        dec = build_cell(arch_id, "decode_32k", "cpu", mesh=mesh,
+                         cfg_override=cfg)
+        batch = dec.local_batch({
+            "token": torch.as_tensor(tokens[:, -1:]),
+            "cache": {k: v.detach().clone() for k, v in
+                      _whole_cache(p["cache"], mesh).items()}})
+        collectives.reset()
+        d = dec.run(dec.local_params(tree_map(torch.clone, params)), batch)
+        out[seq] = {"prefill_logits": _np(p["logits"]),
+                    "prefill_cache": {k: _np(v) for k, v in
+                                      p["cache"].items()},
+                    "prefill_calls": p_calls,
+                    "decode_logits": _np(d["logits"]),
+                    "decode_cache": {k: _np(v) for k, v in
+                                     d["cache"].items()},
+                    "decode_calls": dict(collectives.calls),
+                    "rules": (dict(pre.rules), dict(dec.rules))}
+    return out
+
+
+def _whole_cache(cache: dict, mesh) -> dict:
+    """The whole prefill cache from every rank's block (its batch rows
+    over "data", its kv heads over "model"), on every rank."""
+    from repro_torch.dist import collectives
+
+    out = {}
+    for k, v in cache.items():
+        heads = collectives.all_gather(v, mesh.group("model"))  # [W, ...]
+        v = torch.cat(list(heads), dim=3)
+        rows = collectives.all_gather(v, mesh.group("data"))
+        out[k] = torch.cat(list(rows), dim=1)
+    return out
+
+
+def seq_unsplit_case(mesh, arch_id: str, params, tokens) -> dict:
+    """The loss, the raw gradients (no sum over ranks) and the logits of
+    tokens whose length does not split over the "model" ranks, under a
+    seq_shard cell's binding and under the same cell's without seq_shard,
+    and the collectives each took."""
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dist import collectives
+    from repro_torch.launch.steps import build_cell, run_cell
+    from repro_torch.models import transformer as tf_lib
+
+    out = {}
+    for seq in (False, True):
+        cfg = dataclasses.replace(get_arch(arch_id).SMOKE, seq_shard=seq)
+        cell = build_cell(arch_id, "train_4k", "cpu", mesh=mesh,
+                          cfg_override=cfg)
+        local = cell.params(cell.train_state(cell.local_params(
+            tree_map(torch.clone, params))))
+        toks = cell.local_batch({"tokens": torch.as_tensor(tokens)})
+        collectives.reset()
+
+        def step():
+            loss = tf_lib.lm_loss(local, toks, cell.cfg)
+            return (loss, torch.autograd.grad(loss, tree_leaves(local)),
+                    tf_lib.sequence_split(toks["tokens"].shape[1]),
+                    tf_lib.sequence_split(cell.seq_len))
+
+        with torch.enable_grad():
+            loss, grads, split, split_cell = run_cell(cell, step)
+        out[seq] = {"loss": float(loss), "grads": [_np(g) for g in grads],
+                    "calls": dict(collectives.calls), "split": split,
+                    "split_cell": split_cell}
+    return out
+
+
+def seq_shard_rank(rank: int, coll: dict, train: dict, infer: dict,
+                   unsplit: dict, uneven: dict) -> dict:
+    """Every case of test_torch_dist_seq_shard.py: on (data 2, model 2)
+    the collectives, the train cases, prefill and decode and the length
+    that does not split; on (data 1, model 4) the uneven head split."""
+    mesh = _mesh()
+    out = {"coords": dict(mesh.coords),
+           "coll": seq_collectives_case(mesh, coll),
+           "train": {name: seq_train_case(mesh, **case)
+                     for name, case in train.items()},
+           "infer": seq_infer_case(mesh, **infer),
+           "unsplit": seq_unsplit_case(mesh, **unsplit)}
+    wide = _mesh((1, 4))
+    out["wide_coords"] = dict(wide.coords)
+    out["uneven"] = {name: seq_train_case(wide, **case)
+                     for name, case in uneven.items()}
+    return out
