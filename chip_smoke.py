@@ -4,6 +4,9 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, one JSON line each:
+  0. analysis - ``repro_torch.analysis`` (the port's static analysis) over
+               the package, this script and the port's tests: files,
+               findings and suppressions by rule; any finding fails the run;
   1. device  - the card (nvidia-smi name and power limit), TF32 switched off;
   2. build   - nvcc builds every CUDA source of the port for sm_90a, one
                process per source, all at once;
@@ -265,7 +268,13 @@ Phases, one JSON line each:
                types, cut from 96 to 24 intervals, cap 200,000) from an
                empty profile cache (its 66 pairs profiled first in 8
                processes at once), every fleet call bitwise ``_sweep``,
-               with the bridged days' Hercules-vs-greedy peak power.
+               with the bridged days' Hercules-vs-greedy peak power;
+ 15. entries - the kernel entries no phase above calls by name, each
+               against its plain version: K1's 2-D backward
+               (``hot_embedding_bag_grad``) at the dlrm-rmc1 production
+               launch, in float64, two launches bitwise equal and a planted
+               fault; K4's ``fleet_fifo_streams`` and ``fleet_fifo`` at the
+               fleet shape of (a), bitwise ``_sweep`` and their CPU calls.
 Every attention-kernel check is also shown to fail planted faults (zeros,
 half the keys, the wrong KV head, the causal mask flipped, and for the int8
 entry each row read with the next row's scales); the kernel phases feed
@@ -6344,6 +6353,128 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
     }]
 
 
+# ---------------------------------------------------------------------------
+# the port's static analysis, and the kernel entries no phase names
+# ---------------------------------------------------------------------------
+
+
+def phase_analysis() -> dict:
+    """``repro_torch.analysis`` over the port's default roots (the package,
+    this script and the port's tests) on this machine's Python: files,
+    findings and suppressions by rule.  Any finding, or a file that does
+    not parse, fails the run."""
+    from collections import Counter
+
+    from repro_torch.analysis import analyze_paths, default_roots
+
+    t0 = time.perf_counter()
+    report = analyze_paths(default_roots(ROOT))
+    bad = [*report.errors, *report.findings]
+    line = {"phase": "analysis", "python": sys.version.split()[0],
+            "files": report.n_files,
+            "findings": dict(Counter(f.rule for f in bad)),
+            "suppressed": dict(Counter(f.rule for f in report.suppressed)),
+            "kernel_entries": sorted(report.facts.kernel_entries),
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if bad:
+        raise AssertionError("static analysis: "
+                             + "; ".join(f.format() for f in bad))
+    return line
+
+
+def phase_entries(dev, cfg) -> dict:
+    """The kernel entries no phase above calls by name (the analysis's
+    ``kernel-not-on-card`` rule holds every entry to being named here and
+    in tests/test_torch_cuda.py), each against its plain version on the
+    card: (a) K1's 2-D backward ``hot_embedding_bag_grad`` at ``cfg``'s
+    launch (dlrm-rmc1 prod: bags [10240, 80] over the 25,000,448 x 32 f32
+    table; a random pooled gradient), against its plain version in
+    float64, two launches bitwise equal, the next bag's gradient planted
+    (must fail); (b) K4's host entry ``fleet_fifo_streams`` (the event
+    core's) and its tensor entry ``fleet_fifo`` at
+    benchmarks/bench_cluster.py's fleet shape, one launch each, bitwise
+    ``_sweep`` on every stream and the same calls on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.kernels.fleet_fifo import ops as k4
+
+    res: dict = {"phase": "entries"}
+    # (a) K1's 2-D backward at the rmc1 launch
+    emb = cfg.embedding
+    H = emb.total_rows
+    ids = torch.from_numpy(shifted_ids(click_launches(cfg, [6])[0],
+                                       emb.row_offsets)).to(dev)
+    g = torch.empty((ids.shape[0], emb.dim), device=dev).normal_(
+        generator=torch.Generator(dev).manual_seed(6))
+    before = ops.grad_launches
+    got = ops.hot_embedding_bag_grad(g, ids, H)
+    same = bool(torch.equal(got, ops.hot_embedding_bag_grad(g, ids, H)))
+    torch.cuda.synchronize()
+    if ops.grad_launches - before != 2:
+        raise AssertionError(f"K1's 2-D backward: {ops.grad_launches - before}"
+                             " launches for 2 calls")
+    if not same:
+        raise AssertionError("K1's 2-D backward: two launches differ")
+    want = ref.hot_embedding_bag_grad_ref(g.double(), ids, H)
+    err = check("K1 2-D backward at rmc1", got, want, F32_TOL)
+    must_fail("K1 2-D backward, the next bag's gradient",
+              ref.hot_embedding_bag_grad_ref(g.roll(1, dims=0).double(),
+                                             ids, H), want, F32_TOL)
+    res["hot_embedding_bag_grad"] = {
+        "table": [H, emb.dim], "dtype": "float32", "ids": list(ids.shape),
+        "valid_pairs": int((ids >= 0).sum()), "max_abs_err": err,
+        "tolerance": F32_TOL, "plain_dtype": "float64",
+        "bitwise_repeat": same, "planted_faults_failed": 1}
+    del got, want, g, ids
+    torch.cuda.empty_cache()
+
+    # (b) K4's host and tensor entries at the fleet shape
+    streams = fleet_bench_streams()
+    want = sweep_all(streams)
+    ready, dur, ks, free0 = ([s[i] for s in streams] for i in range(4))
+    before = k4.launches
+    ends, state, offsets = k4.fleet_fifo_streams(ready, dur, ks, free0,
+                                                 device=dev)
+    n_streams = k4.launches - before
+    jobs = check_fleet("fleet_fifo_streams", [
+        (ends[offsets[j]:offsets[j + 1]], state[j, :ks[j]])
+        for j in range(len(streams))], want)
+    p_ends, p_state, p_offsets = k4.fleet_fifo_streams(ready, dur, ks, free0,
+                                                       device="cpu")
+    if not (np.array_equal(ends, p_ends) and np.array_equal(state, p_state)
+            and np.array_equal(offsets, p_offsets)):
+        raise AssertionError("fleet_fifo_streams on the card differs from "
+                             "its plain version")
+    f0 = np.full((len(streams), max(ks)), np.inf)
+    for j, (k, f) in enumerate(zip(ks, free0)):
+        f0[j, :k] = f
+    tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        np.concatenate(ready), np.concatenate(dur), offsets.astype(np.int64),
+        f0)]
+    before = k4.launches
+    t_ends, t_state = k4.fleet_fifo(*tensors[:3], ks, tensors[3])
+    torch.cuda.synchronize()
+    n_tensor = k4.launches - before
+    if not (np.array_equal(t_ends.cpu().numpy(), p_ends)
+            and np.array_equal(t_state.cpu().numpy(), p_state)):
+        raise AssertionError("fleet_fifo on the card differs from its plain "
+                             "version")
+    if (n_streams, n_tensor) != (1, 1):
+        raise AssertionError(f"K4's entries: {n_streams} and {n_tensor} "
+                             "launches, not one each")
+    res["fleet_fifo_streams_and_fleet_fifo"] = {
+        "shape": f"{len(streams)} streams, k in {sorted(set(ks))}, {jobs} "
+                 "jobs",
+        "launches": [n_streams, n_tensor],
+        "tolerance": "bitwise (ends and sorted end state, every stream, "
+                     "against _sweep and the plain version)",
+        "max_abs_err": 0.0}
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -6359,6 +6490,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+
+    # 0. the port's static analysis (any finding fails the run)
+    analysis = phase_analysis()
 
     # 1. device
     smi = nvidia_smi()
@@ -6390,7 +6524,8 @@ def main() -> int:
     from repro_torch.configs.paper_models import rmc1, rmc3
 
     dev = torch.device("cuda")
-    seconds = {"build": time.perf_counter() - t0}
+    seconds = {"analysis": analysis["seconds"],
+               "build": time.perf_counter() - t0}
 
     def timed(name: str, fn):
         """``fn()``, its seconds kept in ``seconds`` and, where it returns
@@ -6477,6 +6612,10 @@ def main() -> int:
     # 14. the cluster day (K4's count is reset inside, just before each day)
     cluster = timed("cluster", lambda: phase_cluster(dev, bw, probes))
     emit(cluster)
+
+    # 15. the kernel entries no phase above calls by name
+    entries = timed("entries", lambda: phase_entries(dev, rmc1(True)))
+    emit(entries)
 
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t_start})

@@ -234,10 +234,13 @@ def fleet_fifo(ready: torch.Tensor, dur: torch.Tensor, offsets: torch.Tensor,
                   torch.from_numpy(warp_lanes(ks, ns)).to(dev), free0)
 
 
-def launch(ready, dur, offsets, lanes, free0, *, ends=None, state=None):
+def launch(  # repro: ignore[kernel-no-plain] CUDA tensors only; its callers fleet_fifo and fleet_fifo_streams take the plain version
+        ready, dur, offsets, lanes, free0, *, ends=None, state=None):
     """The kernel alone, on checked contiguous CUDA tensors and the thread
     layout ``lanes`` (``warp_lanes(ks, ns)`` on the same device); ``ends``
-    and ``state`` may be given, contiguous, for it to write into."""
+    and ``state`` may be given, contiguous, for it to write into.  It has
+    no plain path of its own: ``fleet_fifo`` and ``fleet_fifo_streams``,
+    which call it, take ``fleet_fifo_ref`` on CPU tensors."""
     global launches
     fn, err_str = _kernel()
     ends = torch.empty_like(ready) if ends is None else ends

@@ -45,6 +45,9 @@ dequantised eagerly), both K3 entries at the LM configs' KV groups 1, 7
 and 8, K3's bf16 entry at the head sizes its CUDA-core variant takes, and K2's tensor-core variant at ragged Tq/Tk, with
 q_offset, at head sizes 64 and 128.
 
+K3's partials entry from a cache in q's dtype: two halves' partials
+merged to the whole-cache entry.
+
 K4 (the fleet FIFO solver) bitwise against its plain version and against
 ``engine._sweep``, its state rows sorted: every register instance (k = 1
 .. 33 and 40, the generic one past 32), streams of the shared-memory
@@ -52,8 +55,9 @@ chunk's edge lengths (C - 1, C, C + 1, 2C + 1) starting at odd indices of
 the ragged layout, empty streams, ``free0`` given and not and with
 repeated values, lanes of one warp 100x apart in length, several k-groups
 in one launch, 8 streams of 150,000 jobs (a full-width day's shape), a
-launch repeated, ``fleet_fifo_finish(device="cuda")``, and a missing
-library raising.
+launch repeated, ``fleet_fifo_finish(device="cuda")``, the bare
+``launch`` and the event core's ``fleet_fifo_streams`` by name, and a
+missing library raising.
 
 The dry run's shape-only path (``repro_torch.kernels.fake``) leaves the
 card's alone: each K1, K1-backward and K3 entry on CUDA tensors still
@@ -77,6 +81,7 @@ from repro_torch.kernels.flash_attention import (
     flash_decode_int8_partials,
     flash_decode_int8_partials_ref,
     flash_decode_int8_ref,
+    flash_decode_partials_ref,
     flash_decode_ref,
     lse_combine,
 )
@@ -297,6 +302,41 @@ def test_int8_partials_halves_merge_to_whole(cuda_device, dtype, kv_len):
     merged = (o_c / l_c.clamp_min(1e-30)).to(tdt).reshape(B, 1, H, hd)
     whole = flash_decode_int8(q, kq, ks, vq, vs, kv_len=kv_len)
     torch.cuda.synchronize()
+    torch.testing.assert_close(merged.float(), whole.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kv_len", [1000, 700, 300])
+def test_partials_halves_merge_to_whole(cuda_device, dtype, kv_len):
+    """K3's partials entry from a cache in q's dtype (what a shard of the
+    sequence-sharded decode runs): the two halves' partials (kv_offset 0
+    and S / 2; at kv_len 300 the second is wholly past it), each against
+    its plain version, one launch each, merged with ``lse_combine``: K3
+    over the whole cache."""
+    B, S, H, KVH, hd = 2, 1000, 8, 2, 128
+    tdt = TDT[dtype]
+    q = (torch.from_numpy(_normal(10, (B, 1, H, hd))[0]) * 8).to(cuda_device,
+                                                                tdt)
+    k, v = (torch.from_numpy(a).to(cuda_device, tdt)
+            for a in _normal(11, (B, S, KVH, hd), (B, S, KVH, hd)))
+    parts = []
+    before = k3_ops.launches["flash_decode"]
+    for lo in (0, S // 2):
+        ks, vs = (t[:, lo:lo + S // 2].contiguous() for t in (k, v))
+        got = k3_ops.flash_decode_partials(q, ks, vs, kv_len=kv_len,
+                                           kv_offset=lo)
+        want = flash_decode_partials_ref(q, ks, vs, kv_len=kv_len,
+                                         kv_offset=lo)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+        parts.append(got)
+    torch.cuda.synchronize()
+    assert k3_ops.launches["flash_decode"] == before + 2
+    m, l, o = (torch.stack(t) for t in zip(*parts))
+    _, l_c, o_c = lse_combine(m, l, o, axis=0)
+    merged = (o_c / l_c.clamp_min(1e-30)).to(tdt).reshape(B, 1, H, hd)
+    whole = flash_decode(q, k, v, kv_len=kv_len)
     torch.testing.assert_close(merged.float(), whole.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
 
@@ -1241,6 +1281,48 @@ def test_k4_repeat_launch_bitwise(cuda_device):
     a = fleet_fifo(ready, dur, offsets, ks, free0)
     b = fleet_fifo(ready, dur, offsets, ks, free0)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k4_launch_alone(cuda_device):
+    """``ops.launch``, the kernel alone on checked tensors and
+    ``warp_lanes``' thread layout (what ``fleet_fifo`` calls), one launch,
+    bitwise its plain version's ends and sorted end states."""
+    streams = _k4_streams(10, [(k, 400, True) for k in (3, 17, 33)] * 4)
+    (ready, dur, offsets), ks, free0 = _k4_pack(streams, cuda_device)
+    lanes = torch.from_numpy(k4_ops.warp_lanes(
+        ks, np.diff(offsets.cpu().numpy()))).to(cuda_device)
+    before = k4_ops.launches
+    ends, state = k4_ops.launch(ready, dur, offsets, lanes, free0)
+    torch.cuda.synchronize()
+    assert k4_ops.launches == before + 1
+    (r, d, o), _, f = _k4_pack(streams, "cpu")
+    pe, ps = fleet_fifo_ref(r, d, o, ks, f)
+    assert np.array_equal(pe.numpy(), ends.cpu().numpy())
+    assert np.array_equal(np.sort(ps.numpy(), axis=1),
+                          np.sort(state.cpu().numpy(), axis=1))
+
+
+def test_k4_streams_entry_on_card(cuda_device):
+    """``fleet_fifo_streams``, the event core's entry (host arrays packed
+    into one pinned buffer, one launch, ends and states copied back), on
+    the card: bitwise the same call on the CPU (its plain version) and
+    ``_sweep`` on every stream, an empty stream and streams without
+    ``free0`` among them."""
+    spec = [(2, 300, True), (17, 129, False), (40, 0, True), (5, 1000, False),
+            (1, 7, True), (33, 2 * C + 1, True)]
+    streams = _k4_streams(11, spec)
+    args = [[s[i] for s in streams] for i in range(4)]
+    before = k4_ops.launches
+    ends, state, offsets = k4_ops.fleet_fifo_streams(*args,
+                                                     device=cuda_device)
+    assert k4_ops.launches == before + 1
+    pe, ps, po = k4_ops.fleet_fifo_streams(*args, device="cpu")
+    assert np.array_equal(offsets, po) and np.array_equal(ends, pe)
+    assert np.array_equal(state, ps)
+    for j, s in enumerate(streams):
+        we, ws = _sweep(s[0], s[1], s[2], s[3], return_state=True)
+        assert np.array_equal(ends[offsets[j]:offsets[j + 1]], we), j
+        assert np.array_equal(state[j, :s[2]], ws), j
 
 
 def _engine_test_streams(seed, n_streams=24):

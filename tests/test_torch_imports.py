@@ -72,13 +72,43 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
     assert '"ok"' not in out.stdout
 
 
+# the reference's modules whose counterpart has another name: the Pallas
+# and jit rules of its static analysis became the port's kernel and
+# step-purity rules
+RENAMED = {"analysis/rules_pallas.py": "analysis/rules_kernels.py",
+           "analysis/rules_jit.py": "analysis/rules_purity.py"}
+
+
 def test_every_reference_module_has_a_counterpart():
     """Each module of ``src/repro/`` has one of the same path in the port
-    (``launch/dryrun.py`` was the last); ``analysis/`` is the reference's
-    static-analysis tooling, which reads sources and runs over the port's
-    as they are (ROADMAP queue 1), so it has none."""
+    (``analysis/`` was the last), or the one ``RENAMED`` gives it."""
     ref = ROOT / "src" / "repro"
-    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
-                     if p.relative_to(ref).parts[0] != "analysis"
-                     and not (PORT / p.relative_to(ref)).exists())
+    rels = [p.relative_to(ref).as_posix() for p in ref.rglob("*.py")]
+    missing = sorted(r for r in rels
+                     if not (PORT / RENAMED.get(r, r)).exists())
     assert not missing, missing
+    assert set(RENAMED) <= set(rels)
+    assert not any((PORT / r).exists() for r in RENAMED)
+
+
+def test_analysis_loads_without_torch_or_jax():
+    """The port's static analysis imports neither torch nor jax, nor
+    anything of ``repro`` (``repro.analysis`` included): it runs over the
+    tree in a Python where all three are blocked."""
+    code = (
+        "import sys\n"
+        "for m in ('torch', 'jax', 'repro'):\n"
+        "    sys.modules[m] = None\n"
+        "from repro_torch.analysis import analyze_paths, default_roots\n"
+        "import repro_torch.analysis.__main__\n"
+        "r = analyze_paths(default_roots())\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in\n"
+        "       ('torch', 'jax', 'repro') and sys.modules[k] is not None]\n"
+        "assert not bad, bad\n"
+        "print(r.n_files, len(r.findings))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_files, n_findings = map(int, out.stdout.split())
+    assert n_files > 120 and n_findings == 0
