@@ -274,7 +274,40 @@ Phases, one JSON line each:
                (``hot_embedding_bag_grad``) at the dlrm-rmc1 production
                launch, in float64, two launches bitwise equal and a planted
                fault; K4's ``fleet_fifo_streams`` and ``fleet_fifo`` at the
-               fleet shape of (a), bitwise ``_sweep`` and their CPU calls.
+               fleet shape of (a), bitwise ``_sweep`` and their CPU calls;
+ 16. cells   - the registry's cells no phase above builds on the card and
+               one card holds (CELL_CUTS), each through ``build_cell(arch,
+               shape, "cuda", ...)`` at FULL width, cut only as far as the
+               80 GB card forces (the cut the dry run's peak sets:
+               CUT_BUDGET), one line each with the dry run's predicted
+               peak, against which the step's measured peak is held at
+               PEAK_TOL: long_500k of qwen2-7b,
+               deepseek-67b (29 of 95 layers), qwen2-moe-a2.7b (21 of 24)
+               and olmoe-1b-7b, one step at pos = S - 1 over a random int8
+               cache of 524,288 rows, K3's int8 launches counted from 0
+               (n_layers), the step again with K3 held to its plain
+               version at every call in blocks of CHECK_KV_HEADS kv heads
+               (planted faults as in (8), and a decode_32k cell's kv_len),
+               the new token's K/V row written at pos and at no other row,
+               K3's int8 entry alone on the first layer's cache beside its
+               plain version and byte bound; train_4k of deepseek-67b (4
+               layers) and qwen2-moe-a2.7b (8), batch 1 (cut from 256):
+               3 steps on one TokenStream batch, the loss falling from ln V
+               + d x 0.02^2 / 2, then one FULL-width layer in f32 (the
+               vocabulary cut to CHECK_VOCAB rows) held to the CPU at 1e-4
+               of each leaf's largest entry (the MoE's CPU copy routing
+               every token as the card did); serve_bulk of
+               wide-deep, din, mind and dlrm-rm2 (262,144 rows) and
+               retrieval_cand of wide-deep and dlrm-rm2 (1,000,000
+               candidates as one bulk batch; rm2's 1.664e9 id slots, 77%
+               of int32's range), their click logs drawn in blocks of
+               rows: each held on row blocks (the first, the
+               last, one across the 32,768-row chunk boundary and random
+               ones) against K1's plain version or a CPU copy, a one-row
+               fault failing, each K1 launch timed alone beside
+               ``F.embedding_bag`` and its byte bound.
+Then the coverage line (every registry cell but NOT_ON_ONE_CARD's built on
+the card by this process, in the phase CARD_CELLS or CELL_CUTS names).
 Every attention-kernel check is also shown to fail planted faults (zeros,
 half the keys, the wrong KV head, the causal mask flipped, and for the int8
 entry each row read with the next row's scales); the kernel phases feed
@@ -1230,20 +1263,26 @@ def nudged_plain_k3():
 CHECK_ROWS = 8
 
 
-def int8_faults(calls: int, batch: int) -> int:
+def int8_faults(calls: int, batch: int, kv_blocks: int = 1,
+                per_block: int = 4) -> int:
     """The planted faults ``k3_checked`` fails over ``calls`` int8 calls
-    at ``batch`` rows: ``k3_int8_controls``' four a block of CHECK_ROWS."""
-    return 4 * calls * -(-batch // CHECK_ROWS)
+    at ``batch`` rows: ``k3_int8_controls``' four (``per_block``) a block
+    of CHECK_ROWS rows and ``kv_blocks`` blocks of kv heads."""
+    return per_block * calls * -(-batch // CHECK_ROWS) * kv_blocks
 
 
 @contextlib.contextmanager
-def k3_checked(errs: list):
+def k3_checked(errs: list, kv_block: int | None = None,
+               wrong_kv_len: int | None = None):
     """K3 as on the path, held at every call to its plain version on the
     same inputs at the bf16 tolerance (the f32 tolerance for f32 q), with
     the planted faults of ``k3_controls`` / ``k3_int8_controls`` failing
     the same check; the kernel's output continues the path.  Each call's
     max abs error goes to ``errs``.  The int8 entry's call is held in
-    blocks of CHECK_ROWS batch rows."""
+    blocks of CHECK_ROWS batch rows and, with ``kv_block``, of that many
+    kv heads (with their q heads: each kv head attends alone), so the
+    plain version's dequantised copy is a block's; ``wrong_kv_len``: one
+    more planted fault a block, the plain version at that kv_len."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops, ref
@@ -1263,11 +1302,25 @@ def k3_checked(errs: list):
         out = ops.flash_decode_int8(q, kq, ks, vq, vs, **kw)
         name = f"K3 int8 call {len(errs)}"
         err = 0.0
+        KVH = kq.shape[2]
+        kb = KVH if kv_block is None else kv_block
+        group = q.shape[2] // KVH
         for b in range(0, q.shape[0], CHECK_ROWS):
-            args = [t[b:b + CHECK_ROWS] for t in (q, kq, ks, vq, vs)]
-            want = ref.flash_decode_int8_ref(*args, **kw)
-            err = max(err, check(name, out[b:b + CHECK_ROWS], want, tol(q)))
-            k3_int8_controls(name, want, *args, tol(q), **kw)
+            rows = slice(b, b + CHECK_ROWS)
+            for h in range(0, KVH, kb):
+                heads = slice(h * group, (h + kb) * group)
+                args = [q[rows, :, heads]] + [t[rows, :, h:h + kb]
+                                              for t in (kq, ks, vq, vs)]
+                want = ref.flash_decode_int8_ref(*args, **kw)
+                err = max(err, check(name, out[rows, :, heads], want,
+                                     tol(q)))
+                k3_int8_controls(name, want, *args, tol(q), **kw)
+                if wrong_kv_len is not None:
+                    must_fail(f"{name}, kv_len {wrong_kv_len}",
+                              ref.flash_decode_int8_ref(*args, **{
+                                  **kw, "kv_len": wrong_kv_len}),
+                              want, tol(q))
+                del args, want
         errs.append(err)
         return out
 
@@ -1654,6 +1707,13 @@ def phase_lm(dev) -> dict:
 # sequence, so 32 of its 95 layers at batch 8)
 LM_DECODE_CUTS = {"qwen2-7b": (64, None), "deepseek-67b": (8, 32),
                   "qwen2-moe-a2.7b": (8, None), "olmoe-1b-7b": (16, None)}
+# long_500k: K3's per-call check in blocks of this many kv heads (with
+# their q heads), so the plain version's copy of a block, dequantised and
+# then widened to f32 (2 + 2 + 4 bytes an element of k and of v, 1.07 GB
+# a kv head at 524,288 rows), fits beside the cut's state
+CHECK_KV_HEADS = 2
+# and its extra planted fault: the step attending a decode_32k cell's rows
+LONG_FAULT_KV_LEN = 32768
 # llama3.2-3b train_4k: batch cut 256 -> LM_TRAIN_BATCH, the largest power
 # of two one card holds (38.55 GB of bf16 weights and gradients and f32
 # moments, then ~7 GB a sequence under the remat: 64.9 GB at batch 4 on
@@ -1666,13 +1726,21 @@ LM_CHECK_SEQ, LM_CHECK_CHUNK = 512, 256
 LM_CHECK_TOL = 1e-4
 
 
-def lm_config_decode(dev, bw: float, arch_id: str) -> dict:
-    """One decode_32k step of ``arch_id`` at FULL width on a random int8
-    cache, cut as LM_DECODE_CUTS says: K3's int8 launches counted from 0
-    (n_layers), the step again with K3 held to its plain version at every
-    call (bitwise the step alone), step ms and peak; then, the weights
-    freed, K3's int8 entry alone on the first layer's cache beside its
-    plain version and byte bound."""
+def lm_config_decode(dev, bw: float, arch_id: str,
+                     shape: str = "decode_32k", batch_cut: int | None = None,
+                     depth: int | None = None) -> dict:
+    """One decode step of ``arch_id``'s ``shape`` cell at FULL width on a
+    random int8 cache, cut to ``batch_cut`` sequences and ``depth``
+    layers (decode_32k: as LM_DECODE_CUTS says): K3's int8 launches
+    counted from 0 (n_layers), the step again with K3 held to its plain
+    version at every call (bitwise the step alone), step ms and peak;
+    then, the weights freed, K3's int8 entry alone on the first layer's
+    cache beside its plain version and byte bound.  long_500k (one
+    sequence of 524,288 rows) holds K3 in blocks of CHECK_KV_HEADS kv
+    heads, adds the planted fault of a decode_32k cell's kv_len, and
+    checks that the step wrote the new token's K/V row at pos (each
+    (layer, kv head)'s codes reach 127, the int8 quantiser's mark, where
+    the random row held other values) and no other row (``slice_sums``)."""
     import torch
 
     from repro_torch.common.tree import tree_leaves
@@ -1680,11 +1748,12 @@ def lm_config_decode(dev, bw: float, arch_id: str) -> dict:
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.launch.steps import build_cell
 
-    batch_cut, depth = LM_DECODE_CUTS[arch_id]
+    if shape == "decode_32k":
+        batch_cut, depth = LM_DECODE_CUTS[arch_id]
+    long = shape == "long_500k"
     g = torch.Generator(dev).manual_seed(31)
     torch.cuda.reset_peak_memory_stats()
-    dec = build_cell(arch_id, "decode_32k", dev, batch=batch_cut,
-                     n_layers=depth)
+    dec = build_cell(arch_id, shape, dev, batch=batch_cut, n_layers=depth)
     cfg = dec.cfg
     if not (cfg.decode_impl == "flash" and cfg.kv_quant == "int8"):
         raise AssertionError(f"{arch_id}: unexpected config {cfg}")
@@ -1695,6 +1764,7 @@ def lm_config_decode(dev, bw: float, arch_id: str) -> dict:
         raise AssertionError(f"{arch_id}: {n_params} parameters, expected "
                              f"{cfg.param_count()}")
     B, S = dec.batch, dec.seq_len
+    pos = S - 1
     specs = dec.batch_specs["cache"]
     cache = {name: torch.randint(-127, 128, specs[name].shape, generator=g,
                                  device=dev, dtype=torch.int8)
@@ -1705,12 +1775,17 @@ def lm_config_decode(dev, bw: float, arch_id: str) -> dict:
     token = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=dev,
                           dtype=torch.int32)
     batch = {"token": token, "cache": cache}
+    old_row = {k: v[:, :, pos].clone() for k, v in cache.items()}
+    before = slice_sums(cache, pos) if long else None
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_k3(ops)
     got = dec.run(params, batch)["logits"]
     torch.cuda.synchronize()
     launches = ops.launches["flash_decode_int8"]
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if launches != cfg.n_layers or ops.launches["flash_decode"]:
         raise AssertionError(f"{arch_id}: K3's int8 entry launched "
                              f"{launches} times in a decode step (bf16 entry "
@@ -1720,17 +1795,27 @@ def lm_config_decode(dev, bw: float, arch_id: str) -> dict:
             torch.isfinite(got).all()):
         raise AssertionError(f"{arch_id}: logits {tuple(got.shape)} not "
                              "finite")
+    row = None
+    if long:
+        row = new_row_check(arch_id, cache, old_row, pos, before)
     errs = []
-    with k3_checked(errs):
+    kv_block = CHECK_KV_HEADS if long else None
+    with k3_checked(errs, kv_block=kv_block,
+                    wrong_kv_len=LONG_FAULT_KV_LEN if long else None):
         checked = dec.run(params, batch)["logits"]
     if len(errs) != cfg.n_layers or not bool(torch.equal(checked, got)):
         raise AssertionError(f"{arch_id}: {len(errs)} checked K3 calls; the "
                              "checked step differs from the step alone")
+    if long and slice_sums(cache, pos) != before:
+        raise AssertionError(f"{arch_id}: the checked step moved a cache row "
+                             "other than pos")
     step_ms = host_ms(lambda: dec.run(params, batch), reps=5)
-    line = {"arch": arch_id, "batch": B, "batch_cut_from":
-            dec.shape["global_batch"], "n_layers": cfg.n_layers,
+    kv_blocks = -(-cfg.n_kv_heads // kv_block) if long else 1
+    line = {"arch": arch_id, "shape": shape, "batch": B,
+            "batch_cut_from": dec.shape["global_batch"],
+            "n_layers": cfg.n_layers,
             "n_layers_cut_from": None if depth is None else
-            get_arch(arch_id).FULL.n_layers,
+            get_arch(arch_id).FULL.n_layers, "seq_len": S,
             "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
             "group": cfg.n_heads // cfg.n_kv_heads, "head_dim": cfg.head_dim,
             "moe": cfg.moe is not None, "params": n_params,
@@ -1741,14 +1826,20 @@ def lm_config_decode(dev, bw: float, arch_id: str) -> dict:
             "k3_int8_launches": launches,
             "k3_vs_plain_max_abs_err_per_call": max(errs),
             "tolerance": BF16_TOL, "check_rows": CHECK_ROWS,
-            "planted_faults_failed": int8_faults(len(errs), B),
+            "check_kv_heads": kv_block,
+            "planted_faults_failed": int8_faults(
+                len(errs), B, kv_blocks, 5 if long else 4),
             "logits_std": float(got.float().std()),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "step_peak_gb": step_peak_gb,
+            "peak_gb": max(setup_peak, torch.cuda.max_memory_allocated())
+            / 1e9}
+    if row is not None:
+        line["new_row"] = row
     # K3's int8 entry alone on the first layer's cache, kv_len = S (the
     # weights and the other layers freed: the plain version's dequantised
     # copy of the whole layer needs the room)
     layer = [cache[n][0].clone() for n in ("k", "ks", "v", "vs")]
-    del params, got, checked, cache, batch
+    del params, got, checked, cache, batch, old_row
     torch.cuda.empty_cache()
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(
@@ -1779,6 +1870,35 @@ def lm_config_decode(dev, bw: float, arch_id: str) -> dict:
     return line
 
 
+def new_row_check(arch_id: str, cache: dict, old_row: dict, pos: int,
+                  before: list) -> dict:
+    """The decode step wrote row ``pos`` of every layer and leaf and no
+    other row: each (layer, sequence, kv head)'s new codes reach 127 in
+    magnitude (the int8 quantiser scales a row's largest entry to it) and
+    the row differs from the random one it replaced; every other row's
+    checksum is unchanged (``slice_sums`` against ``before``)."""
+    import torch
+
+    new = {k: v[:, :, pos] for k, v in cache.items()}
+    for name in ("k", "v"):
+        peak = new[name].abs().amax(dim=-1)
+        if not bool((peak == 127).all()):
+            raise AssertionError(f"{arch_id}: row {pos} of {name} holds no "
+                                 f"quantised row (largest codes "
+                                 f"{peak.unique().tolist()[:8]})")
+    moved = {k: bool((new[k] != old_row[k]).any(dim=-1).all())
+             for k in new}
+    if not all(moved.values()):
+        raise AssertionError(f"{arch_id}: row {pos} not written everywhere "
+                             f"({moved})")
+    if slice_sums(cache, pos) != before:
+        raise AssertionError(f"{arch_id}: the step moved a cache row other "
+                             f"than {pos}")
+    return {"pos": pos, "written_at_pos": True, "other_rows_unchanged": True,
+            "scale_range": [float(torch.cat([new["ks"], new["vs"]]).min()),
+                            float(torch.cat([new["ks"], new["vs"]]).max())]}
+
+
 def phase_lm_configs(dev, bw: float) -> dict:
     """decode_32k of qwen2-7b, deepseek-67b, qwen2-moe-a2.7b and
     olmoe-1b-7b at FULL width (K3's int8 entry at KV groups 7, 8, 1, 1)."""
@@ -1792,80 +1912,140 @@ def phase_lm_configs(dev, bw: float) -> dict:
     return res
 
 
-def lm_train_check(dev) -> dict:
-    """A 2-layer copy of llama3.2-3b at FULL width in f32 (d 3072, 24/8
-    heads, d_ff 8192, vocab 128256), one TokenStream sequence of
-    LM_CHECK_SEQ tokens in LM_CHECK_CHUNK chunks: ``lm_loss`` and every
+@contextlib.contextmanager
+def recorded_routing(record: list):
+    """The MoE router as on the path (``repro_torch.dist.moe``'s
+    ``moe_router``), each call's top-k experts (sorted) appended to
+    ``record``."""
+    from repro_torch.dist import moe
+
+    real = moe.moe_router
+
+    def router(params, x, cfg):
+        idx, w, aux = real(params, x, cfg)
+        record.append(idx.detach().sort(dim=-1).values.cpu())
+        return idx, w, aux
+
+    moe.moe_router = router
+    try:
+        yield
+    finally:
+        moe.moe_router = real
+
+
+def lm_train_check(dev, arch_id: str = LM_ARCH, layers: int = 2,
+                   seq: int = LM_CHECK_SEQ, vocab: int | None = None
+                   ) -> dict:
+    """A ``layers``-layer copy of ``arch_id`` at FULL width in f32 (its
+    vocabulary cut to ``vocab`` rows where given, every width kept; for
+    llama3.2-3b 2 layers at d 3072, 24/8 heads, d_ff 8192, vocab 128256),
+    one TokenStream sequence of ``seq`` tokens (chunked attention in
+    LM_CHECK_CHUNK chunks where the config chunks): ``lm_loss`` and every
     gradient leaf on the card (remat on, as the cell) against the CPU
     (remat off: the same function) at LM_CHECK_TOL of the leaf's largest
-    entry; planted faults (zeros, the two layers' gradients swapped) must
-    fail the check."""
+    entry, a MoE model's CPU copy routing every token to the experts the
+    card chose (``recorded_routing``: each layer's top-k on both, the
+    remat's recompute the same as the forward); planted faults (zeros,
+    the two layers' gradients swapped, a leaf of the same shape's
+    gradient) must fail the check."""
     import dataclasses
 
     import torch
 
     from repro_torch.common.tree import tree_leaves, tree_map
-    from repro_torch.configs import llama3_2_3b
+    from repro_torch.configs.registry import get_arch
     from repro_torch.data.lm import TokenStream
     from repro_torch.models import transformer as tf
 
-    cfg = dataclasses.replace(llama3_2_3b.FULL, n_layers=2,
-                              dtype=torch.float32, attn_chunk=LM_CHECK_CHUNK)
+    full = get_arch(arch_id).FULL
+    cfg = dataclasses.replace(full, n_layers=layers, dtype=torch.float32,
+                              attn_chunk=min(LM_CHECK_CHUNK, seq),
+                              vocab=vocab or full.vocab)
     params = tf.init(cfg, generator=torch.Generator(dev).manual_seed(5),
                      device=dev)
     tokens = torch.from_numpy(TokenStream(cfg.vocab, seed=6).batch(
-        1, LM_CHECK_SEQ)["tokens"])
-    out = {}
+        1, seq)["tokens"])
+    out, routing = {}, {"card": [], "cpu": []}
     for where, remat in (("card", True), ("cpu", False)):
         p = tree_map(lambda t: t.detach().to(
             "cpu" if where == "cpu" else dev).requires_grad_(True), params)
+        held = contextlib.nullcontext() if cfg.moe is None else \
+            recorded_routing(routing[where])
         t0 = time.perf_counter()
-        loss = tf.lm_loss(p, {"tokens": tokens.to(p["embed"].device)},
-                          dataclasses.replace(cfg, remat=remat))
-        grads = torch.autograd.grad(loss, tree_leaves(p))
+        with held:
+            loss = tf.lm_loss(p, {"tokens": tokens.to(p["embed"].device)},
+                              dataclasses.replace(cfg, remat=remat))
+            grads = torch.autograd.grad(loss, tree_leaves(p))
         out[where] = (loss.detach().cpu(), [g.cpu() for g in grads],
                       time.perf_counter() - t0)
         del p, loss, grads
     del params
     torch.cuda.empty_cache()
     (loss, grads, card_s), (want_loss, want, cpu_s) = out["card"], out["cpu"]
-    errs = [check("lm train check loss", loss, want_loss, LM_CHECK_TOL)]
+    if cfg.moe is not None:
+        # the card's forward and the remat's recompute, the CPU's forward
+        card, cpu = routing["card"], routing["cpu"]
+        if len(card) != 2 * layers or len(cpu) != layers:
+            raise AssertionError(f"{arch_id}: {len(card)} router calls on "
+                                 f"the card, {len(cpu)} on the CPU, expected "
+                                 f"{2 * layers} and {layers}")
+        moved = [int((a != b).any(dim=-1).sum())
+                 for a, b in zip(card, cpu + cpu)]
+        if any(moved):
+            raise AssertionError(f"{arch_id}: the tokens routed to other "
+                                 f"experts than the CPU's, by call: {moved}")
+    errs = [check(f"{arch_id} train check loss", loss, want_loss,
+                  LM_CHECK_TOL)]
+    faults = 0
     for i, (g, w) in enumerate(zip(grads, want)):
-        name = f"lm train check gradient leaf {i}"
+        name = f"{arch_id} train check gradient leaf {i}"
         errs.append(check(name, g, w, LM_CHECK_TOL))
         wrong = {"zeros": torch.zeros_like(w)}
         if w.dim() >= 2 and w.shape[0] == 2:        # a stacked block leaf
             wrong["layers swapped"] = w.flip(0)
+        twin = next((j for j, o in enumerate(want)
+                     if j != i and o.shape == w.shape), None)
+        if twin is not None:
+            wrong[f"leaf {twin}'s gradient"] = want[twin]
         for what, bad in wrong.items():
             must_fail(f"{name}, {what}", bad, w, LM_CHECK_TOL)
-    return {"config": "llama3.2-3b FULL width, 2 layers, f32",
-            "batch": 1, "seq_len": LM_CHECK_SEQ, "attn_chunk": LM_CHECK_CHUNK,
+        faults += len(wrong)
+    return {"config": f"{arch_id} FULL width, {layers} layer"
+                      f"{'s' if layers > 1 else ''}, f32"
+                      + (f", vocabulary cut to {cfg.vocab} rows"
+                         if cfg.vocab != full.vocab else ""),
+            "batch": 1, "seq_len": seq, "attn_impl": cfg.attn_impl,
             "loss": float(loss), "loss_cpu": float(want_loss),
             "leaves": len(grads), "max_abs_err_relative_to_leaf_max": max(
                 e / max(float(w.abs().max()), 1e-30)
                 for e, w in zip(errs[1:], want)),
-            "tolerance": LM_CHECK_TOL, "card_s": card_s, "cpu_s": cpu_s}
+            "tolerance": LM_CHECK_TOL, "planted_faults_failed": faults,
+            "routing_tokens_differing": 0 if cfg.moe is not None else None,
+            "card_s": card_s, "cpu_s": cpu_s}
 
 
-def phase_lm_train(dev) -> dict:
-    """llama3.2-3b train_4k at FULL width (bf16, chunked attention, remat,
-    adamw), batch LM_TRAIN_BATCH at S = 4096: LM_TRAIN_STEPS steps on one
-    TokenStream batch, the loss falling from about ln(vocab); step, grad
-    and update ms, peak memory, tokens/s, the model-FLOP rate; then the
-    2-layer FULL-width f32 copy held to the CPU."""
+def lm_train_steps(dev, arch_id: str, batch: int,
+                   n_layers: int | None = None, profile: bool = True
+                   ) -> dict:
+    """``arch_id``'s train_4k at FULL width (bf16, remat, adamw; cut to
+    ``batch`` sequences and ``n_layers`` layers), S = 4096:
+    LM_TRAIN_STEPS steps on one TokenStream batch, the loss falling from
+    about ln V + d x 0.02^2 / 2; step, grad and update ms, peak memory,
+    tokens/s, the model-FLOP rate; with ``profile`` one more gradient
+    pass under torch.profiler."""
     import math
 
     import torch
 
     from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs.registry import get_arch
     from repro_torch.data.lm import TokenStream
     from repro_torch.launch.steps import build_cell
 
-    t_phase = time.perf_counter()
-    cell = build_cell(LM_ARCH, "train_4k", dev, batch=LM_TRAIN_BATCH)
+    cell = build_cell(arch_id, "train_4k", dev, batch=batch,
+                      n_layers=n_layers)
     cfg = cell.cfg
-    if not (cfg.remat and cfg.attn_impl == "chunked"
-            and cfg.dtype == torch.bfloat16):
+    if not (cfg.remat and cfg.dtype == torch.bfloat16):
         raise AssertionError(f"unexpected train config {cfg}")
     m0 = mem()
     state = cell.init_state(torch.Generator(dev).manual_seed(3))
@@ -1900,23 +2080,30 @@ def phase_lm_train(dev) -> dict:
     del grads
     # where the gradient pass goes: one more under torch.profiler (device
     # time by kernel)
-    prof = profile_step(lambda: cell.value_and_grad(state, batch), top=12)
+    prof = profile_step(lambda: cell.value_and_grad(state, batch),
+                        top=12) if profile else None
     # from the 0.02-std init, the head's logits have variance d x 0.02^2
     # (the final norm's output has unit RMS), so the first loss is about
-    # ln V + d x 0.02^2 / 2 (11.76 + 0.61 at d = 3072)
+    # ln V + d x 0.02^2 / 2 (11.76 + 0.61 at llama3.2-3b's d = 3072)
     ln_v = math.log(cfg.vocab)
     init_loss = ln_v + cfg.d_model * 0.02 ** 2 / 2
     if not (all(math.isfinite(x) for x in losses)
             and all(b < a for a, b in zip(losses, losses[1:]))
             and abs(losses[0] - init_loss) < 0.5):
-        raise AssertionError(f"train_4k losses {losses}: not falling, or "
-                             f"the first not within 0.5 of ln V + d x "
-                             f"0.02^2 / 2 = {init_loss}")
+        raise AssertionError(f"{arch_id} train_4k losses {losses}: not "
+                             f"falling, or the first not within 0.5 of ln V "
+                             f"+ d x 0.02^2 / 2 = {init_loss}")
     step_ms = statistics.median(times)
-    flops = 6 * n_params * B * S
-    res = {"phase": "lm_train", "arch": LM_ARCH, "shape": "train_4k",
+    n_active = cfg.active_param_count()    # a MoE's routed top-k only
+    flops = 6 * n_active * B * S
+    full = get_arch(arch_id).FULL
+    res = {"arch": arch_id, "shape": "train_4k",
            "batch": B, "batch_cut_from": cell.shape["global_batch"],
-           "seq_len": S, "params": n_params, "state_gb": state_gb,
+           "n_layers": cfg.n_layers, "n_layers_cut_from":
+           None if n_layers is None else full.n_layers,
+           "attn_impl": cfg.attn_impl, "moe": cfg.moe is not None,
+           "seq_len": S, "params": n_params, "active_params": n_active,
+           "state_gb": state_gb,
            "steps": LM_TRAIN_STEPS, "losses": losses,
            "loss_after_steps": float(loss), "ln_vocab": ln_v,
            "init_loss_expected": init_loss,
@@ -1926,11 +2113,28 @@ def phase_lm_train(dev) -> dict:
            "tokens_per_s": B * S / step_ms * 1e3,
            "model_flops_per_step": flops,
            "model_flop_rate_share": flops / (step_ms / 1e3) / BF16_PEAK,
-           "model_flop_rate_formula": "6 x params x B x S / step seconds / "
-                                      "989e12 (dense bf16 peak); attention's "
-                                      "score and value products and the "
-                                      "remat's second forward not counted"}
-    del state, batch, tokens, cell
+           "model_flop_rate_formula": "6 x active params x B x S / step "
+                                      "seconds / 989e12 (dense bf16 peak); "
+                                      "attention's score and value products "
+                                      "and the remat's second forward not "
+                                      "counted"}
+    del state, batch, tokens, cell, loss
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm_train(dev) -> dict:
+    """llama3.2-3b train_4k at FULL width (bf16, chunked attention, remat,
+    adamw), batch LM_TRAIN_BATCH at S = 4096 (``lm_train_steps``, one
+    gradient pass profiled); then the 2-layer FULL-width f32 copy held to
+    the CPU."""
+    import torch
+
+    t_phase = time.perf_counter()
+    res = {"phase": "lm_train", **lm_train_steps(dev, LM_ARCH,
+                                                  LM_TRAIN_BATCH)}
+    if res["attn_impl"] != "chunked":
+        raise AssertionError(f"{LM_ARCH}: attention {res['attn_impl']}")
     torch.cuda.empty_cache()
     res["cpu_check"] = lm_train_check(dev)
     res["seconds"] = time.perf_counter() - t_phase
@@ -1953,6 +2157,9 @@ PAIRED_REPS = 9
 # candidates of a retrieval cell held to the CPU copy: blocks of this many
 # at the start, across the first chunk boundary, at random and at the end
 CHECK_BLOCK = 1024
+# a bulk cell's click log is drawn in blocks of this many rows on threads
+# (``cell_batch_blocks``)
+DRAW_BLOCK_ROWS = 16384
 
 
 @contextlib.contextmanager
@@ -2182,31 +2389,177 @@ def checked_candidates(n: int, seed: int):
     return idx[idx < n]
 
 
-def recsys_cell(dev, arch_id: str, shape: str) -> dict:
+def bulk_batch(cell) -> bool:
+    """A cell whose batch is too large for a whole-batch check: serve_bulk
+    (262,144 rows), and a CTR ranker's retrieval_cand (its 1,000,000
+    candidates scored as one bulk batch)."""
+    return cell.shape.name == "serve_bulk" or (
+        cell.shape.name == "retrieval_cand"
+        and "candidate_ids" not in cell.batch_specs)
+
+
+def held_rows(cell, model, batch_np: dict, rows, dev, k1: bool):
+    """The reference scores of ``rows`` of a bulk batch: the cell run on
+    those rows alone (a row's score depends on its own inputs only), with
+    K1's plain version on ``dev`` where the path reaches K1, else on a CPU
+    copy of the model -> (scores, what they are)."""
+    import torch
+
+    sub = {k: torch.from_numpy(v[rows]) for k, v in batch_np.items()}
+    if k1:
+        with plain_k1():
+            want = cell.run(model, {k: v.to(dev) for k, v in sub.items()})
+        return want["scores"].float().cpu(), "K1's plain version"
+    return cell.run(cpu_copy(model), sub)["scores"].float().cpu(), \
+        "the CPU copy"
+
+
+def row_block_check(name: str, scores, rows, want, tol) -> float:
+    """The rows ``rows`` of a bulk cell's whole-batch ``scores`` against
+    their reference ``want`` (``held_rows``) by ``check``; the planted
+    one-row fault must fail it: the middle checked row given the scores
+    of the checked row whose reference lies furthest from its own."""
+    import torch
+
+    got = scores[torch.as_tensor(rows, device=scores.device)].float().cpu()
+    err = check(name, got, want, tol)
+    j = len(rows) // 2
+    far = int((want - want[j]).abs().reshape(len(rows), -1).amax(1).argmax())
+    bad = got.clone()
+    bad[j] = got[far]
+    must_fail(f"{name}, row {int(rows[j])} given row {int(rows[far])}'s "
+              "scores", bad, want, tol)
+    return err
+
+
+@contextlib.contextmanager
+def captured_k1(calls: list):
+    """K1's per-feature entry as the models reach it, each call's (table,
+    ids, row offsets) appended to ``calls``."""
+    from repro_torch.models import embedding as emb
+
+    real = emb.embedding_bag_features
+
+    def fn(table, ids, row_offsets, **kw):
+        calls.append((table, ids, row_offsets))
+        return real(table, ids, row_offsets, **kw)
+
+    emb.embedding_bag_features = fn
+    try:
+        yield
+    finally:
+        emb.embedding_bag_features = real
+
+
+def k1_alone(table, ids3, offsets, rows, bw: float, f32_rate: float
+             ) -> dict:
+    """K1's per-feature entry alone at one launch a bulk cell made (its
+    table, ids [B, F, P] and offsets): ``ms`` (median of CELL_REPS, warm
+    L2), ``F.embedding_bag`` over the same bags (int32 ids, the valid
+    slots only), and the card's bound (each distinct row, the ids, the
+    offsets and the output moved once; an f32 add a live slot).  The
+    plain version's [B, F, P, D] gather cannot be held whole at these
+    shapes (213 GB at rm2 retrieval_cand): its time is that of the
+    checked rows' bags."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    B, nF, P = ids3.shape
+    D, esize = table.shape[1], table.element_size()
+    # the valid slots' combined-table rows in bag order, int32 (rows and
+    # slots below 2**31), gathered in blocks of rows: a mask's indices are
+    # int64
+    flat, counts = [], []
+    for blk in ids3.split(1 << 17):
+        valid = blk >= 0
+        flat.append((blk + offsets.to(torch.int32)[None, :, None])[valid])
+        counts.append(valid.sum(dim=-1).reshape(-1))
+    flat, counts = torch.cat(flat), torch.cat(counts)
+    bag_off = torch.zeros(B * nF, dtype=torch.int64, device=ids3.device)
+    bag_off[1:] = counts.cumsum(0)[:-1]
+    bag_off = bag_off.to(torch.int32)
+    del valid, counts
+    seen = torch.zeros(table.shape[0], dtype=torch.bool, device=ids3.device)
+    for part in flat.split(1 << 27):
+        seen[part.long()] = True
+    distinct = int(seen.sum())
+    del seen
+    n_valid = int(flat.numel())
+    out_bytes = B * nF * D * esize
+    n_bytes = distinct * D * esize + ids3.numel() * 4 + offsets.numel() * 8 \
+        + out_bytes
+    t_bytes, t_ops = n_bytes / bw * 1e3, n_valid * D / f32_rate * 1e3
+    sub = ids3[torch.as_tensor(rows, device=ids3.device)]
+    res = {"shape": f"table [{table.shape[0]}, {D}] "
+                    f"{str(table.dtype).removeprefix('torch.')}, ids [{B}, "
+                    f"{nF}, {P}] int32",
+           "slots": ids3.numel(), "valid_ids": n_valid,
+           "distinct_rows": distinct, "bags": B * nF,
+           "ms": time_ms(lambda: ops.embedding_bag_features(
+               table, ids3, offsets), reps=CELL_REPS),
+           "library_ms": time_ms(lambda: F.embedding_bag(
+               flat, table, bag_off, mode="sum"), reps=CELL_REPS),
+           "plain_ms_checked_rows": time_ms(
+               lambda: ref.embedding_bag_features_ref(table, sub, offsets),
+               reps=CELL_REPS),
+           "checked_rows": len(rows),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": n_bytes}
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    del flat, bag_off, sub
+    return res
+
+
+def recsys_cell(dev, arch_id: str, shape: str, bw: float | None = None,
+                f32_rate: float | None = None) -> dict:
     """(d) one registry cell at its FULL config on the card: the time of a
     run, its peak memory above its inputs, the K1 launches it made; held to
     K1's plain version where it reaches K1, else to a CPU copy of the same
-    parameters (a retrieval cell on ``checked_candidates``)."""
+    parameters (a retrieval cell on ``checked_candidates``).  A bulk cell
+    (``bulk_batch``) is held on row blocks (``checked_candidates``' rows:
+    ``held_rows``, ``row_block_check``), its click log drawn in blocks of
+    rows (``cell_batch_blocks``; the draw's host seconds), and, given
+    ``bw``, each K1 launch it made timed alone (``k1_alone``)."""
     import torch
 
-    from repro_torch.data.clicklog import cell_batch
+    from repro_torch.data.clicklog import cell_batch, cell_batch_blocks
     from repro_torch.kernels.embedding_bag import ops
     from repro_torch.launch.steps import build_cell
 
     cell = build_cell(arch_id, shape, dev)
     model = cell.init_state(torch.Generator(dev).manual_seed(1))
-    batch_np = cell_batch(cell.cfg, cell.batch_specs, seed=11)
+    bulk = bulk_batch(cell)
+    t0 = time.perf_counter()
+    if bulk:
+        batch_np = cell_batch_blocks(cell.cfg, cell.batch_specs, 11,
+                                     DRAW_BLOCK_ROWS)
+    else:
+        batch_np = cell_batch(cell.cfg, cell.batch_specs, seed=11)
+    draw_s = time.perf_counter() - t0
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.launches = 0
-    scores = cell.run(model, batch)["scores"]
+    calls = []
+    with captured_k1(calls):
+        scores = cell.run(model, batch)["scores"]
     torch.cuda.synchronize()
     k1_launches = ops.launches
-    peak = torch.cuda.max_memory_allocated() - base
+    peak_total = torch.cuda.max_memory_allocated()
+    peak = peak_total - base
     tol = BF16_TOL if cell.cfg.dtype == torch.bfloat16 else LOGIT_TOL
-    if k1_launches:
+    if bulk:
+        rows = checked_candidates(cell.batch, seed=12)
+        want, against = held_rows(cell, model, batch_np, rows, dev,
+                                  bool(k1_launches))
+        err = row_block_check(f"{arch_id} {shape} rows against {against}",
+                              scores, rows, want, tol)
+        checked = len(rows)
+    elif k1_launches:
         with plain_k1():
             want = cell.run(model, batch)["scores"]
         against = "K1's plain version"
@@ -2228,10 +2581,20 @@ def recsys_cell(dev, arch_id: str, shape: str) -> dict:
            "batch": cell.batch, "scores_shape": list(scores.shape),
            "params_gb": params_gb(model),
            "ms": host_ms(lambda: cell.run(model, batch), reps=CELL_REPS),
-           "peak_gb_above_inputs": peak / 1e9, "k1_launches": k1_launches,
+           "peak_gb_above_inputs": peak / 1e9, "peak_gb": peak_total / 1e9,
+           "k1_launches": k1_launches,
            "checked_against": against, "checked_scores": checked,
            "max_abs_err": err, "tolerance": tol}
-    del model, batch, scores
+    if bulk:
+        res.update(rows_held="first, last, across the 32,768-row chunk "
+                             "boundary and random blocks of "
+                             f"{CHECK_BLOCK}", planted_faults_failed=1,
+                   draw_s=draw_s,
+                   draw=f"cell_batch_blocks: blocks of {DRAW_BLOCK_ROWS} "
+                        "rows, each from its own seed")
+    if bulk and bw is not None and calls:
+        res["k1_alone"] = [k1_alone(*c, rows, bw, f32_rate) for c in calls]
+    del model, batch, scores, calls
     torch.cuda.empty_cache()
     return res
 
@@ -6074,7 +6437,7 @@ def phase_cluster(dev, bw: float, probes) -> dict:
 def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                    lm: dict, lm_configs: dict, recsys: dict, train: dict,
                    trainer: dict, dist: dict, dist_train: dict,
-                   dryrun: dict, cluster: dict) -> list[dict]:
+                   dryrun: dict, cluster: dict, cells: dict) -> list[dict]:
     """The summary of every kernel: where it replaces a TPU kernel, its
     launches on the paths driven here, its error and its times."""
     import torch
@@ -6147,6 +6510,14 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                      f"{tk['dtype']}, {tk['bags']} bags x P={tk['P']}",
             "features_entry_ms": tk["features_entry_ms"],
             **{k: tk[k] for k in k1_keys if k != "ms_stream"}},
+        "cells": {
+            f"{c['arch']}/{c['shape']}": {
+                "launches": c["k1_launches"],
+                "launches_note": "one run of the bulk cell in phase cells, "
+                                 "counted from 0: a launch a K1 table",
+                "max_abs_err_scores_on_row_blocks": c["max_abs_err"],
+                "alone": c["k1_alone"]}
+            for c in cells["cells"] if c.get("k1_alone")},
     }, {
         "name": "embedding_bag_grad",
         "route": "cuda",
@@ -6246,6 +6617,18 @@ def kernel_entries(k1: dict, serve_line: dict, k2: dict, k3: dict,
                           "library_ms", "bound_ms", "bound_by",
                           "share_of_bound", "tolerance")}}
             for arch_id, c in lm_configs["cells"].items()},
+        "long_500k": {
+            c["arch"]: {"launches": c["k3_int8_launches"],
+                        "launches_note": "one long_500k step in phase "
+                                         "cells, counted from 0: n_layers",
+                        "n_layers": c["n_layers"], "group": c["group"],
+                        "k3_vs_plain_max_abs_err_per_call":
+                            c["k3_vs_plain_max_abs_err_per_call"],
+                        **{k: c["k3_int8"][k] for k in (
+                            "shape", "max_abs_err", "ms", "plain_ms",
+                            "library_ms", "bound_ms", "bound_by",
+                            "share_of_bound", "tolerance")}}
+            for c in cells["cells"] if c["shape"] == "long_500k"},
     }, {
         "name": "hot_embedding_bag.row_window",
         "route": "cuda",
@@ -6475,6 +6858,226 @@ def phase_entries(dev, cfg) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the registry's cells on one card
+# ---------------------------------------------------------------------------
+
+# Each registry cell (repro_torch.configs.registry's archs x their SHAPES)
+# in the phase that first builds it on the card in this process, before
+# phase ``cells``; each phase's builds are recorded (``record_cells``), so
+# a phase that stops building its cell fails the run.  With CELL_CUTS and
+# NOT_ON_ONE_CARD every registry cell is named exactly once
+# (tests/test_torch_card_cells.py reads the three by AST).
+CARD_CELLS = {
+    "lm": [("llama3.2-3b", "prefill_32k"), ("llama3.2-3b", "decode_32k")],
+    "lm_configs": [("qwen2-7b", "decode_32k"), ("deepseek-67b", "decode_32k"),
+                   ("qwen2-moe-a2.7b", "decode_32k"),
+                   ("olmoe-1b-7b", "decode_32k")],
+    "lm_train": [("llama3.2-3b", "train_4k")],
+    "recsys": [("wide-deep", "serve_p99"), ("din", "serve_p99"),
+               ("mind", "serve_p99"), ("dlrm-rm2", "serve_p99"),
+               ("din", "retrieval_cand"), ("mind", "retrieval_cand")],
+    "train": [("dlrm-rm2", "train_batch"), ("wide-deep", "train_batch"),
+              ("din", "train_batch"), ("mind", "train_batch"),
+              ("graphsage-reddit", "ogb_products"),
+              ("graphsage-reddit", "minibatch_lg"),
+              ("graphsage-reddit", "full_graph_sm"),
+              ("graphsage-reddit", "molecule")],
+    "dist": [("llama3.2-3b", "long_500k")],
+    "dist_train": [("olmoe-1b-7b", "train_4k")],
+    "dryrun": [("qwen2-7b", "train_4k")],
+}
+# Phase ``cells``: every other cell one card holds, at FULL width, cut only
+# as far as the 80 GB card forces (build_cell's batch= and n_layers=).  An
+# LM cut is the deepest whose dry-run peak (``dryrun.trace_cell`` of the
+# cut on ``meta``) stays within CUT_BUDGET, with one batch sequence (a
+# layer more adds 2.49 GB to deepseek-67b's long_500k peak and 8.31 GB to
+# its train_4k one; 3.43 and 7.26 GB to qwen2-moe-a2.7b's).
+CELL_CUTS = {
+    ("qwen2-7b", "long_500k"): {},
+    ("deepseek-67b", "long_500k"): {"n_layers": 29},
+    ("qwen2-moe-a2.7b", "long_500k"): {"n_layers": 21},
+    ("olmoe-1b-7b", "long_500k"): {},
+    ("deepseek-67b", "train_4k"): {"batch": 1, "n_layers": 4},
+    ("qwen2-moe-a2.7b", "train_4k"): {"batch": 1, "n_layers": 8},
+    ("wide-deep", "serve_bulk"): {},
+    ("din", "serve_bulk"): {},
+    ("mind", "serve_bulk"): {},
+    ("dlrm-rm2", "serve_bulk"): {},
+    ("wide-deep", "retrieval_cand"): {},
+    ("dlrm-rm2", "retrieval_cand"): {},
+}
+# The cells no cut puts on one card: these families keep the naive
+# attention (only llama3.2-3b chunks it), whose [B, KVH, g, T, T] scores
+# at T = 32,768 are past 80 GB at one layer and batch 1 (the dry run's
+# one-device peaks there: 304.2, 694.0, 175.5 and 174.3 GB).  They run
+# only sharded over many cards (PERF.md section 5).
+NOT_ON_ONE_CARD = {
+    ("qwen2-7b", "prefill_32k"):
+        "naive attention: [1, 4, 7, 32768, 32768] bf16 scores (60.1 GB), "
+        "then their f32 softmax (120.3 GB), at one layer and batch 1",
+    ("deepseek-67b", "prefill_32k"):
+        "naive attention: [1, 8, 8, 32768, 32768] bf16 scores (137.4 GB) at "
+        "one layer and batch 1",
+    ("qwen2-moe-a2.7b", "prefill_32k"):
+        "naive attention: [1, 16, 1, 32768, 32768] bf16 scores (34.4 GB), "
+        "then their f32 softmax (68.7 GB), at one layer and batch 1",
+    ("olmoe-1b-7b", "prefill_32k"):
+        "naive attention: [1, 16, 1, 32768, 32768] bf16 scores (34.4 GB), "
+        "then their f32 softmax (68.7 GB), at one layer and batch 1",
+}
+# Room a long_500k cut leaves beside its state for K3's per-call check:
+# the plain version on CHECK_KV_HEADS kv heads (2.15 GB) and the copies of
+# its planted faults
+K3_CHECK_ROOM = 4e9
+# Room a train_4k cut leaves for the caching allocator's free blocks inside
+# its segments, which the dry run does not count: on the H100 (85.0 GB)
+# qwen2-moe-a2.7b's 9-layer step, 76.67 GB predicted, ran out with 9.3 GB
+# reserved but unallocated (a train cell's CPU check runs after its state
+# is freed)
+ALLOC_ROOM = 5e9
+# the dry-run peak an LM cut may reach
+CUT_BUDGET = {"long_500k": CARD_BYTES - K3_CHECK_ROOM,
+              "train_4k": CARD_BYTES - ALLOC_ROOM}
+# a train cell's f32 copy held to the CPU: one FULL-width layer, the
+# vocabulary cut to CHECK_VOCAB rows, a sequence of this many tokens
+LM_CELL_CHECK_SEQ = {"deepseek-67b": 256, "qwen2-moe-a2.7b": 512}
+CHECK_VOCAB = 3000
+
+
+def cell_prediction(arch: str, shape: str, cut: dict) -> int:
+    """The dry run's one-device peak of a CELL_CUTS cell at its cut
+    (``dryrun.trace_cell`` on ``meta``: no memory, about a second)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_cell
+
+    rec = dryrun.trace_cell(build_cell(arch, shape, "meta", **cut))
+    return rec["memory"]["peak_memory_bytes"]
+
+
+BUILT: dict = {}      # phase -> {(arch, shape)} built on the card
+_PHASE = ["setup"]    # the phase running now
+
+
+def record_cells() -> None:
+    """From now on, every cell this process builds on the card through
+    ``repro_torch.launch.steps.build_cell`` (the script's phases import it
+    when they run) is recorded in BUILT under the running phase."""
+    from repro_torch.launch import steps
+
+    real = steps.build_cell
+
+    def build_cell(arch_id, shape_name, device="cuda", **kw):
+        cell = real(arch_id, shape_name, device, **kw)
+        if cell.device.type == "cuda":
+            BUILT.setdefault(_PHASE[0], set()).add((arch_id, shape_name))
+        return cell
+
+    steps.build_cell = build_cell
+
+
+def coverage_line() -> dict:
+    """Every registry cell but NOT_ON_ONE_CARD's built on the card in this
+    process, each phase's CARD_CELLS (and CELL_CUTS in ``cells``) among
+    its builds; none of NOT_ON_ONE_CARD built.  Fails otherwise."""
+    from repro_torch.configs.registry import get_arch, list_archs
+
+    registry = {(a, s.name) for a in list_archs() for s in get_arch(a).SHAPES}
+    built = set().union(*BUILT.values())
+    owed = {**{p: set(c) for p, c in CARD_CELLS.items()},
+            "cells": set(CELL_CUTS)}
+    unbuilt = {p: sorted(f"{a} {s}" for a, s in c - BUILT.get(p, set()))
+               for p, c in owed.items()}
+    line = {"phase": "coverage", "registry_cells": len(registry),
+            "built_on_card": len(registry & built),
+            "by_phase": {p: sorted(f"{a} {s}" for a, s in c)
+                         for p, c in BUILT.items()},
+            "not_on_one_card": {f"{a} {s}": why for (a, s), why in
+                                NOT_ON_ONE_CARD.items()},
+            "missing": sorted(f"{a} {s}" for a, s in
+                              registry - set(NOT_ON_ONE_CARD) - built),
+            "missing_by_phase": {p: c for p, c in unbuilt.items() if c},
+            "built_though_not_on_one_card": sorted(
+                f"{a} {s}" for a, s in built & set(NOT_ON_ONE_CARD))}
+    emit(line)
+    if line["missing"] or line["missing_by_phase"] or \
+            line["built_though_not_on_one_card"] or \
+            len(registry) != line["built_on_card"] + len(NOT_ON_ONE_CARD):
+        raise AssertionError("the registry's cells on the card: "
+                             f"{line['missing']} missing, "
+                             f"{line['missing_by_phase']} not built by their "
+                             "phase, "
+                             f"{line['built_though_not_on_one_card']} built "
+                             "though listed in NOT_ON_ONE_CARD")
+    return line
+
+
+def phase_cells(dev, bw: float, f32_rate: float) -> dict:
+    """CELL_CUTS' cells on the card through ``build_cell``, one line each
+    (arch, shape, cut, ms, peak and the dry run's predicted peak, kernel
+    launches, max error, tolerance and what it was held against): the
+    long_500k steps (``lm_config_decode``: K3's int8 entry held to its
+    plain version at every call, the new row written at pos only), the
+    train_4k steps (``lm_train_steps``, then one FULL-width layer in f32
+    against the CPU, ``lm_train_check``), the bulk recsys cells
+    (``recsys_cell``: row blocks, K1 alone at each launch).  Each cell's
+    step peak above what the card held before it is held to the dry run's
+    prediction at PEAK_TOL."""
+    import torch
+
+    t0 = time.perf_counter()
+    predicted = {c: cell_prediction(*c, cut) for c, cut in CELL_CUTS.items()}
+    res = {"phase": "cells", "predict_s": time.perf_counter() - t0,
+           "cells": []}
+    misses = []
+    for (arch_id, shape), cut in CELL_CUTS.items():
+        t = time.perf_counter()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        if shape == "long_500k":
+            line = lm_config_decode(dev, bw, arch_id, shape, cut.get("batch"),
+                                    cut.get("n_layers"))
+            line.update(kernel_launches={
+                "flash_decode_int8": line["k3_int8_launches"]},
+                checked_against="K3's plain version at every call",
+                max_abs_err=line["k3_vs_plain_max_abs_err_per_call"],
+                ms=line["step_ms"])
+            step_peak = line["step_peak_gb"] * 1e9
+        elif shape == "train_4k":
+            line = lm_train_steps(dev, arch_id, cut["batch"],
+                                  cut.get("n_layers"), profile=False)
+            step_peak = line["peak_gb"] * 1e9
+            seq = LM_CELL_CHECK_SEQ[arch_id]
+            line["cpu_check"] = chk = lm_train_check(dev, arch_id, 1, seq,
+                                                     CHECK_VOCAB)
+            line.update(kernel_launches={}, ms=line["median_step_ms"],
+                        checked_against=f"the CPU: {chk['config']}, "
+                                        f"{seq} tokens",
+                        max_abs_err=chk["max_abs_err_relative_to_leaf_max"],
+                        tolerance=chk["tolerance"])
+        else:
+            line = recsys_cell(dev, arch_id, shape, bw, f32_rate)
+            line["kernel_launches"] = {"embedding_bag": line["k1_launches"]}
+            step_peak = line["peak_gb"] * 1e9
+        measured = step_peak - base
+        err = (predicted[arch_id, shape] - measured) / measured
+        line.update(cut=cut,
+                    peak_gb_predicted=predicted[arch_id, shape] / 1e9,
+                    step_peak_gb_above_start=measured / 1e9,
+                    peak_err_relative=err, peak_limit=PEAK_TOL,
+                    seconds=time.perf_counter() - t)
+        if abs(err) > PEAK_TOL:
+            misses.append(f"{arch_id} {shape}: step peak {measured / 1e9:.2f}"
+                          f" GB, the prediction {err:+.3f} off")
+        res["cells"].append(line)
+        emit({"phase": "cells", "stage": f"{arch_id} {shape}", **line})
+    torch.cuda.empty_cache()
+    if misses:
+        raise AssertionError(f"the cells' peaks: {misses}")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -6527,9 +7130,14 @@ def main() -> int:
     seconds = {"analysis": analysis["seconds"],
                "build": time.perf_counter() - t0}
 
+    # every cell built on the card from here on is recorded by phase
+    record_cells()
+
     def timed(name: str, fn):
         """``fn()``, its seconds kept in ``seconds`` and, where it returns
-        a phase's line, in the line."""
+        a phase's line, in the line; the cells it builds recorded under
+        ``name``."""
+        _PHASE[0] = name
         t = time.perf_counter()
         out = fn()
         seconds[name] = time.perf_counter() - t
@@ -6617,11 +7225,18 @@ def main() -> int:
     entries = timed("entries", lambda: phase_entries(dev, rmc1(True)))
     emit(entries)
 
+    # 16. the registry's other cells one card holds (K1's and K3's counts
+    # reset inside, just before each cell)
+    cells = timed("cells", lambda: phase_cells(dev, bw, f32_rate))
+    emit({k: cells[k] for k in ("phase", "seconds")} | {
+        "cells": [f"{c['arch']} {c['shape']}" for c in cells["cells"]]})
+
+    coverage_line()
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t_start})
     emit({"kernels": kernel_entries(k1, serve_line, k2, k3, lm, lm_configs,
                                     recsys, train, trainer, dist, dist_train,
-                                    dryrun, cluster),
+                                    dryrun, cluster, cells),
           "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

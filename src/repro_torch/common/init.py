@@ -12,27 +12,46 @@ from typing import Sequence
 import torch
 
 
-def _f32(shape, device):
-    """Draws are made in float32 and cast, as the reference does."""
-    return torch.empty(tuple(shape), dtype=torch.float32, device=device)
+# A leaf of another dtype than float32 is drawn into its finished tensor a
+# chunk of this many elements at a time: a whole stacked leaf's float32
+# draw, freed beside its cast copy, would leave holes of many GB in the
+# card's memory.  A multiple of 16, and the last chunk takes the rest of
+# the leaf, so the CPU's generator gives the numbers of one draw (its normal
+# fills blocks of 16 and redraws a short tail).
+DRAW_CHUNK = 1 << 26
+
+
+def _draw(shape, device, dtype, fill) -> torch.Tensor:
+    """Draws are made in float32 and cast, as the reference does: ``fill``
+    draws into a float32 tensor in place."""
+    if torch.device(device).type == "meta":  # the dry run: shapes, no draw
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    if dtype == torch.float32:
+        return fill(torch.empty(tuple(shape), dtype=dtype, device=device))
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    flat, lo = out.view(-1), 0
+    while lo < flat.numel():
+        hi = lo + DRAW_CHUNK
+        if flat.numel() - lo < 2 * DRAW_CHUNK:
+            hi = flat.numel()
+        flat[lo:hi].copy_(fill(torch.empty(hi - lo, dtype=torch.float32,
+                                           device=device)))
+        lo = hi
+    return out
 
 
 def normal_init(shape: Sequence[int], *, generator: torch.Generator,
                 device: torch.device, stddev: float = 0.02,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    if torch.device(device).type == "meta":  # the dry run: shapes, no draw
-        return torch.empty(tuple(shape), dtype=dtype, device=device)
-    x = _f32(shape, device).normal_(0.0, stddev, generator=generator)
-    return x.to(dtype)
+    return _draw(shape, device, dtype,
+                 lambda x: x.normal_(0.0, stddev, generator=generator))
 
 
 def uniform_init(shape: Sequence[int], scale: float, *,
                  generator: torch.Generator, device: torch.device,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    if torch.device(device).type == "meta":
-        return torch.empty(tuple(shape), dtype=dtype, device=device)
-    x = _f32(shape, device).uniform_(-scale, scale, generator=generator)
-    return x.to(dtype)
+    return _draw(shape, device, dtype,
+                 lambda x: x.uniform_(-scale, scale, generator=generator))
 
 
 def he_init(shape: Sequence[int], *, generator: torch.Generator,

@@ -18,6 +18,7 @@ the step boundary.
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -75,16 +76,14 @@ class ClickLogGenerator:
         emb = self.cfg.embedding
         F, P = emb.num_features, emb.max_pooling
         out = np.full((batch, F, P), -1, np.int32)
+        slots = np.arange(P)
         for f in range(F):
-            p_nom = emb.pooling[f]
-            counts = self._pooling_counts(p_nom, batch)
-            total = int(counts.sum())
-            ids = self._zipf_ids(emb.vocab_sizes[f], total)
-            pos = 0
-            for b in range(batch):
-                c = counts[b]
-                out[b, f, :c] = ids[pos : pos + c]
-                pos += c
+            counts = self._pooling_counts(emb.pooling[f], batch)
+            ids = self._zipf_ids(emb.vocab_sizes[f], int(counts.sum()))
+            # bag b takes the next counts[b] ids into slots [0, counts[b]):
+            # the row-major order of the mask's live slots
+            view = out[:, f, :]
+            view[slots[None, :] < counts[:, None]] = ids
         return out
 
     def batch(self, batch_size: int, *, with_labels: bool = True) -> dict:
@@ -151,3 +150,37 @@ def cell_batch(cfg: RecsysConfig, specs: dict, seed: int) -> dict:
             0, cfg.embedding.vocab_sizes[0], specs["candidate_ids"].shape
         ).astype(np.int32)
     return batch
+
+
+# threads of ``cell_batch_blocks`` (numpy's generators and ufuncs release
+# the GIL); a block's rows do not depend on it
+DRAW_WORKERS = 8
+
+
+def cell_batch_blocks(cfg: RecsysConfig, specs: dict, seed: int,
+                      block_rows: int) -> dict:
+    """A bulk cell's click-log inputs (numpy) drawn in blocks of
+    ``block_rows`` rows on DRAW_WORKERS threads: block i is ``cell_batch``
+    of its rows from the seed ``(seed, i)``.  The same distributions as
+    ``cell_batch``, other draws.  For batches of many rows (``serve_bulk``,
+    a CTR ranker's ``retrieval_cand``), not for candidate lists."""
+    if "candidate_ids" in specs:
+        raise ValueError("cell_batch_blocks draws rows of a batch, not a "
+                         "retrieval's candidate list")
+    n = next(iter(specs.values())).shape[0]
+
+    def draw(i: int) -> dict:
+        rows = min(block_rows, n - i * block_rows)
+        sub = {k: np.broadcast_to(0, (rows, *v.shape[1:]))   # shapes only
+               for k, v in specs.items()}
+        return cell_batch(cfg, sub, seed=(seed, i))
+
+    out = {}
+    with ThreadPoolExecutor(DRAW_WORKERS) as pool:
+        for i, block in enumerate(pool.map(draw, range(-(-n // block_rows)))):
+            lo = i * block_rows
+            for k, v in block.items():
+                if k not in out:
+                    out[k] = np.empty((n, *v.shape[1:]), v.dtype)
+                out[k][lo:lo + v.shape[0]] = v
+    return out

@@ -72,6 +72,9 @@ grad_launches = 0
 grad_window_launches = 0
 
 _MAX_ROWS = 2**31  # ids are int32
+# The forward kernel's bag index and loop bounds are 32-bit ints (a bag's
+# ids, rows and output are addressed in 64 bits): fewer than 2**30 bags
+_MAX_BAGS = 2**30
 
 
 def _check_table(table: torch.Tensor, ids: torch.Tensor) -> None:
@@ -111,8 +114,18 @@ def _fake_bag(table, ids, row_offsets, out_dtype) -> torch.Tensor:
     return out
 
 
+def _check_kernel_bags(ids: torch.Tensor) -> None:
+    """The forward kernel takes fewer than 2**30 bags (the plain version
+    has no such limit)."""
+    bags = ids.shape[:-1].numel()
+    if bags >= _MAX_BAGS:
+        raise ValueError(f"ids hold {bags} bags; the kernel's 32-bit bag "
+                         f"index takes fewer than 2**30")
+
+
 def _launch(table, ids, row_offsets=None) -> torch.Tensor:
     global launches
+    _check_kernel_bags(ids)
     if ids.numel() == 0 or table.shape[1] == 0:
         return torch.zeros((*ids.shape[:-1], table.shape[1]),
                            dtype=table.dtype, device=table.device)
@@ -223,6 +236,7 @@ def _bag_forward(table, ids, row_offsets, window) -> torch.Tensor:
         return embedding_bag_window_ref(table, ids, row_offsets, bounds,
                                         out_dtype)
     B, F, _ = ids.shape
+    _check_kernel_bags(ids)
     if ids.numel() == 0 or table.shape[1] == 0 or table.shape[0] == 0:
         return torch.zeros((B, F, table.shape[1]), dtype=out_dtype,
                            device=table.device)

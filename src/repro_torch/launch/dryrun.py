@@ -42,7 +42,11 @@ A record, per rank ("per_device" in the reference's keys):
   ``output_size_bytes`` (``alias_size_bytes`` of it the arguments the
   step updates in place), ``temp_size_bytes`` (the peak less the
   arguments) and ``peak_memory_bytes``: every storage on the device
-  followed from its allocation to its release through the step;
+  followed from its allocation to its release through the step, and the
+  tensors a softmax kernel allocates and frees inside its call (``meta``
+  counts the card's kernel's: the backward's grad x output and its
+  contiguous copy, two score-sized float32 tensors in a naive attention's
+  backward);
 - ``t_compute_s``, ``t_memory_s``, ``t_collective_s`` and ``bottleneck``
   at the data-sheet rates below.
 
@@ -96,6 +100,13 @@ _GATHERS = {"embedding", "index_select", "gather", "index"}
 # in-place scatters into self: only the rows they touch move
 _SCATTERS = {"index_add_", "index_put_", "scatter_add_", "scatter_",
              "index_fill_", "index_copy_"}
+# ops whose kernels allocate and free tensors of their own inside the call,
+# unseen as outputs: the softmax family makes a contiguous copy of each
+# input that is not (CUDA's and the CPU's SoftMax kernels), and CUDA's
+# softmax backward first forms grad x output, of which it then takes the
+# contiguous copy
+_SOFTMAX = {"_softmax", "_log_softmax", "_softmax_backward_data",
+            "_log_softmax_backward_data"}
 
 
 def _tensors(x) -> list[torch.Tensor]:
@@ -163,12 +174,30 @@ class _Tracer(TorchDispatchMode):
             if t.device.type == self.device_type and \
                     t.untyped_storage()._cdata not in ins:
                 self.track(t)
+        if packet.__name__ in _SOFTMAX:  # beside the output, then freed
+            self.peak = max(self.peak, self.live + self._scratch(func, args))
         if packet in flop_registry:
             ins = _tensors(args)
             self.add_flops(ins[0].dtype,
                            flop_registry[packet](*args, **kwargs, out_val=out))
         self.bytes += self._bytes(func, args, kwargs, outs)
         return out
+
+    def _scratch(self, func, args) -> int:
+        """The bytes a softmax-family kernel holds inside the call on this
+        trace's device (``meta`` stands for the card)."""
+        def like(t):  # t's layout on meta, to read a result's strides
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device="meta")
+
+        ts = [t for t in args if isinstance(t, torch.Tensor)]
+        if self.device_type != "cpu" and \
+                func.overloadpacket.__name__ == "_softmax_backward_data":
+            tmp = like(ts[0]) * like(ts[1])          # grad x output
+            ts = [tmp, ts[1]]
+            return _size(tmp) + sum(_size(t) for t in ts
+                                    if not t.is_contiguous())
+        return sum(_size(t) for t in ts if not t.is_contiguous())
 
     def _bytes(self, func, args, kwargs, outs) -> int:
         name = func.overloadpacket.__name__

@@ -19,7 +19,8 @@ is not a multiple of the zero sweep's 32 rows and with the last row read,
 a run of one row across many of the kernel's chunks, its pairs and sort
 stages bitwise against their plain version (0, 2 and 4 radix passes; ids
 past the table), a table of 2**27 - 3 rows, no valid pair, an empty
-batch and bags of no slot (zeros), ids of 2**31 slots refused, dirty memory
+batch and bags of no slot (zeros), ids of 2**31 slots refused (and 2**30
+bags refused by the forward, 2**30 - 1 launched), dirty memory
 under the output (every row written), the 2-D entry and autograd through
 both entries;
 one recsys (wide-deep) and one GNN (full_graph_sm) train step against a
@@ -816,6 +817,36 @@ def test_k1_grad_no_valid_pairs(cuda_device, dtype):
     zeros = torch.zeros((H, D), dtype=TDT[dtype], device=cuda_device)
     for g in got:
         assert g.dtype == zeros.dtype and torch.equal(g, zeros)
+
+
+def test_k1_forward_bag_limit(cuda_device):
+    """The forward kernel's bag index is 32-bit: 2**30 - 1 bags launch
+    through both entries (all padding but the last bag, which reads row
+    3: exactly one nonzero output), and 2**30 bags are refused by both
+    entries and the float32 store before any launch."""
+    table = torch.arange(1, 5, dtype=torch.float32,
+                         device=cuda_device).reshape(4, 1)
+    off = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    n = 2**30 - 1
+    ids = torch.full((n, 1), -1, dtype=torch.int32, device=cuda_device)
+    ids[-1, 0] = 3
+    before = k1_ops.launches
+    for out in (hot_embedding_bag(table, ids),
+                embedding_bag_features(table, ids.view(n, 1, 1), off)):
+        assert out.shape[0] == n and float(out[-1].sum()) == 4.0
+        assert int(torch.count_nonzero(out)) == 1
+        del out
+    assert k1_ops.launches == before + 2
+    del ids
+    big = torch.full((n + 1, 1), -1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="2\\*\\*30"):
+        hot_embedding_bag(table, big)
+    with pytest.raises(ValueError, match="2\\*\\*30"):
+        embedding_bag_features(table, big.view(n + 1, 1, 1), off)
+    with pytest.raises(ValueError, match="2\\*\\*30"):
+        embedding_bag_features(table, big.view(n + 1, 1, 1), off,
+                               out_dtype=torch.float32)
+    assert k1_ops.launches == before + 2
 
 
 def test_k1_grad_refuses_2_31_slots(cuda_device):

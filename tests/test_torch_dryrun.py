@@ -22,6 +22,10 @@
   count on a fake world of 4.
 - Kernel entries: each shape-only path gives its plain version's shapes
   and dtypes; the CLI writes a record with the reference's keys.
+- Peak: a small LM step traced on the CPU against the CPU allocator's own
+  peak (``torch.profiler``'s memory events), the softmax kernels' inner
+  copies included; the copies as the card's kernel makes them on
+  ``meta``.
 """
 import dataclasses
 import json
@@ -465,6 +469,91 @@ def test_k1_grad_scratch_matches_layout():
     with tracer:
         k1.embedding_bag_features_grad(*args)
     assert tracer.peak == 100 * 64 * 2 + grad_scratch_bytes(24, 100, 64, 2)
+
+
+def _allocator_peak(cell) -> int:
+    """The CPU allocator's peak over one step of ``cell`` (its state and
+    batch, which live through the step, and what the step allocates on top
+    of them, from ``torch.profiler``'s memory events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = cell.init_state(torch.Generator().manual_seed(0))
+    batch = dryrun._batch(cell)
+    args, _ = dryrun._unique_bytes(dryrun._state_tensors(state)
+                                   + list(batch.values()))
+    with profile(activities=[ProfilerActivity.CPU],
+                 profile_memory=True) as prof:
+        out = cell.run(state, batch)
+        del out
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.name() == "[memory]"), key=lambda e: e.start_ns())
+    live = peak = 0
+    for e in events:
+        live += e.nbytes()
+        peak = max(peak, live)
+    return args + peak
+
+
+ALLOCATOR_TOL = 0.005
+ALLOCATOR_CELLS = [  # naive attention; the first with its peak in the
+    # softmax backward (scores of 8 heads at 512 tokens against d 256)
+    ("deepseek-67b", "train_4k", 512, dict(
+        n_layers=2, d_model=256, n_heads=8, n_kv_heads=1, head_dim=32,
+        d_ff=512, vocab=1000)),
+    ("olmoe-1b-7b", "train_4k", 256, dict(n_layers=2)),
+    ("deepseek-67b", "prefill_32k", 256, dict(n_layers=2)),
+]
+
+
+@pytest.mark.parametrize("arch_id,shape,seq,over", ALLOCATOR_CELLS,
+                         ids=[f"{a}-{s}" for a, s, _, _ in ALLOCATOR_CELLS])
+def test_cpu_trace_peak_is_the_allocators(arch_id, shape, seq, over,
+                                          monkeypatch):
+    """The trace's peak on the CPU within ALLOCATOR_TOL of the CPU
+    allocator's.  Where the peak lies in the softmax backward (whose CPU
+    kernel copies its permuted gradient), the trace without that copy
+    misses by more than a tenth."""
+    from repro_torch.launch import steps
+
+    monkeypatch.setattr(steps, "SMOKE_SEQ", seq)
+    cfg = dataclasses.replace(get_arch(arch_id).SMOKE, **over)
+    assert cfg.attn_impl == "naive"
+
+    def cell():
+        return build_cell(arch_id, shape, "cpu", batch=1, cfg_override=cfg)
+
+    real = _allocator_peak(cell())
+    traced = dryrun.trace_cell(cell())["memory"]["peak_memory_bytes"]
+    assert abs(traced - real) <= ALLOCATOR_TOL * real, (traced, real)
+    if (arch_id, shape) == ALLOCATOR_CELLS[0][:2]:
+        monkeypatch.setattr(dryrun, "_SOFTMAX", set())
+        blind = dryrun.trace_cell(cell())["memory"]["peak_memory_bytes"]
+        assert real - blind > 0.1 * real, (blind, real)
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("permuted", [False, True])
+def test_softmax_backward_scratch(device, permuted):
+    """``_softmax_backward_data``'s inner tensors beside its output: on the
+    card (``meta``) grad x output and, where that product is not
+    contiguous, its contiguous copy; on the CPU a contiguous copy of a
+    permuted gradient."""
+    shape = (2, 3, 64, 64)
+    n = 4 * math.prod(shape)
+    out = torch.softmax(torch.zeros(shape, device=device), dim=-1)
+    grad = torch.zeros(shape, device=device)
+    if permuted:
+        grad = torch.zeros((2, 64, 3, 64), device=device).transpose(1, 2)
+    tracer = dryrun._Tracer(device)
+    for t in (out, grad):
+        tracer.track(t)
+    with tracer:
+        got = torch.ops.aten._softmax_backward_data(grad, out, -1,
+                                                    torch.float32)
+    assert got.shape == shape
+    inner = {("meta", False): n, ("meta", True): 2 * n,
+             ("cpu", False): 0, ("cpu", True): n}[device, permuted]
+    assert tracer.peak == 3 * n + inner
 
 
 def test_cli_writes_one_record(tmp_path):
