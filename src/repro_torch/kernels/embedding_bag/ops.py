@@ -47,6 +47,7 @@ import torch
 
 from torch.autograd.function import once_differentiable
 
+from repro_torch.common import trace
 from repro_torch.kernels import fake
 from repro_torch.kernels.embedding_bag.embedding_bag import (
     NO_WINDOW,
@@ -172,9 +173,10 @@ def hot_embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected table [H, D] and ids [B, P], got "
                          f"{tuple(table.shape)} and {tuple(ids.shape)}")
     _check_table(table, ids)
-    if _wants_grad(table):
-        return _HotBag.apply(table, ids)
-    return _hot_forward(table, ids)
+    with trace.span("k1"):
+        if _wants_grad(table):
+            return _HotBag.apply(table, ids)
+        return _hot_forward(table, ids)
 
 
 def embedding_bag_features(table: torch.Tensor, ids: torch.Tensor,
@@ -201,9 +203,10 @@ def embedding_bag_features(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type != "cpu" and not row_offsets.is_contiguous():
         raise ValueError("kernel takes contiguous row_offsets")
     window = _window_args(table, row_window, out_dtype)
-    if _wants_grad(table):
-        return _FeaturesBag.apply(table, ids, row_offsets, window)
-    return _bag_forward(table, ids, row_offsets, window)
+    with trace.span("k1"):
+        if _wants_grad(table):
+            return _FeaturesBag.apply(table, ids, row_offsets, window)
+        return _bag_forward(table, ids, row_offsets, window)
 
 
 def _window_args(table, row_window, out_dtype):

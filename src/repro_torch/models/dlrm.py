@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.common import trace
 from repro_torch.common.convert import tree_from_numpy
 from repro_torch.models import embedding as emb_lib
 from repro_torch.models.layers import MLP, init_mlp
@@ -59,25 +60,31 @@ class DLRM(nn.Module):
 
     def apply_sparse(self, batch) -> torch.Tensor:
         """G_s: the SparseNet — multi-hot EmbeddingBag -> pooled [B, F, D]."""
-        return emb_lib.embedding_bag(
-            {"table": self.table}, batch["sparse_ids"], self.cfg.embedding)
+        with trace.span("sparse"):
+            return emb_lib.embedding_bag(
+                {"table": self.table}, batch["sparse_ids"],
+                self.cfg.embedding)
 
     def apply_dense_given_pooled(self, batch, pooled: torch.Tensor
                                  ) -> torch.Tensor:
         """G_d: DenseNet given pooled embeddings [B, F, D] -> logit [B]."""
         cfg = self.cfg
-        feats = [pooled]
-        if cfg.n_dense:
-            dense_v = self.bottom_mlp(batch["dense"].to(cfg.dtype),
-                                      final_activation="relu")
-            feats.insert(0, dense_v[:, None, :])
-        vectors = torch.cat(feats, dim=1)  # [B, n_vec, D]
-        inter = dot_interaction(vectors)
-        top_in = torch.cat([dense_v, inter], dim=-1) if cfg.n_dense else inter
-        return self.top_mlp(top_in)[:, 0]
+        with trace.span("dense"):
+            feats = [pooled]
+            if cfg.n_dense:
+                dense_v = self.bottom_mlp(batch["dense"].to(cfg.dtype),
+                                          final_activation="relu")
+                feats.insert(0, dense_v[:, None, :])
+            vectors = torch.cat(feats, dim=1)  # [B, n_vec, D]
+            inter = dot_interaction(vectors)
+            top_in = (torch.cat([dense_v, inter], dim=-1) if cfg.n_dense
+                      else inter)
+            return self.top_mlp(top_in)[:, 0]
 
     def forward(self, batch) -> torch.Tensor:
-        return self.apply_dense_given_pooled(batch, self.apply_sparse(batch))
+        with trace.span("model"):
+            return self.apply_dense_given_pooled(batch,
+                                                 self.apply_sparse(batch))
 
 
 def init(cfg: RecsysConfig, *, generator: torch.Generator,

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.common import trace
 from repro_torch.common.init import he_init, normal_init
 
 
@@ -36,13 +37,14 @@ def apply_mlp(params, x: torch.Tensor, *, final_activation: str | None = None
               ) -> torch.Tensor:
     """ReLU between layers; ``final_activation`` in {None,'relu','sigmoid'}."""
     n = len(params)
-    for i, layer in enumerate(params):
-        x = x @ layer["w"] + layer["b"]
-        if i < n - 1 or final_activation == "relu":
-            x = torch.relu(x)
-        elif final_activation == "sigmoid":
-            x = torch.sigmoid(x)
-    return x
+    with trace.span("mlp"):
+        for i, layer in enumerate(params):
+            x = x @ layer["w"] + layer["b"]
+            if i < n - 1 or final_activation == "relu":
+                x = torch.relu(x)
+            elif final_activation == "sigmoid":
+                x = torch.sigmoid(x)
+        return x
 
 
 class MLP(nn.Module):

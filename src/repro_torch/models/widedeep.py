@@ -20,6 +20,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch.common import trace
 from repro_torch.common.convert import tree_from_numpy
 from repro_torch.models import embedding as emb_lib
 from repro_torch.models.embedding import EmbeddingConfig
@@ -60,28 +61,34 @@ class WideDeep(nn.Module):
     def apply_sparse(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """G_s: deep embeddings [B, F, D] and wide scalar sums [B, F, 1]."""
         ids = batch["sparse_ids"]
-        deep = emb_lib.embedding_bag({"table": self.table}, ids,
-                                     self.cfg.embedding)
-        wide = emb_lib.embedding_bag({"table": self.wide}, ids, self.wide_cfg)
-        return deep, wide
+        with trace.span("sparse"):
+            deep = emb_lib.embedding_bag({"table": self.table}, ids,
+                                         self.cfg.embedding)
+            wide = emb_lib.embedding_bag({"table": self.wide}, ids,
+                                         self.wide_cfg)
+            return deep, wide
 
     def apply_dense_given_pooled(self, batch, pooled) -> torch.Tensor:
         """G_d: logits [B] (one task) or [B, n_tasks]."""
         cfg = self.cfg
         deep_emb, wide_emb = pooled
-        deep_in = deep_emb.reshape(deep_emb.shape[0], -1)
-        wide_logit = wide_emb.sum(dim=(1, 2))
-        if cfg.n_dense:
-            dense = batch["dense"].to(cfg.dtype)
-            deep_in = torch.cat([deep_in, dense], dim=-1)
-            wide_logit = wide_logit + dense @ self.wide_dense
-        hidden = self.deep_mlp(deep_in, final_activation="relu")
-        logits = torch.stack([t(hidden)[:, 0] for t in self.towers], dim=-1)
-        logits = logits + wide_logit[:, None]
-        return logits[:, 0] if cfg.n_tasks == 1 else logits
+        with trace.span("dense"):
+            deep_in = deep_emb.reshape(deep_emb.shape[0], -1)
+            wide_logit = wide_emb.sum(dim=(1, 2))
+            if cfg.n_dense:
+                dense = batch["dense"].to(cfg.dtype)
+                deep_in = torch.cat([deep_in, dense], dim=-1)
+                wide_logit = wide_logit + dense @ self.wide_dense
+            hidden = self.deep_mlp(deep_in, final_activation="relu")
+            logits = torch.stack([t(hidden)[:, 0] for t in self.towers],
+                                 dim=-1)
+            logits = logits + wide_logit[:, None]
+            return logits[:, 0] if cfg.n_tasks == 1 else logits
 
     def forward(self, batch) -> torch.Tensor:
-        return self.apply_dense_given_pooled(batch, self.apply_sparse(batch))
+        with trace.span("model"):
+            return self.apply_dense_given_pooled(batch,
+                                                 self.apply_sparse(batch))
 
 
 def init(cfg: RecsysConfig, *, generator: torch.Generator,
