@@ -47,6 +47,30 @@
 //     loaded at the top of a chunk, so they arrive while its rows are loading.
 //   - The grid is sized to what the card holds at once (occupancy x SMs);
 //     teams take bags by a strided schedule, so a launch is one wave.
+//   - The 3-D entry's schedule walks the bags feature-major: schedule index
+//     s is item s % B of feature s / B (bag (s % B) * F + s / B, B = n_bags
+//     / F), the division done once a bag.  The resident teams (3,696 at
+//     rm2's bf16 rows) then pool one table's bags at a time (two where one
+//     feature's bags end and the next one's begin), so each table's hottest
+//     rows hold every SM's L1 and the whole L2 for ~1/F of the launch; in
+//     item order all F tables are in flight and each gets ~1/F of the
+//     caches.  Under the traffic's Zipf ids (alpha 1.05, 5 M rows a table)
+//     Che's approximation of an LRU cache puts the loads that reach HBM at
+//     ~46% in item order and ~22-27% in this one (computed, not
+//     measured).  Measured (tools/k1_bench.py --ab): rm2
+//     serve_bulk 8.59-8.66 -> 7.97-7.98 ms, the 1,000,000-item call
+//     32.74-33.07 -> 30.47-30.48 ms; with every id in a 1,024-row head (all
+//     L1 hits) the same launch takes 6.8 ms in either order, the kernel's
+//     own floor at this geometry.  Rows narrower than a 32-byte sector
+//     (MT-WnD's wide D = 1 table) keep the item order: there a sector holds
+//     several bags' outputs, which a feature-major walk would write in
+//     pieces a table apart, and every table's hot rows fit the cache
+//     anyway.  So do bags of fewer than 8 ids (MT-WnD's one-id deep
+//     launch): a feature-major walk reads each bag's ids from a sector of
+//     its own, and the deep launch took 2.79 ms against 2.73 ms in item
+//     order.  The walk is a template flag, so an item-order launch runs
+//     no code of the other walk (a branch a bag cost one-id bags 1.5%).
+//     Only the order changes: outputs and their bits are the same.
 //   - Each bag is summed by one team in a fixed order (slot order within a
 //     group, a fixed butterfly across groups) with no atomics: two launches
 //     on the same inputs are bitwise equal, and the 3-D entry equals the 2-D
@@ -150,6 +174,19 @@ __device__ __forceinline__ void load_ids(int32_t (&dst)[K],
   }
 }
 
+// The bag at schedule index s, and its feature: in item order the bag is
+// s; walking by feature (B bags a feature), item s % B of feature s / B.
+template <bool kByFeature>
+__device__ __forceinline__ int bag_at(int s, int B, int F) {
+  if constexpr (kByFeature) return (s % B) * F + s / B;
+  return s;
+}
+template <bool kByFeature>
+__device__ __forceinline__ int feature_of(int s, int bag, int B, int F) {
+  if constexpr (kByFeature) return s / B;
+  return bag % F;
+}
+
 // T: the table's type; O: the output's (T, or float for the f32 partial);
 // kWindow: ids outside the row window [lo, hi) count as padding.
 // L lanes a row, C vectors of V elements a lane; a team of S lane groups
@@ -157,14 +194,16 @@ __device__ __forceinline__ void load_ids(int32_t (&dst)[K],
 // has S * U rows in flight.  kFit: L * C vectors cover each column block of
 // the row exactly.  Grid: x = blocks of teams (at most what is resident),
 // y = column blocks of L * C vectors (one unless a row is wider than 32 * 4
-// vectors).  Bag indices are int: the host checks n_bags < 2^30.
+// vectors).  kByFeature: the schedule walks the bags feature-major, B bags
+// a feature (else item order).  Bag indices are int: the host checks
+// n_bags < 2^30.
 template <typename T, typename O, bool kWindow, int V, int L, int C, int S,
-          int U, bool kFit>
+          int U, bool kFit, bool kByFeature>
 __global__ void __launch_bounds__(kThreads)
     k1_bag_kernel(const T* __restrict__ table, const int32_t* __restrict__ ids,
                   const int64_t* __restrict__ row_offsets, O* __restrict__ out,
-                  int n_bags, int P, int F, int n_vec, int vec_ids, int64_t lo,
-                  int64_t hi) {
+                  int n_bags, int P, int F, int B, int n_vec, int vec_ids,
+                  int64_t lo, int64_t hi) {
   using VecT = Vec<T, V>;
   using VecO = Vec<O, V>;
   constexpr int TL = L * S;              // lanes of a team
@@ -200,11 +239,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int c = 0; c < C; ++c) col_ok[c] = kFit || col0 + c * L < n_vec;
 
-  // the item (bag, chunk) whose ids are in flight
-  int bag = g0 + team;
+  // the item (bag, chunk) whose ids are in flight; s is the bag's place in
+  // the schedule
+  int s = g0 + team;
   int chunk = 0;
-  bool live = bag < n_bags;
-  int64_t off = (live && row_offsets) ? __ldg(row_offsets + bag % F) : 0;
+  bool live = s < n_bags;
+  int bag = bag_at<kByFeature>(s, B, F);
+  int64_t off =
+      (live && row_offsets)
+          ? __ldg(row_offsets + feature_of<kByFeature>(s, bag, B, F))
+          : 0;
   int32_t nxt[K];
   load_ids<K>(nxt, ids + static_cast<int64_t>(bag) * P, K * t, P, live,
               vec_ids);
@@ -228,9 +272,12 @@ __global__ void __launch_bounds__(kThreads)
     // chunk's rows are in flight
     if (++chunk == n_chunks) {
       chunk = 0;
-      bag += n_teams;
-      live = bag < n_bags;
-      off = (live && row_offsets) ? __ldg(row_offsets + bag % F) : 0;
+      s += n_teams;
+      live = s < n_bags;
+      bag = bag_at<kByFeature>(s, B, F);
+      off = (live && row_offsets)
+                ? __ldg(row_offsets + feature_of<kByFeature>(s, bag, B, F))
+                : 0;
     }
     if (i + 1 < items)
       load_ids<K>(nxt, ids + static_cast<int64_t>(bag) * P,
@@ -350,17 +397,20 @@ struct Args {
   bool vec_ids;
   cudaStream_t stream;
   int64_t lo, hi;  // the row window
+  int64_t per_feature;  // bags a feature of a feature-major walk; 0: item order
+  int64_t* schedule;    // out (or null): resident teams, per_feature
 };
 
-// Launches the instance of one row geometry: a team of up to kTeam lane
-// groups a bag (one group of 32 lanes at wider rows), a grid of at most the
-// blocks the card holds at once.
+// Launches the instance of one row geometry and walk: a team of up to
+// kTeam lane groups a bag (one group of 32 lanes at wider rows), a grid of
+// at most the blocks the card holds at once.  Reports the teams it kept
+// resident (those of one column block) and its walk in a.schedule.
 template <typename T, typename O, bool kWindow, int V, int L, int C,
-          bool kFit>
-int launch_geometry(const Args& a) {
+          bool kFit, bool kByFeature>
+int launch_walk(const Args& a) {
   constexpr int S = C == 1 ? (L * kTeam <= 32 ? kTeam : 32 / L) : 1;
   constexpr int U = kRows;
-  auto kernel = k1_bag_kernel<T, O, kWindow, V, L, C, S, U, kFit>;
+  auto kernel = k1_bag_kernel<T, O, kWindow, V, L, C, S, U, kFit, kByFeature>;
   static int per_sm = 0;  // blocks of this instance an SM holds at once
   if (per_sm == 0) {
     int n = 0;
@@ -381,11 +431,26 @@ int launch_geometry(const Args& a) {
   if (resident < 1) resident = 1;
   const dim3 grid(static_cast<unsigned>(need < resident ? need : resident),
                   static_cast<unsigned>(col_blocks));
+  if (a.schedule) {
+    a.schedule[0] = static_cast<int64_t>(grid.x) * kTeamsPerBlock;
+    a.schedule[1] = a.per_feature;
+  }
   kernel<<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.table), a.ids, a.offsets, static_cast<O*>(a.out),
       static_cast<int>(a.n_bags), static_cast<int>(a.P),
-      static_cast<int>(a.F), a.n_vec, a.vec_ids ? 1 : 0, a.lo, a.hi);
+      static_cast<int>(a.F), static_cast<int>(a.per_feature), a.n_vec,
+      a.vec_ids ? 1 : 0, a.lo, a.hi);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The walk is an instance of its own, so a launch in item order runs the
+// item-order code alone (a branch a bag cost MT-WnD's one-id bags 1-2%).
+template <typename T, typename O, bool kWindow, int V, int L, int C,
+          bool kFit>
+int launch_geometry(const Args& a) {
+  return a.per_feature > 0
+             ? launch_walk<T, O, kWindow, V, L, C, kFit, true>(a)
+             : launch_walk<T, O, kWindow, V, L, C, kFit, false>(a);
 }
 
 // 16-byte vectors: a group as wide as the row where it has at most 32
@@ -430,6 +495,11 @@ int launch(Args a, int64_t D) {
       D % kVec == 0 && reinterpret_cast<uintptr_t>(a.table) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(a.out) % (sizeof(O) * kVec) == 0;
   a.vec_ids = a.P % 4 == 0 && reinterpret_cast<uintptr_t>(a.ids) % 16 == 0;
+  // feature-major where a bag's row and its ids each fill a 32-byte sector
+  a.per_feature = a.F > 1 && D * static_cast<int64_t>(sizeof(T)) >= 32 &&
+                          a.P * static_cast<int64_t>(sizeof(int32_t)) >= 32
+                      ? a.n_bags / a.F
+                      : 0;
   if (vec_ok) {
     a.n_vec = static_cast<int>(D / kVec);
     return launch_vector<T, O, W, kVec>(a);
@@ -441,10 +511,10 @@ int launch(Args a, int64_t D) {
 int dispatch(const void* table, const void* ids, const void* row_offsets,
              void* out, int64_t n_bags, int64_t P, int64_t F, int64_t D,
              int64_t dtype, int64_t out_dtype, int64_t lo, int64_t hi,
-             int64_t device, void* stream) {
+             int64_t device, void* stream, int64_t* schedule) {
   if (n_bags <= 0 || P <= 0 || F <= 0 || D <= 0 || n_bags >= (1 << 30) ||
       P >= (1 << 30) || F >= (1 << 30) || D >= (int64_t{1} << 31) ||
-      lo < 0 || hi < lo)
+      lo < 0 || hi < lo || n_bags % F != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(static_cast<int>(device));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -460,7 +530,9 @@ int dispatch(const void* table, const void* ids, const void* row_offsets,
          false,
          static_cast<cudaStream_t>(stream),
          lo,
-         hi};
+         hi,
+         0,
+         schedule};
   using bf16 = __nv_bfloat16;
   const bool window = lo != 0 || hi != INT64_MAX;
   if (dtype == 0 && out_dtype == 0)
@@ -482,15 +554,19 @@ extern "C" {
 // is dtype, or float32 for a bf16 table.  ids [n_bags, P] int32;
 // row_offsets [F] int64 or null (then F must be 1).  The table holds rows
 // [lo, hi) of the combined table (lo = 0, hi = 2^63 - 1: the whole table).
-// Requires 0 < n_bags, P, F < 2^30, 0 < D < 2^31, 0 <= lo <= hi,
-// contiguous row-major tensors on `device`.
+// Requires 0 < n_bags, P, F < 2^30, n_bags a multiple of F, 0 < D < 2^31,
+// 0 <= lo <= hi, contiguous row-major tensors on `device`.  schedule (null,
+// or room for two): the teams the launch kept resident, and the bags a
+// feature of its feature-major walk (n_bags / F), or 0 where it kept the
+// item order (F = 1, rows under 32 bytes, or P under 8); both known on the
+// host, so reading them waits for nothing.
 int repro_embedding_bag(const void* table, const void* ids,
                         const void* row_offsets, void* out, int64_t n_bags,
                         int64_t P, int64_t F, int64_t D, int64_t dtype,
                         int64_t out_dtype, int64_t lo, int64_t hi,
-                        int64_t device, void* stream) {
+                        int64_t device, void* stream, int64_t* schedule) {
   return dispatch(table, ids, row_offsets, out, n_bags, P, F, D, dtype,
-                  out_dtype, lo, hi, device, stream);
+                  out_dtype, lo, hi, device, stream, schedule);
 }
 
 const char* repro_cuda_error_string(int error) {

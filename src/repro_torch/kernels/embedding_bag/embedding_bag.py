@@ -26,7 +26,7 @@ def _kernel():
         lib = _build.load("embedding_bag")
         fn = lib.repro_embedding_bag
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 9 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
         fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -38,14 +38,20 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
                        row_offsets: torch.Tensor | None = None, *,
                        row_window: tuple[int, int] = NO_WINDOW,
                        out_dtype: torch.dtype | None = None
-                       ) -> torch.Tensor:
+                       ) -> tuple[torch.Tensor, bool]:
     """table [H, D] f32/bf16; ids [..., P] int32 whose leading dims are the
     bags (the last leading dim is the feature when ``row_offsets`` [F] int64
     is given); all contiguous on one CUDA device, with bags, P and D > 0
-    -> pooled [..., D] in ``out_dtype`` (the table's by default; float32
-    stores the accumulator unrounded).  ``row_window`` (lo, hi): the table
-    holds rows [lo, hi) of the combined table; other rows count as
-    padding."""
+    -> (pooled [..., D] in ``out_dtype`` (the table's by default; float32
+    stores the accumulator unrounded), table_major).  ``row_window`` (lo,
+    hi): the table holds rows [lo, hi) of the combined table; other rows
+    count as padding.
+
+    ``table_major``: the launch walked its bags feature by feature (F > 1,
+    rows of 32 bytes or more, P of 8 or more) and a feature had at least as
+    many bags as the teams it kept resident, so at most two tables were in
+    flight at a time.  The kernel reports its walk from the host: no
+    wait."""
     fn, err_str = _kernel()
     P = ids.shape[-1]
     out_dtype = table.dtype if out_dtype is None else out_dtype
@@ -53,17 +59,19 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
                       device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     lo, hi = row_window
+    schedule = (ctypes.c_int64 * 2)()
     err = fn(table.data_ptr(), ids.data_ptr(),
              None if row_offsets is None else row_offsets.data_ptr(),
              out.data_ptr(), ids.numel() // P, P,
              1 if row_offsets is None else row_offsets.shape[0],
              table.shape[1], _DTYPE_CODE[table.dtype], _DTYPE_CODE[out_dtype],
-             lo, hi, table.device.index, stream)
+             lo, hi, table.device.index, stream, schedule)
     if err != 0:
         raise RuntimeError(
             f"embedding_bag kernel launch failed: {err_str(err).decode()} "
             f"(cuda error {err})")
-    return out
+    teams, per_feature = schedule
+    return out, 0 < teams <= per_feature
 
 
 _grad_fn = None

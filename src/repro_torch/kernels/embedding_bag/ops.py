@@ -14,6 +14,24 @@ has each group issue 4 independent 16-byte row loads before its adds (16
 rows a bag in flight) while the next ids load, sums each bag in a fixed
 order in fp32, and sizes the grid to one wave of resident warps.
 
+The per-feature entry's resident teams take the bags feature by feature
+(all B bags of feature 0, then of feature 1, ...), not item by item, where
+a bag's row and its ids each fill a 32-byte sector or more: with 3,696
+teams resident (rm2's bf16 rows) and B items of thousands, one or two
+tables are in flight at a time, so a table's hot rows have the SMs' L1
+and the L2 to themselves instead of 1/F of them.  Under Zipf ids (alpha
+1.05, 5 M rows a table) Che's approximation of an LRU cache puts the row
+loads that reach HBM at ~46% in item order and ~22-27% table by table
+(computed, not measured).  On the H100 the rm2
+serve_bulk launch went from 8.6 to 7.97 ms and the 1,000,000-item call
+from 32.7-33.1 to 30.5 ms, against 6.8 ms for the same launch with every
+id in L1 (``tools/k1_bench.py --ab``).  Each bag is still summed by one
+team in the same order, so the output is bitwise the item order's.
+Narrower rows (D = 1 f32) keep the item order, whose outputs of one
+32-byte sector are written together, and so do bags of fewer than 8 ids
+(MT-WnD's one-id deep launch), whose ids a feature-major walk reads a
+sector a bag.
+
 Two entries share the kernel: ``hot_embedding_bag`` (ids [B, P] into the
 table) and ``embedding_bag_features`` (ids [B, F, P] per feature, shifted
 by ``row_offsets[f]`` inside the kernel in 64 bits).  The latter also takes
@@ -66,9 +84,16 @@ from repro_torch.kernels.embedding_bag.ref import (
 # Kernel launches since the last reset (set it to 0 to start a count): the
 # forward kernel's, the forward kernel's through a row window, and the
 # gradient kernel's (one a backward call; those through a row window are
-# also counted in grad_window_launches).
+# also counted in grad_window_launches).  table_major_launches counts the
+# forward launches of either of the first two counts whose schedule had at
+# most two tables in flight at a time: the kernel walked the bags feature
+# by feature (the 3-D entry at rows of 32 bytes or more and bags of 8 ids
+# or more) and a feature's bags were at least the teams the launch kept
+# resident.  A launch whose bags all fit one wave, or that kept the item
+# order, is not counted.
 launches = 0
 window_launches = 0
+table_major_launches = 0
 grad_launches = 0
 grad_window_launches = 0
 
@@ -132,8 +157,17 @@ def _launch(table, ids, row_offsets=None) -> torch.Tensor:
                            dtype=table.dtype, device=table.device)
     if fake.is_fake(table):
         return _fake_bag(table, ids, row_offsets, table.dtype)
-    out = embedding_bag_cuda(table, ids, row_offsets)
+    out = _bag_cuda(table, ids, row_offsets)
     launches += 1
+    return out
+
+
+def _bag_cuda(table, ids, row_offsets, **window) -> torch.Tensor:
+    """The forward kernel's launch, counted in ``table_major_launches``
+    where its schedule walked one table at a time."""
+    global table_major_launches
+    out, table_major = embedding_bag_cuda(table, ids, row_offsets, **window)
+    table_major_launches += table_major
     return out
 
 
@@ -245,8 +279,8 @@ def _bag_forward(table, ids, row_offsets, window) -> torch.Tensor:
                            device=table.device)
     if fake.is_fake(table):
         return _fake_bag(table, ids, row_offsets, out_dtype)
-    out = embedding_bag_cuda(table, ids, row_offsets, row_window=bounds,
-                             out_dtype=out_dtype)
+    out = _bag_cuda(table, ids, row_offsets, row_window=bounds,
+                    out_dtype=out_dtype)
     if row_window is None:
         launches += 1
     else:

@@ -4,8 +4,12 @@ K1 (the embedding bag) at every row geometry its CUDA source instantiates:
 D in {16, ..., 256} and P in {1, ..., 200}, in f32 and bf16, with -1 inside
 bags and bags that are all padding (exactly zero), an unaligned table view
 (the scalar path), two launches bitwise equal, the per-feature entry bitwise
-equal to the 2-D entry on the shifted ids, and the hot/cold pooling and
-``embedding_bag_local`` on the card against their CPU results.  The recsys
+equal to the 2-D entry on the shifted ids, its feature-major walk at
+launches of several waves (rm2's rows, MT-WnD's deep and wide one-id bags,
+f32 rows at P = 8, through a row window, and rmc1's one-wave launch)
+bitwise equal to the item order with the launches it counts as
+table-major, and the hot/cold pooling and ``embedding_bag_local`` on the
+card against their CPU results.  The recsys
 slice's rows: D = 1 (MT-WnD's wide table) and 18 (DIN) at P = 1 and 3
 through both entries; MT-WnD's SparseNet (two launches) and DIN / DIEN
 logits on the card against the CPU.
@@ -447,6 +451,81 @@ def test_k1_features_entry_equals_2d_entry(cuda_device, P, dtype):
     want = embedding_bag_features_ref(table, ids_t, off_t)
     torch.testing.assert_close(got.float(), want.float(), rtol=K1_TOL[dtype],
                                atol=K1_TOL[dtype])
+
+
+def _zipf_ids(g, B, F, P, V, device):
+    """ids [B, F, P] int32 drawn by the benchmark's traffic generator
+    (``bench/gen.py``) at its traffics' parameters: Zipf over V rows a
+    table (alpha 1.05, id 0 hottest), lognormal bag counts around 0.6 x P,
+    -1 past them."""
+    from bench import gen
+
+    traffic = {"zipf_alpha": 1.05, "pooling_share": 0.6,
+               "pooling_sigma": 0.6}
+    sizes = {"vocab_sizes": [V] * F, "pooling": [P] * F}
+    return gen.draw_batch(sizes, traffic, B, g, device)["sparse_ids"]
+
+
+# (dtype, D, P, items, rows a table, row window, table-major launches): the
+# rm2 cells' rows (bf16, 128 bytes, multi-hot), f32 rows of 128 bytes at
+# P = 8, MT-WnD's deep (f32, 128 bytes) and wide (D = 1) one-id bags, at 26
+# tables of 32,768 items, more than the resident teams; the rm2 rows
+# through a row window; rmc1's 1,024-item launch, whose bags all fit one
+# wave.  One-id bags and D = 1 keep the item order.
+TABLE_MAJOR = {
+    "rm2": ("bf16", 64, 64, 32_768, 200_000, None, 1),
+    "f32_p8": ("f32", 32, 8, 32_768, 200_000, None, 1),
+    "mtwnd_deep": ("f32", 32, 1, 32_768, 200_000, None, 0),
+    "mtwnd_wide": ("f32", 1, 1, 32_768, 200_000, None, 0),
+    "rm2_window": ("bf16", 64, 64, 32_768, 200_000, (1_300_000, 3_900_000),
+                   1),
+    "rmc1_1024": ("f32", 32, 80, 1_024, 200_000, None, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(TABLE_MAJOR))
+def test_k1_table_major_walk_equals_item_order(cuda_device, case):
+    """The per-feature entry at launches of several waves (26 features of
+    32,768 items; rmc1's 10 of 1,024) walks its bags feature by feature
+    where a bag's row and its ids each fill a 32-byte sector: bitwise the
+    item order's output
+    (the same launch of ids [B * F, 1, P] on the shifted ids, one feature,
+    which keeps the item order), through a row window too, and near the
+    plain version on the first items.  ``table_major_launches`` moves by
+    one only where a feature's bags outnumber the resident teams and the
+    walk applies."""
+    dtype, D, P, B, V, window, counted = TABLE_MAJOR[case]
+    F = 10 if case == "rmc1_1024" else 26
+    g = torch.Generator(cuda_device).manual_seed(D * 100 + P)
+    ids = _zipf_ids(g, B, F, P, V, cuda_device)
+    off = torch.arange(F, dtype=torch.int64, device=cuda_device) * V
+    table = torch.empty((F * V, D), device=cuda_device).uniform_(
+        -1, 1, generator=g).to(TDT[dtype])
+    kw, ref = {}, embedding_bag_features_ref
+    if window is not None:
+        lo, hi = window
+        table = table[lo:hi].contiguous()
+        kw = dict(row_window=window, out_dtype=torch.float32)
+
+        def ref(t, i, o):
+            return embedding_bag_window_ref(t, i, o, window, torch.float32)
+    before = (k1_ops.launches + k1_ops.window_launches,
+              k1_ops.table_major_launches)
+    got = embedding_bag_features(table, ids, off, **kw)
+    torch.cuda.synchronize()
+    assert (k1_ops.launches + k1_ops.window_launches,
+            k1_ops.table_major_launches) == (before[0] + 1,
+                                             before[1] + counted)
+    flat = shift_feature_ids(ids, off).to(torch.int32).reshape(B * F, 1, P)
+    zero = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    items = embedding_bag_features(table, flat, zero, **kw)
+    torch.cuda.synchronize()
+    assert k1_ops.table_major_launches == before[1] + counted
+    assert torch.equal(got, items.reshape(got.shape))
+    tol = K1_TOL["f32" if window else dtype]
+    torch.testing.assert_close(got[:256].float(),
+                               ref(table, ids[:256], off).float(),
+                               rtol=tol, atol=tol)
 
 
 def _emb_case(seed=1, B=24, **kw):

@@ -206,6 +206,32 @@ def test_features_entry_rejected_inputs():
     assert embedding_bag_features(t, i[:0], o).shape == (0, 3, cfg.dim)
 
 
+@pytest.mark.parametrize("window", [False, True])
+def test_table_major_count_on_meta_path(window):
+    """The shape-only path (meta tensors) launches nothing: at an rm2
+    serve_bulk launch, whose card launch walks one table at a time, no
+    launch count moves, ``table_major_launches`` included; on CPU tensors
+    neither does the plain version."""
+    B, F, P, D = 262_144, 26, 64, 64
+    table = torch.empty((F * 5_000_000, D), dtype=torch.bfloat16,
+                        device="meta")
+    ids = torch.empty((B, F, P), dtype=torch.int32, device="meta")
+    off = torch.empty((F,), dtype=torch.int64, device="meta")
+    kw = dict(row_window=(0, table.shape[0]),
+              out_dtype=torch.float32) if window else {}
+    counts = ("launches", "window_launches", "table_major_launches")
+    before = [getattr(ops, c) for c in counts]
+    out = embedding_bag_features(table, ids, off, **kw)
+    assert out.device.type == "meta" and out.shape == (B, F, D)
+    cfg, jt, cids, coff = _features_case("bf16", False, "sum", B=4)
+    t = params_from_reference(np.asarray(jt), device=CPU)
+    embedding_bag_features(t, torch.from_numpy(cids), torch.from_numpy(coff),
+                           **({} if not window else dict(
+                               row_window=(0, t.shape[0]),
+                               out_dtype=torch.float32)))
+    assert [getattr(ops, c) for c in counts] == before
+
+
 # ---------------------------------------------------------------------------
 # the table gradient (K1's backward)
 # ---------------------------------------------------------------------------

@@ -19,7 +19,18 @@ alone with nvcc and prints one JSON line:
     plain version, ``F.embedding_bag``, the bound);
   - ``sparse_stage_ms``: ``embedding_bag_local`` at the rmc1 launch, host
     clock from an idle device to the device's end of it (the SparseNet stage
-    of a fused launch).
+    of a fused launch);
+  - ``cells``: K1's per-feature entry at the benchmark cells' own launches
+    (``CELL_SHAPES``: rm2 serve_bulk [262144, 26, 64] bf16, MT-WnD's deep
+    (f32, D = 32) and wide (D = 1) launches [262144, 26, 1], rm2's
+    1,000,000-item retrieval call) on the cells' full tables, ids drawn by
+    ``bench/gen.py``'s ``draw_batch`` at the cells' traffic files from one
+    seed: ``ms`` (one launch repeated), ``ms_cold_l2`` (100 MB written
+    before each), the byte bound (ids, distinct rows, output), the first
+    1,024 items against the plain version, the launches counted as
+    table-major (None for a tree without the count), and ``digest``, the
+    SHA-256 of the output's bytes, so that ``--ab`` shows two trees'
+    outputs bitwise equal or not.
 
 With ``--sweep`` (this checkout only) it writes one patched copy of
 ``csrc/embedding_bag.cu`` per launch setting of ``SWEEP`` under the
@@ -72,8 +83,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-INSTANCE = re.compile(r"k1_bag_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)"
-                      r"ELi(\d+)ELi(\d+)ELb([01])E")
+# k1_bag_kernel<T, O, kWindow, V, L, C, S, U, kFit[, kByFeature]> mangled
+# (O: float, or a back-reference to T)
+INSTANCE = re.compile(r"k1_bag_kernelI(f|13__nv_bfloat16)(f|S\d*_)Lb([01])E"
+                      r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E"
+                      r"(?:Lb([01])E)?")
 OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 # warps a block (the name of the constant in older trees too)
 WARPS = re.compile(r"constexpr int kWarps(?:PerBlock)? = (\d+);")
@@ -95,9 +109,12 @@ def instance_name(mangled: str) -> str:
     m = INSTANCE.search(mangled)
     if m is None:
         return mangled
-    t, v, l, c, team, u, fit = m.groups()
-    return (f"{'f32' if t == 'f' else 'bf16'} V={v} L={l} C={c} S={team} "
-            f"U={u} fit={fit}")
+    t, o, window, v, l, c, team, u, fit, by_feature = m.groups()
+    dt = "f32" if t == "f" else "bf16"
+    out = "->f32" if o == "f" and t != "f" else ""
+    return (f"{dt}{out}{' window' * (window == '1')} V={v} L={l} C={c} "
+            f"S={team} U={u} fit={fit}"
+            f"{' by feature' * (by_feature == '1')}")
 
 
 def blocks_per_sm(registers: int, smem: int, warps: int) -> int:
@@ -241,6 +258,129 @@ def shape_cases(dev):
                torch.from_numpy(ids3_np).to(dev), cfg, tol)
 
 
+# (name, configuration file, traffic file, table): the cells' K1 launches;
+# "wide" is MT-WnD's dim-1 wide table, pooled from the deep launch's ids
+CELL_SHAPES = (
+    ("rm2_serve_bulk", "dlrm-rm2", "bulk", "deep"),
+    ("rm2_retrieval", "dlrm-rm2", "retrieval", "deep"),
+    ("mtwnd_deep", "mt-wnd", "bulk", "deep"),
+    ("mtwnd_wide", "mt-wnd", "bulk", "wide"),
+)
+CELL_SEED = 7
+CHECK_ITEMS = 1024
+
+
+def cell_embedding(sizes: dict, table: str):
+    """The port's EmbeddingConfig of a benchmark configuration file's
+    sizes (as the benchmark builds it), dim 1 for MT-WnD's wide table."""
+    from bench.harness import port_config
+    from repro_torch.models.widedeep import _wide_cfg
+
+    cfg = port_config(sizes)
+    return _wide_cfg(cfg) if table == "wide" else cfg.embedding
+
+
+def output_digest(out) -> str:
+    """SHA-256 of a tensor's bytes on the host."""
+    import hashlib
+
+    import torch
+
+    raw = out.contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.data).hexdigest()
+
+
+def distinct_rows(ids, offsets, total_rows: int) -> int:
+    """Rows of the combined table that the launch's live ids read."""
+    import torch
+
+    seen = torch.zeros(total_rows, dtype=torch.bool, device=ids.device)
+    for f in range(ids.shape[1]):
+        col = ids[:, f]
+        seen[col[col >= 0].long() + offsets[f]] = True
+    return int(seen.sum())
+
+
+def measure_cell(name: str, table, ids, emb, scrub, bw: float) -> dict:
+    """One line of ``cells``: K1's per-feature entry on ``table``/``ids``
+    (the cell's embedding config ``emb``) checked, digested and timed."""
+    import torch
+
+    import chip_smoke as smoke
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.models.embedding import routed_offsets
+
+    off = routed_offsets(emb, table.device)
+
+    def launch():
+        return ops.embedding_bag_features(table, ids, off)
+
+    counted = getattr(ops, "table_major_launches", None)
+    with torch.inference_mode():
+        out = launch()
+        torch.cuda.synchronize()
+        if counted is not None:
+            counted = ops.table_major_launches - counted
+        want = ref.embedding_bag_features_ref(table, ids[:CHECK_ITEMS], off)
+        tol = smoke.F32_TOL if emb.dtype == torch.float32 else smoke.BF16_TOL
+        err = smoke.check(name, out[:CHECK_ITEMS], want, tol)
+        digest = output_digest(out)
+        del out, want
+        ms = smoke.time_ms(launch)
+        cold = smoke.time_ms(launch, before=scrub.zero_)
+    esize = table.element_size()
+    n_bytes = (distinct_rows(ids, emb.row_offsets, emb.total_rows)
+               * emb.dim * esize + ids.numel() * 4
+               + ids.shape[0] * ids.shape[1] * emb.dim * esize)
+    bound = n_bytes / bw * 1e3
+    print(json.dumps({"cell": name, "ms": ms, "digest": digest[:16]}),
+          file=sys.stderr, flush=True)
+    return {"ids": list(ids.shape), "table": list(table.shape),
+            "dtype": str(table.dtype).replace("torch.", ""),
+            "live_slots": int((ids >= 0).sum()), "max_abs_err": err,
+            "table_major_launches": counted, "ms": ms, "ms_cold_l2": cold,
+            "bound_ms": bound, "roofline_pct": 100 * bound / ms,
+            "digest": digest}
+
+
+def measure_cells(dev, bw: float) -> dict:
+    """``cells`` (see above): each table made once from a seeded generator
+    and each launch's ids drawn once, on ``dev``; a table or ids freed
+    before the next is made (MT-WnD's deep table is 66.6 GB)."""
+    import torch
+
+    import chip_smoke as smoke
+    from bench import gen
+
+    scrub = torch.empty(100 * 2**20 // 4, device=dev)
+    res, held = {}, {}
+    for name, config, traffic, which in CELL_SHAPES:
+        sizes = json.loads((ROOT / "bench" / "configs" / f"{config}.json")
+                           .read_text())
+        tr = json.loads((ROOT / "bench" / "traffic" / f"{traffic}.json")
+                        .read_text())
+        emb = cell_embedding(sizes, which)
+        if held.get("ids_key") != (config, traffic):
+            held.pop("ids", None)
+        if held.get("table_key") != (config, which):
+            held.pop("table", None)
+            torch.cuda.empty_cache()
+            g = torch.Generator(dev).manual_seed(CELL_SEED)
+            held["table"] = smoke.k1_table(dev, emb, emb.dtype, g)
+            held["table_key"] = (config, which)
+        if "ids" not in held:
+            torch.cuda.empty_cache()
+            g = gen.generator(gen.subseed(CELL_SEED, 2, 0), dev)
+            held["ids"] = gen.draw_batch(sizes, tr, tr["batch"], g,
+                                         dev)["sparse_ids"]
+            held["ids_key"] = (config, traffic)
+        res[name] = measure_cell(name, held["table"], held["ids"], emb,
+                                 scrub, bw)
+    held.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_one(src: Path) -> dict:
     sys.path.insert(0, str(src.resolve()))
     sys.path.insert(1, str(ROOT))
@@ -284,6 +424,7 @@ def run_one(src: Path) -> dict:
         del table, ids, ids3
         torch.cuda.empty_cache()
     out["shapes"] = shapes
+    out["cells"] = measure_cells(dev, bw)
     return out
 
 
@@ -569,11 +710,19 @@ def main() -> int:
         return 0
     keys = ("ms", "ms_cold_l2", "ms_cold_clean", "ms_stream", "library_ms",
             "bound_ms")
+    cell_keys = ("ms", "ms_cold_l2", "bound_ms", "table_major_launches",
+                 "digest")
     for line in lines:
         print(json.dumps({"src": line["src"], "card": line["card"],
                           "sparse_stage_ms": line["sparse_stage_ms"],
                           **{n: {k: c[k] for k in keys}
-                             for n, c in line["shapes"].items()}}))
+                             for n, c in line["shapes"].items()},
+                          **{n: {k: c[k] for k in cell_keys}
+                             for n, c in line["cells"].items()}}))
+    digests = {n: {line["cells"][n]["digest"] for line in lines}
+               for n in lines[0]["cells"]}
+    print(json.dumps({"outputs_bitwise_equal": {
+        n: len(d) == 1 for n, d in digests.items()}}))
     return 0
 
 
