@@ -38,17 +38,29 @@ class Verdict:
     checks: dict
 
 
+def _take_rows(batch: dict, idx: torch.Tensor) -> dict:
+    return {k: v[idx] for k, v in batch.items()}
+
+
 def reference_scores(ref, params, batch: dict, rows: torch.Tensor,
-                     sizes: dict, precision: str = "float32") -> torch.Tensor:
+                     sizes: dict, precision: str = "float32", *,
+                     take=None) -> torch.Tensor:
     """The reference's scores of a batch's ``rows``, in blocks of rows, as
-    a float32 tensor on the host."""
-    idx = rows.to(batch["sparse_ids"].device)
-    per_item = common.gather_bytes(sizes, sizes["embed_dim"])
+    a float32 tensor on the host.  ``take(batch, idx)`` gives the batch of
+    items ``idx`` alone (the traffic loop's; else every tensor of the
+    batch indexed by them), and the reference's ``item_bytes(sizes)`` the
+    bytes an item holds in ``scores`` (else ``common.gather_bytes``)."""
+    take = take or _take_rows
+    device = next(v.device for v in batch.values()
+                  if isinstance(v, torch.Tensor))
+    idx = rows.to(device)
+    per_item = (ref.item_bytes(sizes) if hasattr(ref, "item_bytes")
+                else common.gather_bytes(sizes, sizes["embed_dim"]))
     block = max(1, REF_BLOCK_BYTES // per_item)
     out = []
     with torch.inference_mode(), common.precision_context(precision):
         for r0 in range(0, len(idx), block):
-            part = {k: v[idx[r0:r0 + block]] for k, v in batch.items()}
+            part = take(batch, idx[r0:r0 + block])
             out.append(ref.scores(params, part, sizes, precision).cpu())
     return torch.cat(out)
 
@@ -63,7 +75,8 @@ def _gap(answer, want: torch.Tensor, scale: float) -> float:
     return float(d.max()) / scale if d.numel() else 0.0
 
 
-def compare(ref, params, pool: list[dict], sizes: dict, answers) -> Verdict:
+def compare(ref, params, pool: list[dict], sizes: dict, answers, *,
+            take=None) -> Verdict:
     """Every step's kept answers (``answers.which[k]`` the pool batch of
     step k, ``answers.answer(k)`` the scores of that batch's
     ``answers.rows[j]``) against the reference's scores of those rows."""
@@ -71,7 +84,8 @@ def compare(ref, params, pool: list[dict], sizes: dict, answers) -> Verdict:
     which = answers.which
     gaps = [math.inf] * len(which)
     for j in sorted(set(which)):
-        want = reference_scores(ref, params, pool[j], answers.rows[j], sizes)
+        want = reference_scores(ref, params, pool[j], answers.rows[j], sizes,
+                                take=take)
         scale = max(float(want.abs().max()), 1e-30)
         for k, w in enumerate(which):
             if w == j:
@@ -100,9 +114,10 @@ class _Kept:
 
 
 def control_gap(ref, params, pool: list[dict], sizes: dict,
-                rows: list[torch.Tensor]) -> Verdict:
+                rows: list[torch.Tensor], *, take=None) -> Verdict:
     """The control: the reference in the configuration's ``control``
     precision, in the program's place, once a pool batch."""
-    answers = [reference_scores(ref, params, b, r, sizes, sizes["control"])
+    answers = [reference_scores(ref, params, b, r, sizes, sizes["control"],
+                                take=take)
                for b, r in zip(pool, rows)]
-    return compare(ref, params, pool, sizes, _Kept(rows, answers))
+    return compare(ref, params, pool, sizes, _Kept(rows, answers), take=take)

@@ -2,8 +2,9 @@
 
 The cell's entry in ``BENCHMARK.json`` names a configuration and a
 traffic.  The configuration file (``bench/configs/<name>.json``) holds the
-model's sizes as they are run, names the port's registered configuration
-they must equal, the port's model class and the plain reference
+model's sizes as they are run (any field of the port's ``RecsysConfig``
+and ``EmbeddingConfig``), names the port's registered configuration they
+must equal, the port's model class and the plain reference
 (``bench/reference/<family>.py``), the control's precision and the limit
 of the comparison.  The traffic file (``bench/traffic/<name>.json``) holds
 the traffic's parameters, and its ``loop`` names the module
@@ -12,9 +13,10 @@ offers them in the window.
 
 Set-up draws the weights (``reference.draw_params``) and the loop's pool
 on the device from the seed, builds the port's model on those weights,
-and warms the step up on each shape of the pool.  A step is the port's
-``model(batch)`` on a pool batch under ``torch.inference_mode``, with its
-scores copied to the host; the loop decides which steps run when, until
+and warms the step up on each batch size of the pool.  A step is the
+loop's ``step(model, batch)`` (the port's ``model(batch)`` where the loop
+has none) on a pool batch under ``torch.inference_mode``, with its scores
+copied to the host; the loop decides which steps run when, until
 ``seconds`` have passed.  After the window the process's peak is read,
 the model and its activations are freed, and every step's scores are
 compared with the reference's scores of its batch (``bench.check``).
@@ -33,7 +35,7 @@ from pathlib import Path
 
 import torch
 
-from bench import check, devtrace, gen
+from bench import check, devtrace, gen, progtrace
 from bench.reference import common
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -65,6 +67,7 @@ class Run:
     peaks: dict
     work: list[dict] | None = None        # a pool batch's needs (traced run)
     trace: devtrace.Summary | None = None
+    program: progtrace.Summary | None = None  # the port's spans (traced run)
 
     @property
     def steps(self) -> int:
@@ -105,10 +108,6 @@ def load_cell(name: str, root: Path = ROOT, *, sizes: dict | None = None,
                 root=root)
 
 
-def reference(sizes: dict):
-    return importlib.import_module(f"bench.reference.{sizes['family']}")
-
-
 def load_file(root: Path, kind: str, name: str):
     """``root/bench/<kind>/<name>.py`` as a module."""
     path = root / "bench" / kind / f"{name}.py"
@@ -117,6 +116,17 @@ def load_file(root: Path, kind: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reference(cell: Cell):
+    """The configuration's plain reference, ``bench/reference/<family>.py``:
+    ``draw_params(sizes, generator, device)``, ``scores(params, batch,
+    sizes, precision)`` and ``work(sizes, stats)``; optionally
+    ``stats(sizes, batch)`` (what ``work`` reads of a pool batch; else
+    ``batch_stats``) and ``item_bytes(sizes)`` (the largest temporary of
+    one item in ``scores``, which sizes the check's blocks of rows; else
+    ``common.gather_bytes``)."""
+    return load_file(cell.root, "reference", cell.sizes["family"])
 
 
 def metric_reader(root: Path, name: str):
@@ -131,34 +141,65 @@ def loop(cell: Cell):
     """The traffic's loop, ``bench/loops/<loop>.py``: ``draw_pool(sizes,
     traffic, seed, device)`` gives the pool of batches, and
     ``window(launch, finish, pool, traffic, seconds)`` offers them and
-    gives (window s, each step's latency s)."""
+    gives (window s, each step's latency s).  Optionally ``step(model,
+    batch)``, the scores of a batch's items (else ``model(batch)``);
+    ``items(batch)``, how many items a batch scores (else the rows of its
+    ``sparse_ids``); ``take(batch, idx)``, the batch of those items alone,
+    for the reference (else every tensor of the batch indexed by them)."""
     return load_file(cell.root, "loops", cell.traffic["loop"])
+
+
+def _model_step(model, batch: dict) -> torch.Tensor:
+    return model(batch)
+
+
+def _sparse_items(batch: dict) -> int:
+    return batch["sparse_ids"].shape[0]
+
+
+def items_of(lp, pool: list[dict]) -> list[int]:
+    items = getattr(lp, "items", _sparse_items)
+    return [items(b) for b in pool]
 
 
 # --- the port ---------------------------------------------------------------
 
 
+# configuration-file keys that differ from the EmbeddingConfig field's name
+EMBEDDING_KEYS = {"dim": "embed_dim", "dtype": "table_dtype"}
+
+
+def _fields(cls, sizes: dict, keys: dict) -> dict:
+    """The fields of dataclass ``cls`` that the configuration file gives
+    (under ``keys.get(field, field)``): a dtype by its name, a list as a
+    tuple, anything else as it is."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        key = keys.get(f.name, f.name)
+        if key not in sizes:
+            continue
+        v = sizes[key]
+        if f.name == "dtype":
+            v = common.DTYPES[v]
+        elif isinstance(v, list):
+            v = tuple(v)
+        out[f.name] = v
+    return out
+
+
 def port_config(sizes: dict):
-    """The port's RecsysConfig of these sizes, held equal to the port's
-    registered configuration that the file names, so that the benchmark
-    never measures another model under the configuration's name."""
+    """The port's RecsysConfig of these sizes: every field of it and of its
+    EmbeddingConfig that the file gives, the dataclass default where it
+    gives none.  Held equal to the port's registered configuration that
+    the file names, so that the benchmark never measures another model
+    under the configuration's name."""
     from repro_torch.models.embedding import EmbeddingConfig
     from repro_torch.models.recsys_base import RecsysConfig
 
-    dt = common.DTYPES
-    cfg = RecsysConfig(
-        name=sizes["name"],
-        embedding=EmbeddingConfig(
-            vocab_sizes=tuple(sizes["vocab_sizes"]), dim=sizes["embed_dim"],
-            pooling=tuple(sizes["pooling"]), dtype=dt[sizes["table_dtype"]],
-            row_pad=sizes["row_pad"]),
-        n_dense=sizes["n_dense"],
-        bottom_mlp=tuple(sizes.get("bottom_mlp", ())),
-        top_mlp=tuple(sizes["top_mlp"]),
-        interaction=sizes["interaction"],
-        n_tasks=sizes["n_tasks"],
-        dtype=dt[sizes["dtype"]])
-    return cfg
+    return RecsysConfig(
+        **_fields(RecsysConfig, sizes, {}),
+        embedding=EmbeddingConfig(**_fields(EmbeddingConfig, sizes,
+                                            EMBEDDING_KEYS)))
 
 
 def registered_config(sizes: dict):
@@ -184,10 +225,13 @@ def port_model(sizes: dict, cfg, params):
 
 
 def traced_methods(model) -> None:
-    """The model's SparseNet and DenseNet, each inside a host span."""
+    """The model's SparseNet and DenseNet, each inside a host span, where
+    the model has them (DLRM's and Wide & Deep's two halves)."""
     for attr, span in (("apply_sparse", "sparse"),
                        ("apply_dense_given_pooled", "dense")):
-        fn = getattr(model, attr)
+        fn = getattr(model, attr, None)
+        if fn is None:
+            continue
 
         def wrapped(*args, _fn=fn, _span=devtrace.SPAN_PREFIX + span):
             with torch.profiler.record_function(_span):
@@ -201,7 +245,7 @@ def traced_methods(model) -> None:
 
 # rows of each pool batch whose answers every step keeps for the check
 SAMPLE_ROWS = 4096
-# steps run on each shape of the pool before the window
+# steps run on each batch size of the pool before the window
 WARMUP_STEPS = 2
 
 
@@ -215,10 +259,6 @@ def sample_rows(pool_items: list[int], seed: int) -> list[torch.Tensor]:
         idx = torch.randperm(n, generator=g)[:SAMPLE_ROWS]
         out.append(idx.sort().values)
     return out
-
-
-def items_of(pool: list[dict]) -> list[int]:
-    return [b["sparse_ids"].shape[0] for b in pool]
 
 
 class Answers:
@@ -290,13 +330,14 @@ class Answers:
         self.which = []
 
 
-def make_step(model, pool: list[dict], answers: Answers, traced: bool):
-    """(launch, finish): ``launch(i, j)`` queues step i, the port's
-    ``model(batch)`` on pool batch j, and its scores' copy to the host;
+def make_step(step, model, pool: list[dict], answers: Answers,
+              traced: bool):
+    """(launch, finish): ``launch(i, j)`` queues step i, ``step(model,
+    batch)`` on pool batch j, and its scores' copy to the host;
     ``finish(j, started)`` waits for them and keeps the answers."""
     def launch(i: int, j: int):
         with torch.inference_mode():
-            return answers.start(i, model(pool[j]))
+            return answers.start(i, step(model, pool[j]))
 
     if not traced:
         return launch, answers.finish
@@ -354,13 +395,13 @@ def card_info(device: torch.device) -> dict:
     return info
 
 
-def draw_inputs(cell: Cell, seed: int, device: torch.device):
+def draw_inputs(cell: Cell, ref, lp, seed: int, device: torch.device):
     """The weights and the traffic's pool, drawn on ``device`` from the
     seed: what the program and the reference are both given."""
     with torch.no_grad():
-        params = reference(cell.sizes).draw_params(
+        params = ref.draw_params(
             cell.sizes, gen.generator(gen.subseed(seed, 1), device), device)
-        pool = loop(cell).draw_pool(cell.sizes, cell.traffic, seed, device)
+        pool = lp.draw_pool(cell.sizes, cell.traffic, seed, device)
     return params, pool
 
 
@@ -368,10 +409,11 @@ def control_reading(cell: Cell, seed: int, device: torch.device
                     ) -> check.Verdict:
     """The control on the cell's inputs of ``seed``: the reference in the
     configuration's lower precision, in the program's place."""
-    params, pool = draw_inputs(cell, seed, device)
-    rows = sample_rows(items_of(pool), seed)
-    return check.control_gap(reference(cell.sizes), params, pool,
-                             cell.sizes, rows)
+    ref, lp = reference(cell), loop(cell)
+    params, pool = draw_inputs(cell, ref, lp, seed, device)
+    rows = sample_rows(items_of(lp, pool), seed)
+    return check.control_gap(ref, params, pool, cell.sizes, rows,
+                             take=getattr(lp, "take", None))
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
@@ -380,23 +422,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     ``failed``, ``metrics``, ``device``, ``breakdown``, ``checks``)."""
     t_process = time.perf_counter() if t_process is None else t_process
     sizes, tr = cell.sizes, cell.traffic
-    ref = reference(sizes)
+    ref, lp = reference(cell), loop(cell)
     cfg = port_config(sizes)
     peaks = read_json(cell.root / "bench" / "peaks.json")
     if device.type == "cuda":
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(device)
-    params, pool = draw_inputs(cell, seed, device)
-    offer = loop(cell).window
+    params, pool = draw_inputs(cell, ref, lp, seed, device)
     model = port_model(sizes, cfg, params)
-    pool_items = items_of(pool)
+    pool_items = items_of(lp, pool)
     answers = Answers(sample_rows(pool_items, seed), tr["in_flight"])
-    launch, finish = make_step(model, pool, answers, traced)
-    shapes = {}
-    for j, b in enumerate(pool):
-        shapes.setdefault(tuple(b["sparse_ids"].shape), j)
+    launch, finish = make_step(getattr(lp, "step", _model_step), model,
+                               pool, answers, traced)
+    first = {}
+    for j, n in enumerate(pool_items):
+        first.setdefault(n, j)
     i = 0
-    for j in shapes.values():
+    for j in first.values():
         for _ in range(WARMUP_STEPS):
             t0 = time.perf_counter()
             finish(j, launch(i, j))
@@ -421,7 +463,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     gc.disable()
     try:
         with torch.profiler.record_function(devtrace.SPAN_PREFIX + "window"):
-            window_s, lat = offer(launch, finish, pool, tr, seconds)
+            window_s, lat = lp.window(launch, finish, pool, tr, seconds)
     finally:
         gc.enable()
         if prof is not None:
@@ -436,11 +478,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
               window_s=window_s, latencies_s=lat, which=answers.which,
               pool_items=pool_items, peaks=peaks)
     if traced:
-        run.trace = devtrace.summarize(devtrace.events_from_profiler(prof))
-        with torch.inference_mode():
-            run.work = [ref.work(sizes, batch_stats(sizes, b)) for b in pool]
+        events = devtrace.events_from_profiler(prof)
         prof = None
-    verdict = check.compare(ref, params, pool, sizes, answers)
+        run.trace = devtrace.summarize(events)
+        run.program = progtrace.summarize(events)
+        del events
+        stats = getattr(ref, "stats", batch_stats)
+        with torch.inference_mode():
+            run.work = [ref.work(sizes, stats(sizes, b)) for b in pool]
+    verdict = check.compare(ref, params, pool, sizes, answers,
+                            take=getattr(lp, "take", None))
     del answers
 
     metrics = {}
@@ -460,6 +507,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
             "idle_gaps": [list(x) for x in run.trace.idle_gaps]}
     out["checks"] = verdict.checks
     out["_notes"] = _notes(run)
+    if traced:
+        out["_notes"].append(progtrace.idle_note(run.program))
     return out
 
 
